@@ -1,0 +1,256 @@
+// K1: fused pre-norm attention block forward,
+//   out = x + W_out . MHA(split_heads(LN(x) . W_qkv + b_qkv)) + b_out
+//
+// Replaces construction_clip_tpu/ops/pallas_attention_block.py:_kernel (launched
+// by _forward's pl.pallas_call). Rounding points follow that kernel: LN in fp32
+// with h rounded to T; qkv = T(h . W_qkv in fp32) + b_qkv in T; logits in fp32
+// times dh^-0.5, causal keys masked; the unnormalised p = exp(logit - max) is
+// rounded to T for p . v (fp32 sum) and the result divided by the fp32 row sum
+// of p; the output is T(x32 + y + b_out) rounded once.
+//
+// What bounds it on the H100: the two weight GEMMs hold ~99% of the FLOPs
+// (at [8,50,768]: 1.9 GFLOP against 4.7 MB of bf16 weights, i.e. far below
+// the ~295 FLOP/byte ridge, so a tensor-core GEMM would be bound by reading
+// the weights). This first version runs the products on the CUDA cores in fp32
+// FMA, so it is bound by the FMA rate, not by memory.
+//
+// Design: on the TPU both weight matrices sit in VMEM (5.3 MB for ViT-B). A
+// Hopper block has at most 227 KB of shared memory, so the block is three
+// launches from one C entry, with qkv and the merged heads in device scratch
+// the wrapper allocates:
+//   (a) block_gemm<kQkv>: a 64x64-tiled GEMM whose prologue computes each row's
+//       LN statistics and normalises the A tile as it is staged in shared memory;
+//   (b) head_attention: one block per (batch, head) with that head's K and V
+//       (T <= 256) staged in dynamic shared memory; one warp per query row;
+//   (c) block_gemm<kResidual>: merged . W_out with a bias + residual epilogue.
+// No library GEMM or attention is called.
+#include <cfloat>
+
+#include "common.cuh"
+
+namespace cct {
+namespace {
+
+constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
+constexpr int kAttnThreads = 128, kAttnWarps = kAttnThreads / 32;
+
+enum Epilogue : int { kQkv = 0, kResidual = 1 };
+
+// out[M, N] = epilogue(A'[M, K] . W[K, N]); A' = T(LN(A)) for kQkv, A otherwise.
+// Each of the 256 threads owns a 4x4 set of outputs strided by 16, so the
+// shared-memory reads of a warp are broadcasts (A) or consecutive (W).
+template <typename T, int EPI>
+__global__ void __launch_bounds__(kGemmThreads)
+block_gemm(const T* __restrict__ a, const T* __restrict__ w, const T* __restrict__ bias,
+           const T* __restrict__ ln_s, const T* __restrict__ ln_b,
+           const T* __restrict__ resid, T* __restrict__ out, int M, int N, int K,
+           float eps) {
+  __shared__ float a_s[kBK][kBM + 1];
+  __shared__ float w_s[kBK][kBN];
+  __shared__ float row_mean[kBM];
+  __shared__ float row_rstd[kBM];
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+
+  if (EPI == kQkv) {
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
+      const int m = m0 + r;
+      float mean = 0.f, rstd = 0.f;
+      if (m < M) {
+        const T* xr = a + (size_t)m * K;
+        float s = 0.f;
+        for (int k = lane; k < K; k += 32) s += to_f(xr[k]);
+        mean = warp_sum(s) / K;
+        float v = 0.f;
+        for (int k = lane; k < K; k += 32) {
+          const float dv = to_f(xr[k]) - mean;
+          v += dv * dv;
+        }
+        rstd = rsqrtf(warp_sum(v) / K + eps);
+      }
+      if (lane == 0) {
+        row_mean[r] = mean;
+        row_rstd[r] = rstd;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
+      const int r = i / kBK, c = i % kBK, m = m0 + r, k = k0 + c;
+      float v = 0.f;
+      if (m < M && k < K) {
+        v = to_f(a[(size_t)m * K + k]);
+        if (EPI == kQkv)
+          v = round_to<T>((v - row_mean[r]) * row_rstd[r] * to_f(ln_s[k]) + to_f(ln_b[k]));
+      }
+      a_s[c][r] = v;
+    }
+    for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
+      const int r = i / kBN, c = i % kBN, k = k0 + r, n = n0 + c;
+      w_s[r][c] = (k < K && n < N) ? to_f(w[(size_t)k * N + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a_s[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = w_s[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= N) continue;
+      const size_t o = (size_t)m * N + n;
+      if (EPI == kQkv)
+        out[o] = from_f<T>(round_to<T>(acc[i][j]) + to_f(bias[n]));
+      else
+        out[o] = from_f<T>(to_f(resid[o]) + acc[i][j] + to_f(bias[n]));
+    }
+  }
+}
+
+size_t attn_smem_bytes(int t_len, int dh) {
+  return sizeof(float) * ((size_t)t_len * (dh + 1) + (size_t)t_len * dh +
+                          (size_t)kAttnWarps * (t_len + dh));
+}
+
+// merged[b, i, h*dh:(h+1)*dh] = softmax-weighted V for query i of head h.
+// K rows are padded to dh+1 floats so that lanes reading 32 keys hit 32 banks.
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads)
+head_attention(const T* __restrict__ qkv, T* __restrict__ merged, int t_len, int d,
+               int n_heads, int causal, float scale) {
+  extern __shared__ float smem[];
+  const int dh = d / n_heads, ks = dh + 1;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* k_s = smem;
+  float* v_s = k_s + (size_t)t_len * ks;
+  float* p_s = v_s + (size_t)t_len * dh + (size_t)warp * t_len;
+  float* q_s = v_s + (size_t)t_len * dh + (size_t)kAttnWarps * t_len + (size_t)warp * dh;
+  const T* base = qkv + (size_t)b * t_len * 3 * d;
+
+  for (int i = threadIdx.x; i < t_len * dh; i += kAttnThreads) {
+    const int t = i / dh, c = i % dh;
+    const T* row = base + (size_t)t * 3 * d + h * dh + c;
+    k_s[t * ks + c] = to_f(row[d]);
+    v_s[t * dh + c] = to_f(row[2 * d]);
+  }
+  __syncthreads();
+
+  for (int i = warp; i < t_len; i += kAttnWarps) {
+    const T* q_row = base + (size_t)i * 3 * d + h * dh;
+    for (int c = lane; c < dh; c += 32) q_s[c] = to_f(q_row[c]);
+    __syncwarp();
+    const int n_keys = causal ? i + 1 : t_len;  // masked keys carry p == 0
+    float m = -FLT_MAX;
+    for (int j = lane; j < n_keys; j += 32) {
+      float s = 0.f;
+      for (int c = 0; c < dh; ++c) s = fmaf(q_s[c], k_s[j * ks + c], s);
+      s *= scale;
+      p_s[j] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < n_keys; j += 32) {
+      const float p = expf(p_s[j] - m);
+      l += p;
+      p_s[j] = round_to<T>(p);
+    }
+    l = warp_sum(l);
+    __syncwarp();
+    for (int c = lane; c < dh; c += 32) {
+      float o = 0.f;
+      for (int j = 0; j < n_keys; ++j) o = fmaf(p_s[j], v_s[j * dh + c], o);
+      merged[((size_t)b * t_len + i) * d + h * dh + c] = from_f<T>(o / l);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const void* w_qkv,
+                      const void* b_qkv, const void* w_out, const void* b_out, void* qkv,
+                      void* merged, void* out, int b, int t, int d, int h, int causal,
+                      float eps, float scale, cudaStream_t stream) {
+  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0) return cudaErrorInvalidValue;
+  const int m = b * t;
+  const size_t smem = attn_smem_bytes(t, d / h);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+
+  const dim3 grid_qkv((3 * d + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  block_gemm<T, kQkv><<<grid_qkv, kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_qkv), static_cast<const T*>(b_qkv),
+      static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), nullptr,
+      static_cast<T*>(qkv), m, 3 * d, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(head_attention<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  head_attention<T><<<dim3(b, h), kAttnThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(merged), t, d, h, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid_out((d + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  block_gemm<T, kResidual><<<grid_out, kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(merged), static_cast<const T*>(w_out),
+      static_cast<const T*>(b_out), nullptr, nullptr, static_cast<const T*>(x),
+      static_cast<T*>(out), m, d, d, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace cct
+
+// Returns a cudaError_t; nonzero means a launch was refused. qkv [B*T, 3D] and
+// merged [B*T, D] are scratch of the input type; all arrays are contiguous.
+extern "C" int cct_attention_block_fwd(int dtype, const void* x, const void* ln_s,
+                                       const void* ln_b, const void* w_qkv,
+                                       const void* b_qkv, const void* w_out,
+                                       const void* b_out, void* qkv, void* merged,
+                                       void* out, int b, int t, int d, int h, int causal,
+                                       float eps, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case cct::kFloat32:
+      return cct::run_block<float>(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, qkv, merged,
+                                   out, b, t, d, h, causal, eps, scale, s);
+    case cct::kBFloat16:
+      return cct::run_block<__nv_bfloat16>(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, qkv,
+                                           merged, out, b, t, d, h, causal, eps, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* cct_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,34 @@
+"""HTTP serving of the port: the JAX package's serving layer
+(construction_clip_tpu/serve/app.py: request batching, routes, JSON contract),
+which imports no JAX, driven by the port's CaptionPipeline.
+
+    from construction_clip_tpu.serve.app import serve
+    serve(TorchPredictService(pipeline, batch_window_ms=20, max_batch=8))
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from construction_clip_tpu.serve.app import PredictService, make_handler, serve
+from construction_clip_tpu_torch.data.preprocess import preprocess_batch
+
+__all__ = ["TorchPredictService", "make_handler", "serve"]
+
+
+class TorchPredictService(PredictService):
+    """PredictService whose caption batch is preprocessed and captioned by the
+    port, on the pipeline's device."""
+
+    def _caption_batch(self, staged_list):
+        # pad to the next power of two, capped at max_batch, as the parent does:
+        # a drain of n requests then runs one of log2(max_batch)+1 batch shapes
+        n = len(staged_list)
+        padded = 1
+        while padded < n:
+            padded *= 2
+        padded = min(padded, self._max_batch)
+        staged_list = list(staged_list) + [staged_list[-1]] * (padded - n)
+        size = self.pipe.clip_cfg.vision.image_size
+        imgs = preprocess_batch(np.stack(staged_list), size, device=self.pipe.device)
+        return self.pipe.caption_images(imgs, use_beam=self.use_beam)[:n]

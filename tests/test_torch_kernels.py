@@ -1,0 +1,139 @@
+"""PyTorch port, the CUDA kernels and their build module. This file imports no JAX, so
+it also runs on a machine that has a GPU and no JAX:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -q
+
+The tests marked `cuda` hold each kernel against its plain version on the card
+and skip where there is none (a CUDA kernel has no CPU mode); the others check
+the build module and the wrappers' dispatch on the CPU."""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from construction_clip_tpu_torch.ops import _build
+from construction_clip_tpu_torch.ops import attention_block as fab
+from construction_clip_tpu_torch.ops import decode_attention as dec
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(1234)
+
+
+def test_nvcc_command_targets_hopper():
+    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-O3" in cmd
+    sources = {os.path.basename(c) for c in cmd if c.endswith(".cu")}
+    assert sources == {"attention_block.cu", "decode_attention.cu"}
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+
+
+def test_source_hash_follows_the_sources(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = _build.source_hash()
+    assert before == _build.source_hash()
+    (csrc / "common.cuh").write_text((csrc / "common.cuh").read_text() + "\n// edit\n")
+    assert _build.source_hash() != before
+
+
+def test_missing_nvcc_is_an_error(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.find_nvcc()
+
+
+def test_kernels_take_fp32_and_bf16_only():
+    assert _build.dtype_code(torch.float32) == 0 and _build.dtype_code(torch.bfloat16) == 1
+    with pytest.raises(ValueError):
+        _build.dtype_code(torch.float16)
+
+
+def test_cpu_tensors_take_the_plain_version(gen):
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch."""
+    x = torch.from_numpy(gen.standard_normal((2, 5, 16)).astype(np.float32))
+    ln = {"scale": torch.ones(16), "bias": torch.zeros(16)}
+    attn = {"w_qkv": torch.from_numpy(gen.standard_normal((16, 48)).astype(np.float32)),
+            "b_qkv": torch.zeros(48),
+            "w_out": torch.from_numpy(gen.standard_normal((16, 16)).astype(np.float32)),
+            "b_out": torch.zeros(16)}
+    before = fab.fused_attention_block.launches
+    got = fab.fused_attention_block(x, ln, attn, n_heads=2, causal=True)
+    want = fab.fused_attention_block_plain(x, ln["scale"], ln["bias"], *attn.values(),
+                                           n_heads=2, causal=True)
+    assert torch.equal(got, want) and fab.fused_attention_block.launches == before
+
+    ck = torch.from_numpy(gen.standard_normal((2, 3, 2, 6, 8)).astype(np.float32))
+    q = torch.from_numpy(gen.standard_normal((3, 2, 8)).astype(np.float32))
+    before = dec.decode_step_attention.launches
+    got = dec.decode_step_attention(q, ck, ck, 1, 4)
+    assert torch.equal(got, dec.decode_step_attention_plain(q, ck, ck, 1, 4))
+    assert dec.decode_step_attention.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# kernel vs plain version on the card, same inputs: fp32 differs by summation
+# order only; bf16 by at most a couple of bf16 rounding steps (2^-7 relative)
+CARD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 50, 768, 12, False), (9, 77, 512, 8, True)])
+def test_attention_block_kernel_on_card(shape, dtype, gen, cuda_device):
+    b, t, d, h, causal = shape
+
+    def arr(*s, scale=1.0, offset=0.0):
+        a = gen.standard_normal(s).astype(np.float32) * scale + offset
+        return torch.from_numpy(a).to(cuda_device, dtype)
+
+    x = arr(b, t, d)
+    ln = {"scale": arr(d, scale=0.1, offset=1.0), "bias": arr(d, scale=0.1)}
+    attn = {"w_qkv": arr(d, 3 * d, scale=d ** -0.5), "b_qkv": arr(3 * d, scale=0.1),
+            "w_out": arr(d, d, scale=d ** -0.5), "b_out": arr(d, scale=0.1)}
+    before = fab.fused_attention_block.launches
+    got = fab.fused_attention_block(x, ln, attn, n_heads=h, causal=causal)
+    want = fab.fused_attention_block_plain(x, ln["scale"], ln["bias"], *attn.values(),
+                                           n_heads=h, causal=causal)
+    torch.cuda.synchronize()
+    assert fab.fused_attention_block.launches == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_ancestry", [False, True])
+def test_decode_attention_kernel_on_card(with_ancestry, dtype, gen, cuda_device):
+    layers, rows, heads, t_max, dh = 12, 24, 12, 140, 64
+    ck, cv = (torch.from_numpy(gen.standard_normal((layers, rows, heads, t_max, dh))
+                               .astype(np.float32)).to(cuda_device, dtype) for _ in range(2))
+    q = torch.from_numpy(gen.standard_normal((rows, heads, dh)).astype(np.float32)).to(
+        cuda_device, dtype)
+    anc = torch.from_numpy(gen.integers(0, rows, (rows, t_max), dtype=np.int32)).to(cuda_device)
+    ancestry = anc if with_ancestry else None
+    before = dec.decode_step_attention.launches
+    got = dec.decode_step_attention(q, ck, cv, 5, 90, ancestry)
+    want = dec.decode_step_attention_plain(q, ck, cv, 5, 90, ancestry)
+    torch.cuda.synchronize()
+    assert dec.decode_step_attention.launches == before + 1
+    # one rounding to the output dtype in both versions
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    with pytest.raises(NotImplementedError):
+        dec.decode_step_attention(q, ck, cv, 5, 90, ancestry,
+                                  attn_bias=torch.zeros(rows, 1, 1, t_max, device=cuda_device))
