@@ -7,13 +7,24 @@ Phases, each printing one line (the last line is the JSON verdict):
   1. device: the card's name and power limit; no CUDA device is an error.
   2. build: nvcc builds the port's CUDA kernels from csrc/ (timed).
   3. K1, the fused attention block, against its plain version at the serving
-     path's shapes, bf16 and fp32, with times.
+     and training paths' shapes, bf16 and fp32, with times.
   4. K2, decode-step attention with beam ancestry, against its plain version.
   5. the serving path at full width (ViT-B/32, GPT-2 12x768, MLP mapper, random
      weights from a numpy seed, bf16): requests from 4 threads through
      TorchPredictService; launch counts of both kernels in that run.
   6. kernel path against plain path at full width in fp32: image features,
      zero-shot classes and greedy tokens.
+  7. K3, the fused block's backward, against its plain version at the training
+     path's shapes, bf16 and fp32, with times.
+  8. K4 and K5, flash attention forward and backward, against their plain
+     versions at the ViT-L/14 image tower's shape and a causal text shape.
+  9. ViT-B/32 contrastive training at full width and depth, bf16, B=36 (4
+     class-balanced groups of 9): 10 make_train_step steps on one batch; the
+     loss must fall; launch counts of K1 and K3.
+ 10. ViT-L/14 contrastive training at full width and depth, bf16, B=9, 3 steps;
+     K4 and K5 launch from the image tower, K1 and K3 from the text tower.
+ 11. the kernel path against the plain path in fp32: loss and every gradient
+     leaf over 2 ViT-B/32 steps from the same params.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The script imports nothing of JAX, tokenizers, transformers or PIL.
 """
@@ -52,13 +63,23 @@ from construction_clip_tpu_torch.ops import _build  # noqa: E402
 from construction_clip_tpu_torch.ops.attention import use_impl  # noqa: E402
 from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
     fused_attention_block, fused_attention_block_plain)
+from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
+    fused_attention_block_bwd, fused_attention_block_bwd_plain)
 from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_step_attention, decode_step_attention_plain)
+from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
 from construction_clip_tpu_torch.serve.app import TorchPredictService  # noqa: E402
+from construction_clip_tpu_torch.train import contrastive  # noqa: E402
+from construction_clip_tpu_torch.train.state import TrainState, make_adamw  # noqa: E402
 
 K1_SHAPES = ((8, 50, 768, 12, False),   # ViT-B/32 image tower, batch 8
              (9, 77, 512, 8, True),     # text tower, 9 violation-type prompts
-             (2, 77, 512, 8, True))     # text tower, 2 caption-type prompts
+             (2, 77, 512, 8, True),     # text tower, 2 caption-type prompts
+             (36, 50, 768, 12, False),  # training: ViT-B/32 image tower, 4 groups of 9
+             (36, 77, 512, 8, True),    # training: ViT-B/32 text tower
+             (9, 77, 768, 12, True))    # training: ViT-L/14 text tower, 1 group of 9
 # bf16 keeps 8 significant bits: one rounding step is up to 2^-7 of the value,
 # and a different summation order can flip the rounding of qkv, p and the
 # output. fp32: the same math with the sums in another order.
@@ -68,6 +89,22 @@ K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 K2_SHAPE = dict(layers=12, rows=24, heads=12, t_max=140, dh=64)   # 8 images x beam 3
 K2_CACHE_LENS = (39, 90, 139)
 
+K3_SHAPES = ((36, 50, 768, 12, False),   # ViT-B/32 image tower, 4 groups of 9
+             (36, 77, 512, 8, True),     # ViT-B/32 text tower
+             (9, 77, 768, 12, True))     # ViT-L/14 text tower, 1 group of 9
+# gradients, as the largest difference over the plain version's largest
+# element: fp32 by summation order; bf16 by single roundings of qkv, dmg, p and
+# ds that another order can flip (one bf16 step is 2^-8)
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+FLASH_SHAPES = ((9, 16, 257, 64, False),   # ViT-L/14 image tower, B=9
+                (9, 12, 77, 64, True))     # a causal text-tower shape
+# the forward rounds p to bf16 relative to a running max in K4 and to the
+# final max in the plain version: a bf16 step apart at most
+FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 2e-5)}
+# fp32 training parity: every gradient leaf by relative norm difference; the
+# kernel and plain paths differ by summation order through 12 layers
+TRAIN_GRAD_TOL = 1e-3
+
 KERNELS = {
     "fused_attention_block": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/attention_block.cu",
@@ -75,7 +112,21 @@ KERNELS = {
     "decode_step_attention": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/decode_attention.cu",
         replaces="construction_clip_tpu/ops/pallas_decode_attention.py:92"),
+    "fused_attention_block_bwd": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/attention_block_bwd.cu",
+        replaces="construction_clip_tpu/ops/pallas_attention_block.py:341"),
+    "flash_attention_fwd": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/flash_attention.cu",
+        replaces="construction_clip_tpu/ops/pallas_attention.py:346"),
+    "flash_attention_bwd": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/flash_attention.cu",
+        replaces="construction_clip_tpu/ops/pallas_attention.py:303"),
 }
+WRAPPERS = {"fused_attention_block": fused_attention_block,
+            "decode_step_attention": decode_step_attention,
+            "fused_attention_block_bwd": fused_attention_block_bwd,
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def say(phase: str, **fields) -> None:
@@ -130,7 +181,8 @@ def phase_device() -> dict:
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load_library()
-    say("build", seconds=time.perf_counter() - t0, library=str(_build.library_path()))
+    say("build", seconds=time.perf_counter() - t0,
+        libraries=[p.name for p in _build.build_all()])
 
 
 def _block_inputs(rng, b, t, d, dtype, dev):
@@ -248,13 +300,15 @@ def synthetic_images(rng, shapes):
 
 
 def reset_launches() -> None:
-    fused_attention_block.launches = 0
-    decode_step_attention.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def launches() -> dict:
-    return {"fused_attention_block": fused_attention_block.launches,
-            "decode_step_attention": decode_step_attention.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+SERVE_KERNELS = ("fused_attention_block", "decode_step_attention")
 
 
 def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
@@ -294,7 +348,7 @@ def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
     with cf.ThreadPoolExecutor(4) as pool:
         responses = list(pool.map(svc.predict, images))
     wall = time.perf_counter() - t0
-    counts = launches()
+    counts = {k: v for k, v in launches().items() if k in SERVE_KERNELS}
     for r in responses:
         if r["caption_type"] not in ("violation", "status") or \
                 r["violation_type"] not in VIOLATION_TYPES or not isinstance(r["caption"], str):
@@ -385,12 +439,197 @@ def phase_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> None:
         min_plain_top2_gap=float(gaps.min()))
 
 
+def compare_scaled(got, want, tol: float, what: str) -> dict:
+    """Largest difference against `tol` times the plain version's largest
+    element (gradients of very different scales)."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    stats = {"max_abs_err": err, "max_scaled_err": err / scale, "tol": tol}
+    if err > tol * scale:
+        raise AssertionError(f"{what}: kernel and plain version disagree: {stats}")
+    return stats
+
+
+def _merge(per: dict) -> dict:
+    return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
+            "max_scaled_err": max(v["max_scaled_err"] for v in per.values()),
+            "tol": next(iter(per.values()))["tol"]}
+
+
+def phase_k3(results: dict) -> None:
+    rng = np.random.default_rng(7)
+    names = ("dx", "dqkv", "merged", "dln_scale", "dln_bias")
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, d, h, causal in K3_SHAPES:
+            x, ln, attn = _block_inputs(rng, b, t, d, dtype, "cuda")
+            g = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(
+                "cuda", dtype)
+            args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"])
+
+            def kernel():
+                return fused_attention_block_bwd(x, g, *args, n_heads=h, causal=causal)
+
+            def plain():
+                return fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            what = f"K3 {[b, t, d]} h={h} causal={causal} {dtype}"
+            per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"{what} {n}")
+                   for n, a, w in zip(names, got, plain())}
+            stats = _merge(per)
+            stats.update(ms=median_ms(kernel, 11, 3), plain_ms=median_ms(plain, 11, 3))
+            say("k3", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype),
+                scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **stats)
+            if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
+                results["fused_attention_block_bwd"] = stats
+
+
+def phase_flash(results: dict) -> None:
+    rng = np.random.default_rng(8)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, t, dh, causal in FLASH_SHAPES:
+            q, k, v, g = (torch.from_numpy(rng.standard_normal((b, h, t, dh))
+                                           .astype(np.float32)).to("cuda", dtype)
+                          for _ in range(4))
+            kw = dict(is_causal=causal, scale=dh ** -0.5)
+            what = f"{[b, h, t, dh]} causal={causal} {dtype}"
+
+            def fwd():
+                return flash_attention_fwd(q, k, v, **kw)
+
+            def fwd_plain():
+                return flash_attention_fwd_plain(q, k, v, **kw)
+
+            def bwd():
+                return flash_attention_bwd(q, k, v, g, **kw)
+
+            def bwd_plain():
+                return flash_attention_bwd_plain(q, k, v, g, **kw)
+
+            got = fwd()
+            torch.cuda.synchronize()
+            f_stats = compare(got, fwd_plain(), *FLASH_TOL[dtype], what=f"K4 {what}")
+            f_stats.update(ms=median_ms(fwd, 11, 5), plain_ms=median_ms(fwd_plain, 11, 5))
+            say("k4", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), **f_stats)
+            got = bwd()
+            torch.cuda.synchronize()
+            per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"K5 {what} {n}")
+                   for n, a, w in zip(("dq", "dk", "dv"), got, bwd_plain())}
+            b_stats = _merge(per)
+            b_stats.update(ms=median_ms(bwd, 11, 3), plain_ms=median_ms(bwd_plain, 11, 3))
+            say("k5", shape=[b, h, t, dh], causal=causal, dtype=str(dtype),
+                scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **b_stats)
+            if (b, h, t, dh) == FLASH_SHAPES[0][:4] and dtype == torch.bfloat16:
+                results["flash_attention_fwd"] = f_stats
+                results["flash_attention_bwd"] = b_stats
+
+
+def class_balanced_batch(cfg, clip_tok, groups: int, seed: int, device) -> dict:
+    """`groups` groups of one synthetic image per violation type, each paired
+    with its type's text, as apps/train_clip.py batches PairGroupDataset."""
+    rng = np.random.default_rng(seed)
+    texts = list(VIOLATION_TYPES) * groups
+    u8 = np.stack(synthetic_images(rng, [(256, 256)] * len(texts)))
+    return {"images": preprocess_batch(u8, cfg.vision.image_size, device=device),
+            "tokens": torch.from_numpy(clip_tok.tokenize(texts, cfg.text.context_length)
+                                       ).to(device)}
+
+
+def phase_train(name: str, cfg, params_np, batch, steps: int, device) -> dict:
+    """`steps` bf16 make_train_step steps on one batch (lr 1e-4, no warmup),
+    with the launch counts of that run."""
+    params = convert.to_params(params_np, device=device, trainable=True)
+    tx = make_adamw(1e-4, warmup_steps=0, total_steps=1000)
+    state = TrainState.create(params, tx)
+    step = contrastive.make_train_step(cfg, tx, policy=BF16_POLICY, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))   # waits for the step
+        times.append(time.perf_counter() - t0)
+        say(f"train_{name}_step", step=i + 1, loss=losses[-1],
+            accuracy=float(m["accuracy"]), ms=times[-1] * 1e3)
+    counts = launches()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: loss not finite: {losses}")
+    out = {"batch": int(batch["tokens"].shape[0]), "steps": steps, "losses": losses,
+           "median_step_ms": statistics.median(times) * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": counts}
+    say(f"train_{name}", **out)
+    return out
+
+
+def _paths(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _paths(value, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}"
+
+
+def phase_train_parity(cfg, params_np, batch, device) -> None:
+    """2 fp32 steps from the same params on the kernel path and on the plain
+    path; the loss and every gradient leaf of both steps compared. A leaf's
+    error is ||g_kernel - g_plain|| / (||g_plain|| + 1e-6 ||G||), G all of the
+    plain gradient: the key bias has a gradient that is mathematically zero
+    (rounding noise on both paths), which the second term keeps from counting
+    as a relative error."""
+    from construction_clip_tpu_torch.core.params import tree_leaves
+    from construction_clip_tpu_torch.train.state import apply_gradients
+
+    runs = {}
+    for impl in ("kernel", "plain"):
+        params = convert.to_params(params_np, device=device, trainable=True)
+        tx = make_adamw(1e-4, warmup_steps=0, total_steps=1000)
+        state = TrainState.create(params, tx)
+        reset_launches()
+        steps = []
+        with use_impl(impl):
+            for _ in range(2):
+                loss, _, grads = contrastive.loss_and_grads(
+                    state.params, cfg, batch["images"], batch["tokens"])
+                steps.append((float(loss), [g.detach().clone() for g in tree_leaves(grads)]))
+                state = apply_gradients(state, grads, tx)
+        runs[impl] = steps
+        runs[impl + "_launches"] = launches()
+    names = list(_paths(as_tree(state.params)))
+    k_l, p_l = runs["kernel_launches"], runs["plain_launches"]
+    if min(k_l[n] for n in ("fused_attention_block", "fused_attention_block_bwd")) == 0 \
+            or any(p_l.values()):
+        raise AssertionError(f"paths not as asked: kernel {k_l}, plain {p_l}")
+    report = []
+    for i, ((lk, gk), (lp, gp)) in enumerate(zip(runs["kernel"], runs["plain"])):
+        total = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in gp])))
+        errs = {n: float(torch.linalg.vector_norm(a - b)
+                         / (torch.linalg.vector_norm(b) + 1e-6 * total))
+                for n, a, b in zip(names, gk, gp)}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(lk - lp) / abs(lp)
+        report.append({"step": i + 1, "loss_kernel": lk, "loss_plain": lp,
+                       "loss_rel_err": loss_err, "worst_leaf": worst,
+                       "worst_leaf_err": errs[worst]})
+        if loss_err > 1e-5 or errs[worst] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"fp32 training parity, step {i + 1}: {report[-1]}")
+    say("train_parity", leaves=len(names), tol=TRAIN_GRAD_TOL, steps=report)
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
     results: dict = {}
     phase_k1(results)
     phase_k2(results)
+    phase_k3(results)
+    phase_flash(results)
     with tempfile.TemporaryDirectory() as tmp:
         clip_tok, lm_tok = tokenizers(tmp)
     cfgs = (CLIPConfig.vit_b_32(), GPT2Config(), ClipCapConfig())   # full width
@@ -398,6 +637,26 @@ def main() -> None:
     cap_np = convert.init_clipcap(1, cfgs[2], cfgs[1])
     counts = phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
     phase_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
+
+    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
+    out = phase_train("vit_b_32", cfgs[0], clip_np, batch, 10, "cuda")
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"ViT-B/32 loss did not fall: {out['losses']}")
+    for name in ("fused_attention_block", "fused_attention_block_bwd"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in ViT-B/32 training")
+    counts["fused_attention_block_bwd"] = out["launches"]["fused_attention_block_bwd"]
+
+    cfg_l = CLIPConfig.vit_l_14()
+    batch = class_balanced_batch(cfg_l, clip_tok, 1, 10, "cuda")
+    out = phase_train("vit_l_14", cfg_l, convert.init_clip(2, cfg_l), batch, 3, "cuda")
+    if min(out["launches"][n] for n in KERNELS if n != "decode_step_attention") <= 0:
+        raise AssertionError(f"a kernel of ViT-L/14 training never launched: "
+                             f"{out['launches']}")
+    counts.update({n: out["launches"][n] for n in ("flash_attention_fwd", "flash_attention_bwd")})
+
+    batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
+    phase_train_parity(cfgs[0], clip_np, batch, "cuda")
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
                 "plain_ms": results[name]["plain_ms"]} for name in KERNELS]

@@ -1,0 +1,169 @@
+"""Contrastive CLIP fine-tune on class-balanced N-way pairs, on one device (the
+port's counterpart of apps/train_clip.py):
+
+    python -m construction_clip_tpu_torch.apps.train_clip --json_path all.json \\
+        --image_path images/ --arch vit_b_32 --groups_per_batch 4
+
+Same flags and defaults as apps/train_clip.py, except that --resume names a
+checkpoint directory of this package (train/checkpoint.py), --checkpoint takes
+the .npz that either package writes, and --native_loader is not ported. It
+trains on the first CUDA device, or on the CPU where there is none; each step
+runs the port's kernels on the card (train/contrastive.py). Every epoch is a
+resumable unit: `<output_dir>/<prefix>_comb<N>/step_<epoch>.pt`, and a rerun
+resumes from the latest. At the end it writes `<prefix>_latest.npz`, which the
+JAX package's apps read as a CLIP checkpoint.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--json_path", default="../all.json")
+    p.add_argument("--image_path", default="../")
+    p.add_argument("--key", default="violation_type",
+                   choices=["violation_type", "caption_type", "violation_list", "caption"])
+    p.add_argument("--combination_num", type=int, default=9)
+    p.add_argument("--train_ratio", type=float, default=0.8)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--warmup_steps", type=int, default=5000)
+    p.add_argument("--epochs", type=int, default=1000)
+    p.add_argument("--save_every", type=int, default=100)
+    p.add_argument("--groups_per_batch", type=int, default=1)
+    p.add_argument("--output_dir", default="models")
+    p.add_argument("--output_prefix", default="clip")
+    p.add_argument("--checkpoint", default=None, help=".npz params (either package's)")
+    p.add_argument("--clip_bpe", default=None, help="path to bpe_simple_vocab_16e6.txt.gz")
+    p.add_argument("--arch", default="vit_b_32",
+                   choices=["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe"])
+    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--resume", default=None, help="checkpoint dir of this package")
+    p.add_argument("--log_dir", default="log")
+    p.add_argument("--native_loader", action="store_true", help="not ported")
+    p.add_argument("--watchdog_timeout", type=float, default=600.0,
+                   help="seconds without step progress before a stall is logged")
+    return p.parse_args(argv)
+
+
+def load_clip_tokenizer(merges_path: str | None, *, expect_vocab: int | None = None):
+    """The CLIP BPE tokenizer from `merges_path` or the usual places."""
+    from construction_clip_tpu.data.clip_tokenizer import ClipTokenizer
+
+    candidates = [merges_path] if merges_path else []
+    candidates += [os.path.expanduser("~/.cache/clip/bpe_simple_vocab_16e6.txt.gz"),
+                   "bpe_simple_vocab_16e6.txt.gz"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            tok = ClipTokenizer(c)
+            if expect_vocab is not None and tok.vocab_size != expect_vocab:
+                raise ValueError(f"tokenizer vocab {tok.vocab_size} != model text vocab "
+                                 f"{expect_vocab} (merges file {c})")
+            return tok
+    raise FileNotFoundError("CLIP BPE merges file not found; pass --clip_bpe")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.native_loader:
+        raise SystemExit("--native_loader is not ported to construction_clip_tpu_torch")
+
+    import numpy as np
+    import torch
+
+    from construction_clip_tpu.data.datasets import PairGroupDataset
+    from construction_clip_tpu.data.pipeline import default_load_image
+    from construction_clip_tpu.train.metrics import MetricLogger, StepTimer
+    from construction_clip_tpu.train.resilience import StepWatchdog
+    from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.core.configs import CLIPConfig
+    from construction_clip_tpu_torch.core.precision import policy_from_name
+    from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
+    from construction_clip_tpu_torch.data.preprocess import preprocess_batch
+    from construction_clip_tpu_torch.train.checkpoint import (
+        latest_step, load_params_npz, restore_state, save_params_npz)
+    from construction_clip_tpu_torch.train.contrastive import make_eval_step, make_train_step
+    from construction_clip_tpu_torch.train.resilience import run_resilient
+    from construction_clip_tpu_torch.train.state import TrainState, make_adamw
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    cfg = getattr(CLIPConfig, args.arch)()
+    tree = (load_params_npz(args.checkpoint) if args.checkpoint
+            else convert.init_clip(0, cfg))
+    params = convert.to_params(tree, device=device, trainable=True)
+    tokenizer = load_clip_tokenizer(
+        args.clip_bpe, expect_vocab=cfg.text.vocab_size if args.checkpoint else None)
+    policy = policy_from_name(args.precision)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"device: {device} ({name})")
+
+    def dataset(split):
+        return PairGroupDataset(args.json_path, key=args.key, split=split,
+                                train_ratio=args.train_ratio,
+                                combination_num=args.combination_num)
+
+    def make_loader(ds):
+        return TorchImageTextLoader(
+            ds, lambda texts: tokenizer.tokenize(texts, cfg.text.context_length),
+            batch_size=args.groups_per_batch, device=device,
+            load_image=lambda f: default_load_image(os.path.join(args.image_path, f)))
+
+    train_loader, test_loader = make_loader(dataset("train")), make_loader(dataset("test"))
+    tx = make_adamw(args.lr, warmup_steps=args.warmup_steps,
+                    total_steps=args.epochs * max(len(train_loader), 1))
+    step_fn = make_train_step(cfg, tx, policy=policy, device=device)
+    eval_fn = make_eval_step(cfg, policy=policy, device=device)
+
+    state = TrainState.create(params, tx)
+    if args.resume and latest_step(args.resume) is not None:
+        state = restore_state(args.resume, state)
+        print(f"resumed from {args.resume} at step {state.step}")
+
+    run_name = f"{args.output_prefix}_comb{args.combination_num}"
+    logger = MetricLogger(args.log_dir, run_name)
+    timer = StepTimer()
+    size = cfg.vision.image_size
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    def images(batch):
+        return preprocess_batch(batch["images"], size)
+
+    with StepWatchdog(timeout=args.watchdog_timeout) as watchdog:
+        def train_epoch(state, epoch):
+            m = None
+            for batch in train_loader:
+                state, m = step_fn(state, {"images": images(batch), "tokens": batch["tokens"]})
+                timer.tick()
+                watchdog.tick()
+                if state.step % 10 == 0:
+                    loss, acc = float(m["loss"]), float(m["accuracy"])
+                    logger.log(state.step, loss=loss, accuracy=acc, step_time=timer.mean)
+                    print(f"epoch {epoch} step {state.step} loss {loss:.4f} acc {acc:.3f} "
+                          f"{timer.mean * 1e3:.0f} ms/step")
+            if m is None:
+                raise RuntimeError(
+                    f"epoch {epoch} ran zero steps — dataset produced no groups "
+                    f"(need >= {args.combination_num} distinct --key classes)")
+            logger.log(state.step, loss=float(m["loss"]), accuracy=float(m["accuracy"]),
+                       step_time=timer.mean)
+            if (epoch + 1) % args.save_every == 0:
+                accs = [float(eval_fn(state.params, {"images": images(b),
+                                                     "tokens": b["tokens"]}))
+                        for b in test_loader]
+                logger.log(state.step, test_accuracy=float(np.mean(accs)) if accs else 0.0)
+            return state
+
+        state = run_resilient(train_epoch, state, epochs=args.epochs,
+                              checkpoint_dir=os.path.join(args.output_dir, run_name),
+                              save_every_epochs=args.save_every)
+    npz_path = os.path.join(args.output_dir, f"{args.output_prefix}_latest.npz")
+    save_params_npz(npz_path, state.params)
+    print(f"saved inference params {npz_path}")
+    logger.close()
+
+
+if __name__ == "__main__":
+    main()

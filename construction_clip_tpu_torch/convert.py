@@ -20,16 +20,17 @@ from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, 
 from construction_clip_tpu_torch.core.params import ParamTree, tree_map
 
 
-def to_params(tree, *, dtype=None, device=None) -> ParamTree:
+def to_params(tree, *, dtype=None, device=None, trainable: bool = False) -> ParamTree:
     """A nested dict of arrays -> ParamTree (floating leaves cast to `dtype` when
-    given), on `device`."""
+    given), on `device`; `trainable` leaves require grad (serving keeps them
+    frozen)."""
     def leaf(a):
         t = torch.from_numpy(np.array(a, copy=True))
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device) if device is not None else t
 
-    return ParamTree(tree_map(leaf, tree))
+    return ParamTree(tree_map(leaf, tree), trainable=trainable)
 
 
 def _normal(rng, shape, std, dtype):

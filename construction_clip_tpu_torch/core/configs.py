@@ -1,4 +1,4 @@
-"""Model configs of the serving slice.
+"""Model configs of the ported slices.
 
 Copied from construction_clip_tpu/core/configs.py (pure dataclasses, same names,
 fields and defaults): that module is importable only through
@@ -71,6 +71,17 @@ class CLIPConfig:
             vision=VisionConfig(image_size=32, patch_size=8, width=64, layers=2, heads=2,
                                 embed_dim=32),
             text=TextConfig(vocab_size=256, context_length=16, width=32, layers=2, heads=2,
+                            embed_dim=32),
+        )
+
+    @staticmethod
+    def tiny_bpe() -> "CLIPConfig":
+        """tiny, with the 520-token vocabulary of a 6-merge ClipTokenizer
+        (tools/make_offline_assets.py --tiny), for end-to-end CLI runs."""
+        return CLIPConfig(
+            vision=VisionConfig(image_size=32, patch_size=8, width=64, layers=2, heads=2,
+                                embed_dim=32),
+            text=TextConfig(vocab_size=520, context_length=24, width=32, layers=2, heads=2,
                             embed_dim=32),
         )
 

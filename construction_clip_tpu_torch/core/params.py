@@ -34,16 +34,18 @@ def layer(stacked, index: int):
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors held as (frozen) parameters."""
+    """A nested dict of tensors held as parameters: frozen for serving, or
+    `trainable` (floating leaves require grad) for training."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, *, trainable: bool = False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, trainable=trainable))
             else:
+                t = torch.as_tensor(value)
                 self.register_parameter(
-                    name, nn.Parameter(torch.as_tensor(value), requires_grad=False))
+                    name, nn.Parameter(t, requires_grad=trainable and t.is_floating_point()))
 
     def tree(self) -> dict:
         out = {name: p for name, p in self.named_parameters(recurse=False)}

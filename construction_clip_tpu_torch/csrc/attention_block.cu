@@ -18,8 +18,8 @@
 // Hopper block has at most 227 KB of shared memory, so the block is three
 // launches from one C entry, with qkv and the merged heads in device scratch
 // the wrapper allocates:
-//   (a) block_gemm<kQkv>: a 64x64-tiled GEMM whose prologue computes each row's
-//       LN statistics and normalises the A tile as it is staged in shared memory;
+//   (a) block_gemm<kQkv> (gemm.cuh): a 64x64-tiled GEMM whose prologue computes
+//       each row's LN statistics and normalises the A tile as it is staged;
 //   (b) head_attention: one block per (batch, head) with that head's K and V
 //       (T <= 256) staged in dynamic shared memory; one warp per query row;
 //   (c) block_gemm<kResidual>: merged . W_out with a bias + residual epilogue.
@@ -27,111 +27,12 @@
 #include <cfloat>
 
 #include "common.cuh"
+#include "gemm.cuh"
 
 namespace cct {
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 constexpr int kAttnThreads = 128, kAttnWarps = kAttnThreads / 32;
-
-enum Epilogue : int { kQkv = 0, kResidual = 1 };
-
-// out[M, N] = epilogue(A'[M, K] . W[K, N]); A' = T(LN(A)) for kQkv, A otherwise.
-// Each of the 256 threads owns a 4x4 set of outputs strided by 16, so the
-// shared-memory reads of a warp are broadcasts (A) or consecutive (W).
-template <typename T, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
-block_gemm(const T* __restrict__ a, const T* __restrict__ w, const T* __restrict__ bias,
-           const T* __restrict__ ln_s, const T* __restrict__ ln_b,
-           const T* __restrict__ resid, T* __restrict__ out, int M, int N, int K,
-           float eps) {
-  __shared__ float a_s[kBK][kBM + 1];
-  __shared__ float w_s[kBK][kBN];
-  __shared__ float row_mean[kBM];
-  __shared__ float row_rstd[kBM];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  if (EPI == kQkv) {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
-      const int m = m0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < M) {
-        const T* xr = a + (size_t)m * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += to_f(xr[k]);
-        mean = warp_sum(s) / K;
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float dv = to_f(xr[k]) - mean;
-          v += dv * dv;
-        }
-        rstd = rsqrtf(warp_sum(v) / K + eps);
-      }
-      if (lane == 0) {
-        row_mean[r] = mean;
-        row_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
-      const int r = i / kBK, c = i % kBK, m = m0 + r, k = k0 + c;
-      float v = 0.f;
-      if (m < M && k < K) {
-        v = to_f(a[(size_t)m * K + k]);
-        if (EPI == kQkv)
-          v = round_to<T>((v - row_mean[r]) * row_rstd[r] * to_f(ln_s[k]) + to_f(ln_b[k]));
-      }
-      a_s[c][r] = v;
-    }
-    for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
-      const int r = i / kBN, c = i % kBN, k = k0 + r, n = n0 + c;
-      w_s[r][c] = (k < K && n < N) ? to_f(w[(size_t)k * N + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w_s[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      if (EPI == kQkv)
-        out[o] = from_f<T>(round_to<T>(acc[i][j]) + to_f(bias[n]));
-      else
-        out[o] = from_f<T>(to_f(resid[o]) + acc[i][j] + to_f(bias[n]));
-    }
-  }
-}
 
 size_t attn_smem_bytes(int t_len, int dh) {
   return sizeof(float) * ((size_t)t_len * (dh + 1) + (size_t)t_len * dh +
@@ -203,12 +104,10 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
   const size_t smem = attn_smem_bytes(t, d / h);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
 
-  const dim3 grid_qkv((3 * d + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  block_gemm<T, kQkv><<<grid_qkv, kGemmThreads, 0, stream>>>(
+  cudaError_t err = launch_gemm<T, kQkv, false, T>(
       static_cast<const T*>(x), static_cast<const T*>(w_qkv), static_cast<const T*>(b_qkv),
       static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), nullptr,
-      static_cast<T*>(qkv), m, 3 * d, d, eps);
-  cudaError_t err = cudaGetLastError();
+      static_cast<T*>(qkv), m, 3 * d, d, eps, stream);
   if (err != cudaSuccess) return err;
 
   err = cudaFuncSetAttribute(head_attention<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -219,12 +118,10 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const dim3 grid_out((d + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  block_gemm<T, kResidual><<<grid_out, kGemmThreads, 0, stream>>>(
+  return launch_gemm<T, kResidual, false, T>(
       static_cast<const T*>(merged), static_cast<const T*>(w_out),
       static_cast<const T*>(b_out), nullptr, nullptr, static_cast<const T*>(x),
-      static_cast<T*>(out), m, d, d, eps);
-  return cudaGetLastError();
+      static_cast<T*>(out), m, d, d, eps, stream);
 }
 
 }  // namespace

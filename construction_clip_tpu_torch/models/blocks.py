@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-from construction_clip_tpu_torch.core.params import layer
+from construction_clip_tpu_torch.core.params import tree_map
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops.attention import qkv_attention, resolve_impl
 from construction_clip_tpu_torch.ops.norms import layer_norm
@@ -38,8 +38,11 @@ def _mlp_residual(x, params, act, ln_eps):
 
 def apply_stack(stacked_params, x, *, n_heads: int, act: Callable, bias=None,
                 is_causal: bool = False, ln_eps: float = 1e-5):
-    """Apply the L stacked blocks in order."""
+    """Apply the L stacked blocks in order. The layers are views from one
+    `unbind` per leaf, whose backward stacks the L gradients in one op (a view
+    per layer would each scatter into a zeroed copy of the whole stack)."""
+    layers = tree_map(lambda z: z.unbind(0), stacked_params)
     for index in range(stacked_params["ln_1"]["scale"].shape[0]):
-        x = apply_block(layer(stacked_params, index), x, n_heads=n_heads, act=act,
-                        bias=bias, is_causal=is_causal, ln_eps=ln_eps)
+        x = apply_block(tree_map(lambda views: views[index], layers), x, n_heads=n_heads,
+                        act=act, bias=bias, is_causal=is_causal, ln_eps=ln_eps)
     return x

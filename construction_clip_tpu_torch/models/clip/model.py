@@ -66,3 +66,11 @@ def encode_text(params, cfg: CLIPConfig, tokens, *, policy: Policy = DEFAULT_POL
     x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
     feats = policy.cast_to_output(x @ p["proj"])
     return _l2_normalize(feats) if normalize else feats
+
+
+def clip_forward(params, cfg: CLIPConfig, images, tokens, *, policy: Policy = DEFAULT_POLICY):
+    """(logits_per_image [B_i, B_t], logits_per_text [B_t, B_i])."""
+    img = encode_image(params, cfg, images, policy=policy, normalize=True)
+    txt = encode_text(params, cfg, tokens, policy=policy, normalize=True)
+    logits_per_image = torch.exp(params["logit_scale"]) * img @ txt.T
+    return logits_per_image, logits_per_image.T

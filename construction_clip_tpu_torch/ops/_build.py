@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels and binds them with ctypes.
 
-At first use, `nvcc` compiles every `construction_clip_tpu_torch/csrc/*.cu` for
-Hopper (sm_90a) into one shared library with a plain C interface, under
-`build/torch_kernels/` at the root of the checkout. The file name carries a hash
-of the sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing prebuilt is committed.
+At first use, `nvcc` compiles each `construction_clip_tpu_torch/csrc/*.cu` for
+Hopper (sm_90a) into its own shared library with a plain C interface, under
+`build/torch_kernels/` at the root of the checkout; the compilers run in
+parallel, one process per source. A library's file name carries a hash of its
+source, the shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing prebuilt is committed.
 
 Each C entry returns a `cudaError_t`; `check` raises on a nonzero one (a launch
 the CUDA runtime refused never runs, and a later synchronise would not report it).
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 import torch
@@ -27,14 +29,24 @@ BUILD_DIR = CSRC_DIR.parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C entry -> (argtypes, restype); every entry returning int returns a cudaError_t
 SIGNATURES = {
     # dtype, x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, qkv, merged, out,
     # b, t, d, h, causal, eps, scale, stream
-    "cct_attention_block_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "cct_attention_block_fwd": ([_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P], _I),
+    # dtype, x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, work_t, work_f, dx, dqkv, merged,
+    # dln_s, dln_b, b, t, d, h, causal, eps, scale, stream
+    "cct_attention_block_bwd": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
+    "cct_attention_block_bwd_work_floats": ([_I] * 4, _L),
     # dtype, q, ck, cv, ancestry, out, rows, heads, t_max, dh, layer, cache_len,
     # scale, stream
-    "cct_decode_attention": [_I] + [_P] * 5 + [_I] * 6 + [_F, _P],
+    "cct_decode_attention": ([_I] + [_P] * 5 + [_I] * 6 + [_F, _P], _I),
+    # dtype, q, k, v, o, b, h, t, dh, causal, scale, stream
+    "cct_flash_attention_fwd": ([_I] + [_P] * 4 + [_I] * 5 + [_F, _P], _I),
+    # dtype, q, k, v, g, work, dq, dk, dv, b, h, t, dh, causal, scale, stream
+    "cct_flash_attention_bwd": ([_I] + [_P] * 8 + [_I] * 5 + [_F, _P], _I),
+    "cct_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lock = threading.Lock()
@@ -54,45 +66,69 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(source: Path | None = None) -> str:
+    """Hash of the flags, the shared headers and `source` (every source when
+    None)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC_DIR.glob("*.cu*")):
+    paths = sorted(CSRC_DIR.glob("*.cuh")) + ([source] if source else sources())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_command(nvcc: str, out: Path, source: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source)]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libcct_kernels_{source_hash()}.so"
+def library_path(source: Path) -> Path:
+    return BUILD_DIR / f"libcct_{source.stem}_{source_hash(source)}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built first if this source hash has no build yet."""
+def build_all() -> list[Path]:
+    """Builds every source without a library for its hash, all compilers
+    started together; returns the libraries."""
+    libs = [library_path(src) for src in sources()]
+    missing = [(src, so) for src, so in zip(sources(), libs) if not so.exists()]
+    if missing:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        procs = []
+        for src, so in missing:
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs.append((src, so, tmp, subprocess.Popen(
+                nvcc_command(nvcc, tmp, src), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        failures = []
+        for src, so, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{src.name} ({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, so)
+        if failures:
+            raise RuntimeError("nvcc failed: " + "\n".join(failures))
+    return libs
+
+
+def load_library() -> types.SimpleNamespace:
+    """The kernels' C entries (built first where a source hash has no build
+    yet), as attributes of one namespace."""
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not so.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                proc = subprocess.run(nvcc_command(find_nvcc(), tmp),
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                       f"{proc.stdout}\n{proc.stderr}")
-                os.replace(tmp, so)
-            lib = ctypes.CDLL(str(so))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.cct_error_string.argtypes = [ctypes.c_int]
-            lib.cct_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            entries = {}
+            for so in build_all():
+                lib = ctypes.CDLL(str(so))
+                for name, (argtypes, restype) in SIGNATURES.items():
+                    if name not in entries and hasattr(lib, name):
+                        fn = getattr(lib, name)
+                        fn.argtypes, fn.restype = argtypes, restype
+                        entries[name] = fn
+            missing = sorted(set(SIGNATURES) - set(entries))
+            if missing:
+                raise RuntimeError(f"kernel libraries lack the C entries {missing}")
+            _lib = types.SimpleNamespace(**entries)
         return _lib
 
 
@@ -100,6 +136,14 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load_library().cct_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def on_cpu(x, what: str) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain version), False for a
+    CUDA one (it launches its kernel); any other device is an error."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    return x.device.type == "cpu"
 
 
 def dtype_code(dtype) -> int:

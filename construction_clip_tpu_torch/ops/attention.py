@@ -6,10 +6,12 @@ Logits and softmax are fp32 whatever the input dtype; probabilities are cast to
 v's dtype for the product with v, which accumulates in fp32.
 
 `set_impl`/`resolve_impl` choose, as in the JAX package, whether the models take
-the hand-written kernels ("kernel", the default: ops/attention_block.py and
-ops/decode_attention.py, whose wrappers run their plain version on CPU tensors)
-or the plain versions on any device ("plain", for holding one path against the
-other on the card).
+the hand-written kernels ("kernel", the default: ops/attention_block.py,
+ops/flash_attention.py and ops/decode_attention.py, whose wrappers run their
+plain version on CPU tensors) or the plain versions on any device ("plain", for
+holding one path against the other on the card). Under "kernel", `mha` hands
+every call that `flash_attention.supported` takes to the flash kernels, as the
+JAX package's `mha` does under "pallas".
 """
 
 from __future__ import annotations
@@ -58,6 +60,11 @@ def mha(q, k, v, *, bias=None, is_causal: bool = False, scale: Optional[float] =
     broadcastable to [B, H, Tq, Tk]. Output in q.dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if resolve_impl() == "kernel":
+        from construction_clip_tpu_torch.ops import flash_attention as fa
+
+        if fa.supported(q, k, v, bias=bias):
+            return fa.flash_attention(q, k, v, is_causal=is_causal, scale=scale)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if is_causal:
         logits = logits + causal_mask(q.shape[2], k.shape[2], device=q.device)

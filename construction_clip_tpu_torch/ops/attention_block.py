@@ -1,11 +1,16 @@
-"""Fused pre-norm attention block forward,
-out = x + W_out @ MHA(split_heads(W_qkv @ LN(x) + b_qkv)) + b_out
-(counterpart of construction_clip_tpu/ops/pallas_attention_block.py).
+"""Fused pre-norm attention block,
+out = x + W_out @ MHA(split_heads(W_qkv @ LN(x) + b_qkv)) + b_out, forward and
+backward (counterpart of construction_clip_tpu/ops/pallas_attention_block.py).
 
-`fused_attention_block` launches the CUDA kernel csrc/attention_block.cu (K1)
-on CUDA tensors and runs `fused_attention_block_plain` on CPU tensors. The plain
-version keeps the Pallas kernel's rounding points (see the CUDA source), so on
-the card the two agree to summation order.
+`fused_attention_block` is a `torch.autograd.Function` whose forward is K1
+(csrc/attention_block.cu) and whose backward is K3 (csrc/attention_block_bwd.cu)
+on CUDA tensors, and the plain versions on CPU tensors. K3 recomputes LN, qkv
+and the probabilities from x, as the Pallas backward does, so the Function saves
+only its inputs. Where autograd records no graph (serving under
+`torch.inference_mode()`, or no input requiring grad), nothing is kept after
+the forward. The plain versions keep the Pallas kernels' rounding
+points (see the CUDA sources), so on the card kernel and plain version agree to
+summation order.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ import torch
 
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.attention import NEG_INF, merge_heads, split_heads
+from construction_clip_tpu_torch.ops.norms import layer_norm
 
 MAX_T = 256
+MAX_DH = 128             # K3's per-lane register tiles (csrc/attention_tiles.cuh)
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
 _ATTN_WARPS = 4
 
@@ -29,11 +36,12 @@ def attention_smem_bytes(t: int, dh: int) -> int:
 
 def supported(x, n_heads: int) -> bool:
     """The JAX gates (fp32/bf16, heads divide the width, T <= 256), with the
-    Hopper shared-memory budget in place of the TPU's VMEM budget."""
+    Hopper shared-memory and register budgets in place of the TPU's VMEM
+    budget; one gate for K1 and K3."""
     b, t, d = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         return False
-    if d % n_heads:
+    if d % n_heads or d // n_heads > MAX_DH:
         return False
     return t <= MAX_T and attention_smem_bytes(t, d // n_heads) <= MAX_SMEM_BYTES
 
@@ -59,27 +67,66 @@ def fused_attention_block_plain(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *,
     return (x32 + y + b_out.float()).to(dtype)
 
 
-def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
-                          causal: bool = False, eps: float = 1e-5):
-    """x [B, T, D] -> x + Attn(LN(x)); params as in models/blocks."""
-    args = (ln_params["scale"], ln_params["bias"], attn_params["w_qkv"],
-            attn_params["b_qkv"], attn_params["w_out"], attn_params["b_out"])
-    if x.device.type == "cpu":
-        return fused_attention_block_plain(x, *args, n_heads=n_heads, causal=causal,
-                                           eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_block runs on cpu or cuda, not {x.device}")
-    if not supported(x, n_heads):
-        raise ValueError(f"fused_attention_block does not take {tuple(x.shape)} "
-                         f"{x.dtype} with {n_heads} heads")
+def fused_attention_block_bwd_plain(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *,
+                                    n_heads: int, causal: bool = False, eps: float = 1e-5):
+    """-> dx, dqkv [B, T, 3D], merged [B, T, D], dln_scale, dln_bias (fp32),
+    with _bwd_kernel's rounding points: h, qkv, p_lo, dmg and ds in the input
+    dtype; p, dp and the LN backward in fp32."""
     b, t, d = x.shape
-    shapes = ((d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,))
-    for a, shape in zip((x,) + args, ((b, t, d),) + shapes):
+    dtype = x.dtype
+    scale = (d // n_heads) ** -0.5
+    x32, g32, s32 = x.float(), g.float(), ln_s.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    h = (xhat * s32 + ln_b.float()).to(dtype)
+    qkv = (h.float() @ w_qkv.float()).to(dtype) + b_qkv
+    q, k, v = (split_heads(z, n_heads).float() for z in qkv.chunk(3, dim=-1))
+    dmg = split_heads((g32 @ w_out.float().mT).to(dtype), n_heads).float()
+    logits = q @ k.mT * scale
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+        logits = torch.where(keep, logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    p_lo = p.to(dtype).float()
+    merged = (p_lo @ v).to(dtype)
+    dp = dmg @ v.mT
+    dv = (p_lo.mT @ dmg).to(dtype)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(dtype).float()
+    dq = (ds @ k).to(dtype)
+    dk = (ds.mT @ q).to(dtype)
+    dqkv = torch.cat([merge_heads(dq), merge_heads(dk), merge_heads(dv)], dim=-1)
+    dh = dqkv.float() @ w_qkv.float().mT
+    dxhat = dh * s32
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (g32 + rstd * (dxhat - m1 - xhat * m2)).to(dtype)
+    return (dx, dqkv, merge_heads(merged), (dh * xhat).sum(dim=(0, 1)),
+            dh.sum(dim=(0, 1)))
+
+
+def _check_kernel_args(what, x, tensors, shapes, n_heads):
+    if not supported(x, n_heads):
+        raise ValueError(f"{what} does not take {tuple(x.shape)} {x.dtype} "
+                         f"with {n_heads} heads")
+    for a, shape in zip(tensors, shapes):
         if a.device != x.device or a.dtype != x.dtype or tuple(a.shape) != shape \
                 or not a.is_contiguous():
-            raise ValueError(f"fused_attention_block wants contiguous {x.dtype} "
-                             f"{shape} on {x.device}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
+            raise ValueError(f"{what} wants contiguous {x.dtype} {shape} on {x.device}, "
+                             f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+def fused_attention_block_fwd(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_heads: int,
+                              causal: bool = False, eps: float = 1e-5):
+    """The forward alone: K1 on CUDA tensors, the plain version on CPU tensors."""
+    args = (ln_s, ln_b, w_qkv, b_qkv, w_out, b_out)
+    if _build.on_cpu(x, "fused_attention_block"):
+        return fused_attention_block_plain(x, *args, n_heads=n_heads, causal=causal, eps=eps)
+    b, t, d = x.shape
+    _check_kernel_args("fused_attention_block", x, (x,) + args,
+                       ((b, t, d), (d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,)), n_heads)
     lib = _build.load_library()
     qkv = torch.empty((b * t, 3 * d), dtype=x.dtype, device=x.device)
     merged = torch.empty((b * t, d), dtype=x.dtype, device=x.device)
@@ -95,4 +142,79 @@ def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
     return out
 
 
-fused_attention_block.launches = 0
+def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads: int,
+                              causal: bool = False, eps: float = 1e-5):
+    """-> dx, dqkv, merged, dln_scale, dln_bias: K3 on CUDA tensors, the plain
+    version on CPU tensors."""
+    args = (ln_s, ln_b, w_qkv, b_qkv, w_out)
+    if _build.on_cpu(x, "fused_attention_block_bwd"):
+        return fused_attention_block_bwd_plain(x, g, *args, n_heads=n_heads, causal=causal,
+                                               eps=eps)
+    b, t, d = x.shape
+    _check_kernel_args("fused_attention_block_bwd", x, (x, g) + args,
+                       ((b, t, d), (b, t, d), (d,), (d,), (d, 3 * d), (3 * d,), (d, d)),
+                       n_heads)
+    lib = _build.load_library()
+    dev, dtype = x.device, x.dtype
+    work_t = torch.empty(b * t * 4 * d, dtype=dtype, device=dev)
+    work_f = torch.empty(lib.cct_attention_block_bwd_work_floats(b, t, d, n_heads),
+                         dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dqkv = torch.empty((b, t, 3 * d), dtype=dtype, device=dev)
+    merged = torch.empty((b, t, d), dtype=dtype, device=dev)
+    dln_s = torch.empty(d, dtype=torch.float32, device=dev)
+    dln_b = torch.empty(d, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.cct_attention_block_bwd(
+            _build.dtype_code(dtype), x.data_ptr(), g.data_ptr(),
+            *(a.data_ptr() for a in args), work_t.data_ptr(), work_f.data_ptr(),
+            dx.data_ptr(), dqkv.data_ptr(), merged.data_ptr(), dln_s.data_ptr(),
+            dln_b.data_ptr(), b, t, d, n_heads, int(causal), float(eps),
+            float((d // n_heads) ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_attention_block_bwd")
+    fused_attention_block_bwd.launches += 1
+    return dx, dqkv, merged, dln_s, dln_b
+
+
+def _weight_grad(a, b, dtype):
+    """a^T b over all rows, rounded to `dtype` (a bf16 matmul sums in fp32)."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    return (a.mT @ b).to(dtype)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """K1 forward, K3 backward; the weight gradients are two matmuls over K3's
+    staged operands, as _fused_bwd leaves them to XLA."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, n_heads, causal, eps):
+        ctx.save_for_backward(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out)
+        ctx.cfg = (n_heads, causal, eps)
+        return fused_attention_block_fwd(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                         n_heads=n_heads, causal=causal, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out = ctx.saved_tensors
+        n_heads, causal, eps = ctx.cfg
+        g = g.to(x.dtype).contiguous()
+        dx, dqkv, merged, dln_s, dln_b = fused_attention_block_bwd(
+            x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, n_heads=n_heads, causal=causal, eps=eps)
+        h = layer_norm(x, ln_s, ln_b, eps=eps)
+        return (dx, dln_s.to(ln_s.dtype), dln_b.to(ln_b.dtype),
+                _weight_grad(h, dqkv, w_qkv.dtype),
+                dqkv.float().sum(dim=(0, 1)).to(b_qkv.dtype),
+                _weight_grad(merged, g, w_out.dtype),
+                g.float().sum(dim=(0, 1)).to(b_out.dtype), None, None, None)
+
+
+def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
+                          causal: bool = False, eps: float = 1e-5):
+    """x [B, T, D] -> x + Attn(LN(x)); params as in models/blocks."""
+    args = (ln_params["scale"], ln_params["bias"], attn_params["w_qkv"],
+            attn_params["b_qkv"], attn_params["w_out"], attn_params["b_out"])
+    return _FusedBlock.apply(x, *args, n_heads, bool(causal), float(eps))
+
+
+fused_attention_block.launches = 0      # K1
+fused_attention_block_bwd.launches = 0  # K3

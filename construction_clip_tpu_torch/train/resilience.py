@@ -1,0 +1,55 @@
+"""Crash-resumable training (counterpart of construction_clip_tpu/train/resilience.py's
+`run_resilient`; its `StepWatchdog` is plain Python and is used as it is).
+
+`run_resilient` drives an epoch function with periodic snapshots through the
+port's checkpoint module, and on an exception restores the latest snapshot and
+retries (bounded). AdamW updates the params and moments in place, so a state
+caught in the middle of an epoch is neither the state before it nor after it:
+only states at epoch boundaries are ever saved, and the one before the first
+epoch is saved too, so that a failure before the first periodic snapshot has a
+state to return to.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from construction_clip_tpu_torch.train.checkpoint import latest_step, restore_state, save_state
+
+
+def run_resilient(train_epoch: Callable, state, *, epochs: int, checkpoint_dir: str,
+                  save_every_epochs: int = 1, max_retries: int = 3,
+                  on_retry: Optional[Callable[[int, Exception], None]] = None):
+    """Run `train_epoch(state, epoch) -> state` for `epochs`, checkpointing the
+    state before the first epoch, every `save_every_epochs` and after the last;
+    on exception, restore the latest checkpoint and retry (up to max_retries
+    consecutive failures). A checkpoint is named by the number of epochs done.
+    A KeyboardInterrupt saves nothing (the state is mid-epoch) and propagates.
+    Returns the final state."""
+    start_epoch = latest_step(checkpoint_dir)
+    if start_epoch is None:
+        start_epoch = save_state(checkpoint_dir, state, step=0)
+    else:
+        state = restore_state(checkpoint_dir, state)
+        print(f"[resilience] resumed from epoch {start_epoch}")
+
+    retries = 0
+    epoch = start_epoch
+    while epoch < epochs:
+        try:
+            state = train_epoch(state, epoch)
+            retries = 0
+            if (epoch + 1) % save_every_epochs == 0 or epoch == epochs - 1:
+                save_state(checkpoint_dir, state, step=epoch + 1)
+            epoch += 1
+        except Exception as e:  # noqa: BLE001 — deliberate: retry any epoch failure
+            retries += 1
+            if on_retry:
+                on_retry(retries, e)
+            print(f"[resilience] epoch {epoch} failed ({type(e).__name__}: {e}); "
+                  f"retry {retries}/{max_retries}")
+            if retries > max_retries:
+                raise
+            epoch = latest_step(checkpoint_dir)
+            state = restore_state(checkpoint_dir, state, step=epoch)
+    return state

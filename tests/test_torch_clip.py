@@ -125,7 +125,7 @@ def test_numpy_init_matches_jax_shapes(which):
     assert keys == paths
 
 
-@pytest.mark.parametrize("name", ["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "gpt2",
+@pytest.mark.parametrize("name", ["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe", "gpt2",
                                   "gpt2_tiny", "clipcap"])
 def test_configs_equal_the_jax_configs(name):
     """The port's copies of the config dataclasses stay equal to the originals."""

@@ -17,6 +17,7 @@ import torch
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import decode_attention as dec
+from construction_clip_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.fixture
@@ -25,10 +26,15 @@ def gen():
 
 
 def test_nvcc_command_targets_hopper():
-    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-O3" in cmd
-    sources = {os.path.basename(c) for c in cmd if c.endswith(".cu")}
-    assert sources == {"attention_block.cu", "decode_attention.cu"}
+    """One nvcc per source, each into its own library named by its hash."""
+    sources = set()
+    for src in _build.sources():
+        cmd = _build.nvcc_command("nvcc", _build.library_path(src), src)
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-O3" in cmd
+        sources |= {os.path.basename(c) for c in cmd if c.endswith(".cu")}
+        assert _build.library_path(src).name.startswith(f"libcct_{src.stem}_")
+    assert sources == {"attention_block.cu", "attention_block_bwd.cu",
+                       "decode_attention.cu", "flash_attention.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
 
@@ -93,7 +99,9 @@ CARD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 50, 768, 12, False), (9, 77, 512, 8, True)])
+@pytest.mark.parametrize("shape", [(8, 50, 768, 12, False), (9, 77, 512, 8, True),
+                                   (36, 50, 768, 12, False), (36, 77, 512, 8, True),
+                                   (9, 77, 768, 12, True)])
 def test_attention_block_kernel_on_card(shape, dtype, gen, cuda_device):
     b, t, d, h, causal = shape
 
@@ -137,3 +145,99 @@ def test_decode_attention_kernel_on_card(with_ancestry, dtype, gen, cuda_device)
     with pytest.raises(NotImplementedError):
         dec.decode_step_attention(q, ck, cv, 5, 90, ancestry,
                                   attn_bias=torch.zeros(rows, 1, 1, t_max, device=cuda_device))
+
+
+def _block_case(gen, dev, dtype, b, t, d):
+    def arr(*s, scale=1.0, offset=0.0):
+        a = gen.standard_normal(s).astype(np.float32) * scale + offset
+        return torch.from_numpy(a).to(dev, dtype)
+
+    x, g = arr(b, t, d), arr(b, t, d)
+    args = (arr(d, scale=0.1, offset=1.0), arr(d, scale=0.1), arr(d, 3 * d, scale=d ** -0.5),
+            arr(3 * d, scale=0.1), arr(d, d, scale=d ** -0.5))
+    return x, g, args
+
+
+def _scaled_err(got, want):
+    """Largest difference over the largest element of the plain version."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# gradients on the card, relative to each output's largest element: fp32 by
+# summation order; bf16 by single roundings of qkv, dmg, p and ds that a
+# different order can flip (one bf16 step is 2^-8)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def test_cpu_backward_wrappers_take_the_plain_versions(gen):
+    x, g, args = _block_case(gen, "cpu", torch.float32, 2, 5, 16)
+    before = fab.fused_attention_block_bwd.launches
+    got = fab.fused_attention_block_bwd(x, g, *args, n_heads=2, causal=True)
+    want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=2, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fab.fused_attention_block_bwd.launches == before
+    q, k, v, g = (torch.from_numpy(gen.standard_normal((2, 2, 9, 8)).astype(np.float32))
+                  for _ in range(4))
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    assert torch.equal(fa.flash_attention(q, k, v, is_causal=True),
+                       fa.flash_attention_fwd_plain(q, k, v, is_causal=True, scale=8 ** -0.5))
+    got = fa.flash_attention_bwd(q, k, v, g, is_causal=False, scale=0.3)
+    want = fa.flash_attention_bwd_plain(q, k, v, g, is_causal=False, scale=0.3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_attention_block_output_has_grad_fn_on_card(gen, cuda_device):
+    """K1 under autograd: the output joins the graph, and the backward is K3."""
+    x, _, args = _block_case(gen, cuda_device, torch.float32, 2, 50, 64)
+    ln = {"scale": args[0].requires_grad_(), "bias": args[1]}
+    attn = {"w_qkv": args[2], "b_qkv": args[3], "w_out": args[4],
+            "b_out": torch.zeros(64, device=cuda_device)}
+    before = fab.fused_attention_block_bwd.launches
+    out = fab.fused_attention_block(x, ln, attn, n_heads=4)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert ln["scale"].grad is not None and fab.fused_attention_block_bwd.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(36, 50, 768, 12, False), (36, 77, 512, 8, True),
+                                   (9, 77, 768, 12, True)])
+def test_attention_block_backward_kernel_on_card(shape, dtype, gen, cuda_device):
+    b, t, d, h, causal = shape
+    x, g, args = _block_case(gen, cuda_device, dtype, b, t, d)
+    before = fab.fused_attention_block_bwd.launches
+    got = fab.fused_attention_block_bwd(x, g, *args, n_heads=h, causal=causal)
+    want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
+    torch.cuda.synchronize()
+    assert fab.fused_attention_block_bwd.launches == before + 1
+    for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), got, want):
+        assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(9, 16, 257, 64, False), (9, 12, 77, 64, True)])
+def test_flash_attention_kernels_on_card(shape, dtype, gen, cuda_device):
+    b, h, t, dh, causal = shape
+    q, k, v, g = (torch.from_numpy(gen.standard_normal((b, h, t, dh)).astype(np.float32))
+                  .to(cuda_device, dtype) for _ in range(4))
+    scale = dh ** -0.5
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    out = fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale)
+    grads = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal, scale=scale)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **CARD_TOL[dtype])
+    for name, a, w in zip(("dq", "dk", "dv"), grads,
+                          fa.flash_attention_bwd_plain(q, k, v, g, is_causal=causal,
+                                                       scale=scale)):
+        assert _scaled_err(a, w) <= GRAD_TOL[dtype], name

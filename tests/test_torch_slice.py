@@ -210,6 +210,38 @@ with tempfile.TemporaryDirectory() as d:
     out = TorchPredictService(pipe).predict(
         (np.random.default_rng(0).random((40, 50, 3)) * 255).astype(np.uint8))
 assert out["caption_type"] in ("violation", "status"), out
+
+# the training slice: the CLI's modules, the loader, one step, the checkpoints
+import torch
+import construction_clip_tpu.data.datasets
+import construction_clip_tpu.train.metrics
+import construction_clip_tpu.train.resilience
+from construction_clip_tpu_torch.apps import train_clip
+from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
+from construction_clip_tpu_torch.train import checkpoint, contrastive, resilience, state
+
+class Pairs:
+    def __len__(self):
+        return 2
+    def __getitem__(self, i):
+        return ["a.jpg", "b.jpg"], ["x", "y"]
+
+loader = TorchImageTextLoader(
+    Pairs(), lambda texts: np.ones((len(texts), 12), np.int32), batch_size=1,
+    image_size=40, load_image=lambda f: np.zeros((40, 48, 3), np.uint8))
+batch = next(iter(loader))
+assert batch["images"].shape == (2, 40, 40, 3) and batch["tokens"].dtype == torch.int32
+tx = state.make_adamw(1e-4, warmup_steps=0)
+st = state.TrainState.create(
+    convert.to_params(convert.init_clip(0, clip_cfg), trainable=True), tx)
+rng = np.random.default_rng(1)
+st, m = contrastive.make_train_step(clip_cfg, tx)(
+    st, {"images": torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)),
+         "tokens": torch.from_numpy(rng.integers(1, 600, (2, 12)).astype(np.int32))})
+assert bool(torch.isfinite(m["loss"]))
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_state(d, st)
+    checkpoint.save_params_npz(os.path.join(d, "p.npz"), st.params)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", bad)
 """
