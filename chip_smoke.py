@@ -25,12 +25,25 @@ Phases, each printing one line (the last line is the JSON verdict):
      K4 and K5 launch from the image tower, K1 and K3 from the text tower.
  11. the kernel path against the plain path in fp32: loss and every gradient
      leaf over 2 ViT-B/32 steps from the same params.
+ 12. K8, the vocab-head GEMV, against its plain version at mT5-small's head
+     (D=512, V=250112) at B=1 and B=8, bf16 and int8 + scale, and at a V that
+     is not a multiple of its column tile; times and the table read's GB/s.
+ 13. mT5 captioning at full width (ViT-B/32, the MLP mapper with prefix 20,
+     mT5-small 8+8 layers, random weights from numpy seeds, bf16) through the
+     batch function of the port's apps/predict_t5.py: B=1 and B=8, sampled and
+     greedy, bf16 head and int8 head, 32 steps; K8 launches steps + 1 times a
+     generate call; a B=16 call launches it zero times. Then decode-step times
+     of a 32-step greedy generate at B=1 and B=8 with each head.
+ 14. the kernel path against the plain path in bf16 for mT5: every step's
+     logits over one token stream, and greedy tokens.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The script imports nothing of JAX, tokenizers, transformers or PIL.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -50,7 +63,7 @@ from construction_clip_tpu.data.labels import (  # noqa: E402
     CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch import convert  # noqa: E402
 from construction_clip_tpu_torch.core.configs import (  # noqa: E402
-    CLIPConfig, ClipCapConfig, GPT2Config)
+    CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
 from construction_clip_tpu_torch.core.params import as_tree  # noqa: E402
 from construction_clip_tpu_torch.core.precision import BF16_POLICY  # noqa: E402
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch  # noqa: E402
@@ -70,6 +83,8 @@ from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
+from construction_clip_tpu_torch.ops.vocab_head import (  # noqa: E402
+    vocab_head_logits, vocab_head_logits_plain)
 from construction_clip_tpu_torch.serve.app import TorchPredictService  # noqa: E402
 from construction_clip_tpu_torch.train import contrastive  # noqa: E402
 from construction_clip_tpu_torch.train.state import TrainState, make_adamw  # noqa: E402
@@ -104,6 +119,14 @@ FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 2e-5)}
 # fp32 training parity: every gradient leaf by relative norm difference; the
 # kernel and plain paths differ by summation order through 12 layers
 TRAIN_GRAD_TOL = 1e-3
+# K8: exact products (bf16 x times bf16 or int8 table) summed in fp32 in another
+# order than the plain version's GEMM, relative to its largest logit
+K8_TOL = 1e-5
+K8_SHAPES = ((1, 512, 250112), (8, 512, 250112),   # mT5-small's head at B=1 and B=8
+             (3, 512, 250001))                      # V not a multiple of the 256-column tile
+# mT5 kernel path against plain path in bf16, relative to the largest logit: one
+# bf16 step is 2^-8 of a value
+T5_LOGIT_TOL = 1e-2
 
 KERNELS = {
     "fused_attention_block": dict(
@@ -121,12 +144,16 @@ KERNELS = {
     "flash_attention_bwd": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/flash_attention.cu",
         replaces="construction_clip_tpu/ops/pallas_attention.py:303"),
+    "vocab_head_logits": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/vocab_head.cu",
+        replaces="construction_clip_tpu/ops/pallas_vocab_head.py:77"),
 }
 WRAPPERS = {"fused_attention_block": fused_attention_block,
             "decode_step_attention": decode_step_attention,
             "fused_attention_block_bwd": fused_attention_block_bwd,
             "flash_attention_fwd": flash_attention_fwd,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "vocab_head_logits": vocab_head_logits}
 
 
 def say(phase: str, **fields) -> None:
@@ -273,7 +300,8 @@ class CharTokenizer:
                 + [self.ids["[SEP]"]])
 
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
-        toks = [self.vocab[int(i)] for i in ids]
+        # ids past the vocab (mT5's 250,112 outputs) decode as <id>
+        toks = [self.vocab[int(i)] if int(i) < len(self.vocab) else f"<{int(i)}>" for i in ids]
         if skip_special_tokens:
             toks = [t for t in toks if t not in self.SPECIAL]
         return " ".join(toks)
@@ -622,6 +650,205 @@ def phase_train_parity(cfg, params_np, batch, device) -> None:
     say("train_parity", leaves=len(names), tol=TRAIN_GRAD_TOL, steps=report)
 
 
+def _vocab_head_inputs(rng, rows, d, v, int8, device):
+    w = rng.standard_normal((d, v), dtype=np.float32) * np.float32(d ** -0.5)
+    x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(
+        device, torch.bfloat16)
+    if not int8:
+        return x, torch.from_numpy(w).to(device, torch.bfloat16), None
+    from construction_clip_tpu_torch.ops.quant import quantize_weight
+
+    q, scale = quantize_weight(torch.from_numpy(w).to(device), axis=0)
+    return x, q, scale
+
+
+def phase_k8(results: dict) -> None:
+    rng = np.random.default_rng(12)
+    for rows, d, v in K8_SHAPES:
+        for int8 in (False, True):
+            x, table, scale = _vocab_head_inputs(rng, rows, d, v, int8, "cuda")
+
+            def kernel():
+                return vocab_head_logits(x, table, scale)
+
+            def plain():
+                return vocab_head_logits_plain(x, table, scale)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            mode = "int8" if int8 else "bf16"
+            stats = compare_scaled(got, plain(), K8_TOL, f"K8 B={rows} V={v} {mode}")
+            if not torch.equal(got, kernel()):
+                raise AssertionError(f"K8 B={rows} V={v} {mode}: two runs differ")
+            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain, 11, 3))
+            table_bytes = table.numel() * table.element_size() + (
+                scale.numel() * 4 if int8 else 0)
+            say("k8", shape=[rows, d, v], table=mode, table_mb=table_bytes / 1e6,
+                table_gb_per_s=table_bytes / (stats["ms"] * 1e-3) / 1e9,
+                plain_gb_per_s=table_bytes / (stats["plain_ms"] * 1e-3) / 1e9, **stats)
+            if (rows, v, int8) == (1, 250112, False):
+                results["vocab_head_logits"] = stats
+            del x, table, scale
+
+
+def _t5_caption_params(clip_np, t5_ccfg, tcfg, device):
+    """ViT-B/32 and the ClipCap mT5-small stack in bf16 on `device`, with the
+    bf16 head and with the int8 head (quantized after the cast)."""
+    from construction_clip_tpu_torch.models.t5 import quantize_t5_head
+
+    clip_p = convert.to_params(clip_np, dtype=torch.bfloat16, device=device)
+    cap = as_tree(convert.to_params(convert.init_clipcap_t5(3, t5_ccfg, tcfg),
+                                    dtype=torch.bfloat16, device=device))
+    return clip_p, {"bf16": cap, "int8": dict(cap, t5=quantize_t5_head(cap["t5"]))}
+
+
+def phase_t5_caption(clip_p, caps, cfgs, clip_tok, lm_tok, device) -> int:
+    """The port's predict_t5 batch function at B=1 and B=8, sampled and
+    greedy, bf16 and int8 head, 32 steps; then one B=16 call. Returns K8's
+    launches over the B <= 8 calls."""
+    from construction_clip_tpu.data.schema import Annotation
+    from construction_clip_tpu_torch.apps.predict_t5 import make_process
+
+    clip_cfg, ccfg, tcfg = cfgs
+    rng = np.random.default_rng(13)
+    staged = np.stack(synthetic_images(rng, [(256, 256)] * 16))
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", caption=f"gt {i}") for i in range(16)]
+    total = 0
+    runs = [(b, head, greedy) for head in ("bf16", "int8") for b in (1, 8)
+            for greedy in (False, True)] + [(16, "bf16", False)]
+    for b, head, greedy in runs:
+        process = make_process(clip_p, clip_cfg, caps[head], ccfg, tcfg, clip_tok, lm_tok,
+                               max_length=32, greedy=greedy, policy=BF16_POLICY, device=device)
+        with contextlib.redirect_stdout(io.StringIO()):   # the app prints each caption
+            process(anns[:b], staged[:b])   # warm-up: first use of this batch size
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            records, res = process(anns[:b], staged[:b])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launches()
+        steps = int(res.lengths.max())
+        want = steps + 1 if b <= 8 else 0
+        if counts["vocab_head_logits"] != want:
+            raise AssertionError(f"T5 B={b} {head}: K8 launched {counts['vocab_head_logits']} "
+                                 f"times, not {want} ({steps} steps)")
+        if counts["fused_attention_block"] <= 0:
+            raise AssertionError(f"T5 B={b}: the image tower did not run K1")
+        toks = res.tokens
+        if tuple(toks.shape) != (b, 32) or int(toks.min()) < 0 or \
+                int(toks.max()) >= tcfg.vocab_size or len(records) != b or \
+                not all(isinstance(r["caption"], str) and r["attribute"] for r in records):
+            raise AssertionError(f"T5 B={b} {head}: bad output {tuple(toks.shape)} {records[:1]}")
+        if b <= 8:
+            total += counts["vocab_head_logits"]
+        say("t5_caption", batch=b, head=head, greedy=greedy, steps=steps, wall_s=wall,
+            tokens_per_s=b * steps / wall, launches=counts,
+            captions=[r["caption"][:24] for r in records[:2]])
+    return total
+
+
+def phase_t5_steps(caps, cfgs, device) -> None:
+    """Decode-step times: greedy generate, 32 steps that never stop (EOS id
+    -1), on prefix-concatenated encoder states of 20 + 8 positions, timed by
+    the host clock around a synchronised call; per decode call (steps + 1)."""
+    from construction_clip_tpu_torch.infer.decode_t5 import t5_generate
+
+    _, ccfg, tcfg = cfgs
+    rng = np.random.default_rng(14)
+    for head in ("bf16", "int8"):
+        for b in (1, 8):
+            hidden = torch.from_numpy(rng.standard_normal(
+                (b, ccfg.prefix_length + 8, tcfg.d_model), dtype=np.float32)).to(
+                device, torch.bfloat16)
+
+            def run():
+                return t5_generate(caps[head]["t5"], tcfg, hidden, max_steps=32, eos_id=-1,
+                                   do_sample=False, policy=BF16_POLICY)
+
+            run()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / 33)
+            say("t5_step", batch=b, head=head, step_ms=statistics.median(times) * 1e3,
+                tokens_per_s=b / statistics.median(times), runs_step_ms=[t * 1e3 for t in times])
+
+
+def _t5_teacher_forced(params, tcfg, hidden, mask, tokens):
+    """Logits [B, steps + 1, V] of the cached decode, fed `tokens` [B, steps]."""
+    from construction_clip_tpu_torch.models.t5 import t5_decode, t5_init_cache
+
+    b = hidden.shape[0]
+    with torch.inference_mode():
+        cache = t5_init_cache(params, tcfg, hidden, tokens.shape[1] + 1, policy=BF16_POLICY)
+        feed = torch.cat([torch.zeros((b, 1), dtype=torch.int32, device=hidden.device),
+                          tokens], dim=1)
+        out = []
+        for step in range(feed.shape[1]):
+            logits, cache = t5_decode(params, tcfg, feed[:, step:step + 1], hidden,
+                                      encoder_mask=mask, cache=cache, policy=BF16_POLICY)
+            out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def phase_t5_parity(caps, cfgs, device) -> None:
+    """bf16, B=8, both heads: the plain path's greedy tokens fed to both paths
+    give logits within T5_LOGIT_TOL of the plain path's largest logit at every
+    step; greedy tokens are equal wherever the plain path's top-2 gap exceeds
+    that tolerance."""
+    from construction_clip_tpu_torch.infer.decode_t5 import t5_generate
+    from construction_clip_tpu_torch.models.clipcap.t5_model import encode_with_prefix
+
+    _, ccfg, tcfg = cfgs
+    rng = np.random.default_rng(15)
+    ids = torch.from_numpy(rng.integers(100, 20000, (8, 8)).astype(np.int32)).to(device)
+    ids[4:, 5:] = 0                                        # padded attribute ids
+    emb = torch.from_numpy(rng.standard_normal((8, ccfg.clip_dim), dtype=np.float32)).to(device)
+    for head in ("bf16", "int8"):
+        cap = caps[head]
+        with torch.inference_mode():
+            hidden, mask = encode_with_prefix(cap, ccfg, tcfg, input_ids=ids,
+                                              attention_mask=(ids != 0).int(), clip_embed=emb,
+                                              policy=BF16_POLICY)
+        out = {}
+        for impl in ("kernel", "plain"):
+            reset_launches()
+            with use_impl(impl):
+                out[impl] = t5_generate(cap["t5"], tcfg, hidden, encoder_mask=mask,
+                                        max_steps=32, do_sample=False, policy=BF16_POLICY)
+            out[impl + "_launches"] = launches()["vocab_head_logits"]
+        if out["kernel_launches"] == 0 or out["plain_launches"] != 0:
+            raise AssertionError(f"T5 paths not as asked: {out['kernel_launches']} kernel "
+                                 f"launches, {out['plain_launches']} on the plain path")
+        stream = out["plain"].tokens
+        logits = {}
+        for impl in ("kernel", "plain"):
+            with use_impl(impl):
+                logits[impl] = _t5_teacher_forced(cap["t5"], tcfg, hidden, mask, stream)
+        stats = compare_scaled(logits["kernel"], logits["plain"], T5_LOGIT_TOL,
+                               f"T5 {head} head logits")
+        tol_abs = T5_LOGIT_TOL * float(logits["plain"].abs().max())
+        top2 = logits["plain"][:, :-1].topk(2, dim=-1).values
+        gaps = top2[..., 0] - top2[..., 1]
+        mismatches = []
+        for row in range(8):
+            diff = (out["kernel"].tokens[row] != stream[row]).nonzero()
+            if len(diff):
+                step = int(diff[0])
+                gap = float(gaps[row, step])
+                mismatches.append({"row": row, "step": step, "plain_top2_gap": gap})
+                if gap >= tol_abs:
+                    raise AssertionError(f"T5 {head}: greedy tokens differ at row {row} step "
+                                         f"{step} with a top-2 gap of {gap} >= {tol_abs}")
+        say("t5_parity", head=head, steps=int(stream.shape[1]) + 1, gap_tol=tol_abs,
+            greedy_rows_equal=8 - len(mismatches), mismatches=mismatches,
+            min_plain_top2_gap=float(gaps.min()), **stats)
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -650,13 +877,23 @@ def main() -> None:
     cfg_l = CLIPConfig.vit_l_14()
     batch = class_balanced_batch(cfg_l, clip_tok, 1, 10, "cuda")
     out = phase_train("vit_l_14", cfg_l, convert.init_clip(2, cfg_l), batch, 3, "cuda")
-    if min(out["launches"][n] for n in KERNELS if n != "decode_step_attention") <= 0:
+    train_kernels = ("fused_attention_block", "fused_attention_block_bwd",
+                     "flash_attention_fwd", "flash_attention_bwd")
+    if min(out["launches"][n] for n in train_kernels) <= 0:
         raise AssertionError(f"a kernel of ViT-L/14 training never launched: "
                              f"{out['launches']}")
     counts.update({n: out["launches"][n] for n in ("flash_attention_fwd", "flash_attention_bwd")})
 
     batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
     phase_train_parity(cfgs[0], clip_np, batch, "cuda")
+
+    phase_k8(results)
+    t5_cfgs = (cfgs[0], ClipCapConfig(attribute_length=0), T5Config())   # full width
+    clip_p, caps = _t5_caption_params(clip_np, t5_cfgs[1], t5_cfgs[2], "cuda")
+    counts["vocab_head_logits"] = phase_t5_caption(clip_p, caps, t5_cfgs, clip_tok, lm_tok,
+                                                   "cuda")
+    phase_t5_steps(caps, t5_cfgs, "cuda")
+    phase_t5_parity(caps, t5_cfgs, "cuda")
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
                 "plain_ms": results[name]["plain_ms"]} for name in KERNELS]

@@ -1,12 +1,16 @@
 """Parameters for the port.
 
-`to_params` turns a JAX package parameter tree (from `init_clip`, `init_clipcap`
-or `init_gpt2`, or a checkpoint) into a ParamTree. The port keeps the JAX layout,
-so this is a plain copy of each leaf; leaves may be numpy arrays or anything
-`np.asarray` takes (a JAX array included, without this module importing jax).
+`to_params` turns a JAX package parameter tree (from `init_clip`, `init_clipcap`,
+`init_gpt2`, `init_t5` or `init_clipcap_t5`, or a checkpoint) into a ParamTree.
+The port keeps the JAX layout, so this is a plain copy of each leaf; leaves may
+be numpy arrays or anything `np.asarray` takes (a JAX array included, without
+this module importing jax). A quantized leaf {"q": int8, "s": scale} (the T5
+head of `quantize_t5_head`) keeps its int8 table and fp32 scale whatever
+`dtype` asks.
 
-`init_clip`, `init_gpt2` and `init_clipcap` build random trees at the JAX
-initialisers' shapes and scales from a numpy seed, for machines without JAX.
+`init_clip`, `init_gpt2`, `init_clipcap`, `init_t5` and `init_clipcap_t5` build
+random trees at the JAX initialisers' shapes and scales from a numpy seed, for
+machines without JAX.
 They draw other numbers than jax.random: for parity with the JAX package, make
 the tree there and copy it with `to_params`.
 """
@@ -16,21 +20,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, GPT2Config
-from construction_clip_tpu_torch.core.params import ParamTree, tree_map
+from construction_clip_tpu_torch.core.configs import (
+    CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
+from construction_clip_tpu_torch.core.params import ParamTree
+
+
+def _is_quantized(node) -> bool:
+    return isinstance(node, dict) and set(node) == {"q", "s"} and \
+        np.asarray(node["q"]).dtype == np.int8
 
 
 def to_params(tree, *, dtype=None, device=None, trainable: bool = False) -> ParamTree:
     """A nested dict of arrays -> ParamTree (floating leaves cast to `dtype` when
-    given), on `device`; `trainable` leaves require grad (serving keeps them
-    frozen)."""
-    def leaf(a):
+    given, except a quantized leaf's fp32 scale), on `device`; `trainable`
+    leaves require grad (serving keeps them frozen)."""
+    def leaf(a, cast):
         t = torch.from_numpy(np.array(a, copy=True))
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
+        if cast is not None and t.is_floating_point():
+            t = t.to(cast)
         return t.to(device) if device is not None else t
 
-    return ParamTree(tree_map(leaf, tree), trainable=trainable)
+    def convert(node, cast):
+        if isinstance(node, dict):
+            cast = None if _is_quantized(node) else cast
+            return {k: convert(v, cast) for k, v in node.items()}
+        return leaf(node, cast)
+
+    return ParamTree(convert(tree, dtype), trainable=trainable)
 
 
 def _normal(rng, shape, std, dtype):
@@ -139,3 +155,48 @@ def init_clipcap(seed: int, ccfg: ClipCapConfig, gcfg: GPT2Config, dtype=np.floa
     """{"mapper", "gpt"} as construction_clip_tpu.models.clipcap.init_clipcap."""
     return {"mapper": init_mapper(seed, ccfg, gcfg, dtype),
             "gpt": gpt_params if gpt_params is not None else init_gpt2(seed + 1, gcfg, dtype)}
+
+
+def init_t5(seed: int, cfg: T5Config, dtype=np.float32) -> dict:
+    """Numpy tree at construction_clip_tpu.models.t5.init_t5's shapes/scales."""
+    rng = np.random.default_rng(seed)
+    d, inner = cfg.d_model, cfg.num_heads * cfg.d_kv
+
+    def attn():
+        return {"q": _normal(rng, (d, inner), (d * cfg.d_kv) ** -0.5, dtype),
+                "k": _normal(rng, (d, inner), d ** -0.5, dtype),
+                "v": _normal(rng, (d, inner), d ** -0.5, dtype),
+                "o": _normal(rng, (inner, d), inner ** -0.5, dtype)}
+
+    def ffn():
+        return {"wi_0": _normal(rng, (d, cfg.d_ff), d ** -0.5, dtype),
+                "wi_1": _normal(rng, (d, cfg.d_ff), d ** -0.5, dtype),
+                "wo": _normal(rng, (cfg.d_ff, d), cfg.d_ff ** -0.5, dtype)}
+
+    def ones():
+        return np.ones((d,), dtype)
+
+    buckets = cfg.relative_attention_num_buckets
+    return {
+        "shared": _normal(rng, (cfg.vocab_size, d), 1.0, dtype),
+        "enc_rel_emb": _normal(rng, (buckets, cfg.num_heads), 1.0, dtype),
+        "dec_rel_emb": _normal(rng, (buckets, cfg.num_heads), 1.0, dtype),
+        "encoder": _stack([{"ln_attn": ones(), "attn": attn(), "ln_ffn": ones(), "ffn": ffn()}
+                           for _ in range(cfg.num_layers)]),
+        "enc_final_ln": ones(),
+        "decoder": _stack([{"ln_self": ones(), "self_attn": attn(), "ln_cross": ones(),
+                            "cross_attn": attn(), "ln_ffn": ones(), "ffn": ffn()}
+                           for _ in range(cfg.num_decoder_layers)]),
+        "dec_final_ln": ones(),
+        "lm_head": _normal(rng, (d, cfg.vocab_size), d ** -0.5, dtype),
+    }
+
+
+def init_clipcap_t5(seed: int, ccfg: ClipCapConfig, tcfg: T5Config, dtype=np.float32,
+                    t5_params=None) -> dict:
+    """{"mapper", "t5"} as construction_clip_tpu.models.clipcap.t5_model.init_clipcap_t5
+    (the mapper sized by the T5 width)."""
+    from construction_clip_tpu_torch.models.clipcap.t5_model import mapper_shape
+
+    return {"mapper": init_mapper(seed, ccfg, mapper_shape(tcfg), dtype),
+            "t5": t5_params if t5_params is not None else init_t5(seed + 1, tcfg, dtype)}

@@ -104,6 +104,28 @@ class GPT2Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class T5Config:
+    """HF-mT5-compatible encoder-decoder config (defaults = google/mt5-small)."""
+
+    vocab_size: int = 250112
+    d_model: int = 512
+    d_kv: int = 64
+    d_ff: int = 1024
+    num_layers: int = 8
+    num_decoder_layers: int = 8
+    num_heads: int = 6
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    tie_word_embeddings: bool = False
+
+    @staticmethod
+    def tiny() -> "T5Config":
+        return T5Config(vocab_size=100, d_model=32, d_kv=8, d_ff=64,
+                        num_layers=2, num_decoder_layers=2, num_heads=2)
+
+
+@dataclasses.dataclass(frozen=True)
 class ClipCapConfig:
     """Prefix-captioning stack config (reference defaults: prefix 20, attribute
     20, CLIP dim 512, MLP mapper)."""

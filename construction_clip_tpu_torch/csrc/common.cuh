@@ -11,7 +11,8 @@
 
 namespace cct {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+// kInt8 is a storage type only (K8's quantized table), never a compute type.
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -47,6 +47,18 @@ def _top_k(x, k: int):
     return values[..., :k], idx[..., :k]
 
 
+def _top_p_filter(logits, top_p: float):
+    """Mask logits outside the smallest set whose cumulative probability
+    exceeds top_p; the first token above the threshold is kept
+    (construction_clip_tpu/infer/decode.py:_top_p_filter)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) <= top_p   # keep while the mass before a token <= p
+    thresh = torch.where(keep_sorted, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
+    return torch.where(logits >= thresh, logits, NEG_INF)
+
+
 def _lengths(toks, stop_token: int, max_steps: int):
     hit = (toks == stop_token).int()
     return torch.where(hit.any(dim=-1), hit.argmax(dim=-1) + 1, max_steps).int()

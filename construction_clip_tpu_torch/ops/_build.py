@@ -46,6 +46,8 @@ SIGNATURES = {
     "cct_flash_attention_fwd": ([_I] + [_P] * 4 + [_I] * 5 + [_F, _P], _I),
     # dtype, q, k, v, g, work, dq, dk, dv, b, h, t, dh, causal, scale, stream
     "cct_flash_attention_bwd": ([_I] + [_P] * 8 + [_I] * 5 + [_F, _P], _I),
+    # table_dtype, x, table, scale, out, rows, d, v, stream
+    "cct_vocab_head": ([_I] + [_P] * 4 + [_I] * 3 + [_P], _I),
     "cct_error_string": ([_I], ctypes.c_char_p),
 }
 

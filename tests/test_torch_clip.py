@@ -126,7 +126,7 @@ def test_numpy_init_matches_jax_shapes(which):
 
 
 @pytest.mark.parametrize("name", ["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe", "gpt2",
-                                  "gpt2_tiny", "clipcap"])
+                                  "gpt2_tiny", "clipcap", "t5", "t5_tiny"])
 def test_configs_equal_the_jax_configs(name):
     """The port's copies of the config dataclasses stay equal to the originals."""
     import dataclasses
@@ -140,6 +140,10 @@ def test_configs_equal_the_jax_configs(name):
             return mod.GPT2Config.tiny()
         if name == "clipcap":
             return mod.ClipCapConfig()
+        if name == "t5":
+            return mod.T5Config()
+        if name == "t5_tiny":
+            return mod.T5Config.tiny()
         return getattr(mod.CLIPConfig, name)()
 
     import construction_clip_tpu_torch.core.configs as tcfg

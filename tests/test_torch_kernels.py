@@ -18,6 +18,7 @@ from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import decode_attention as dec
 from construction_clip_tpu_torch.ops import flash_attention as fa
+from construction_clip_tpu_torch.ops import vocab_head as vh
 
 
 @pytest.fixture
@@ -34,7 +35,7 @@ def test_nvcc_command_targets_hopper():
         sources |= {os.path.basename(c) for c in cmd if c.endswith(".cu")}
         assert _build.library_path(src).name.startswith(f"libcct_{src.stem}_")
     assert sources == {"attention_block.cu", "attention_block_bwd.cu",
-                       "decode_attention.cu", "flash_attention.cu"}
+                       "decode_attention.cu", "flash_attention.cu", "vocab_head.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
 
@@ -241,3 +242,47 @@ def test_flash_attention_kernels_on_card(shape, dtype, gen, cuda_device):
                           fa.flash_attention_bwd_plain(q, k, v, g, is_causal=causal,
                                                        scale=scale)):
         assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
+
+
+def _vocab_case(gen, dev, rows, d, v, int8):
+    w = gen.standard_normal((d, v)).astype(np.float32) * d ** -0.5
+    x = torch.from_numpy(gen.standard_normal((rows, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    if not int8:
+        return x, torch.from_numpy(w).to(dev, torch.bfloat16), None
+    scale = np.abs(w).max(axis=0) / 127.0
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return x, torch.from_numpy(q).to(dev), torch.from_numpy(scale.astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("v", [250112, 1001])   # mT5-small's vocab, and an odd V
+def test_vocab_head_kernel_on_card(v, rows, int8, gen, cuda_device):
+    x, table, scale = _vocab_case(gen, cuda_device, rows, 512, v, int8)
+    before = vh.vocab_head_logits.launches
+    got = vh.vocab_head_logits(x, table, scale)
+    want = vh.vocab_head_logits_plain(x, table, scale)
+    torch.cuda.synchronize()
+    assert vh.vocab_head_logits.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (rows, v)
+    # fp32 sums of exact products in another order: relative to the largest logit
+    assert _scaled_err(got, want) <= 1e-5
+    assert torch.equal(got, vh.vocab_head_logits(x, table, scale))   # fixed order: same bits
+
+
+@pytest.mark.cuda
+def test_vocab_head_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
+    x, table, _ = _vocab_case(gen, cuda_device, 2, 64, 300, False)
+    before = vh.vocab_head_logits.launches
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        vh.vocab_head_logits(x, table.half())
+    with pytest.raises(ValueError, match="rows"):
+        vh.vocab_head_logits(x.repeat(5, 1), table)
+    with pytest.raises(ValueError, match="fit"):
+        vh.vocab_head_logits(x[:, :32], table)
+    with pytest.raises(ValueError, match="scale"):
+        vh.vocab_head_logits(x, table.to(torch.int8))
+    with pytest.raises(ValueError, match="one device"):
+        vh.vocab_head_logits(x, table.cpu())
+    assert vh.vocab_head_logits.launches == before

@@ -242,6 +242,24 @@ assert bool(torch.isfinite(m["loss"]))
 with tempfile.TemporaryDirectory() as d:
     checkpoint.save_state(d, st)
     checkpoint.save_params_npz(os.path.join(d, "p.npz"), st.params)
+
+# the mT5 slice: the app's batch function on the tiny CLIP above and a tiny T5
+import construction_clip_tpu.data.schema
+from construction_clip_tpu_torch.apps import predict_t5
+from construction_clip_tpu_torch.core.configs import T5Config
+from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY
+from construction_clip_tpu_torch.models.t5 import quantize_t5_head
+
+tcfg = T5Config.tiny()
+t5_ccfg = ClipCapConfig(prefix_length=2, attribute_length=0, clip_dim=16)
+cap = convert.to_params(convert.init_clipcap_t5(2, t5_ccfg, tcfg)).tree()
+cap = dict(cap, t5=quantize_t5_head(cap["t5"]))
+process = predict_t5.make_process(
+    pipe.clip_params, clip_cfg, cap, t5_ccfg, tcfg, pipe.clip_tokenizer, Tok(), max_length=4,
+    policy=DEFAULT_POLICY, device="cpu")
+records, res = process([construction_clip_tpu.data.schema.Annotation(id=0, file_name="a.jpg")],
+                       (np.random.default_rng(1).random((1, 40, 40, 3)) * 255).astype(np.uint8))
+assert len(records) == 1 and tuple(res.tokens.shape) == (1, 4), records
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", bad)
 """
