@@ -36,8 +36,23 @@ Phases, each printing one line (the last line is the JSON verdict):
      of a 32-step greedy generate at B=1 and B=8 with each head.
  14. the kernel path against the plain path in bf16 for mT5: every step's
      logits over one token stream, and greedy tokens.
+ 15. K7, the int8 fused attention block, against its plain version at the
+     int8 image tower's shapes ([8,50,768] and [1,50,768], H=12), bf16 and
+     fp32, with K1's time at the same bf16 shapes; and the int8 GEMM of
+     int8_linear with the weight K-contiguous against row-major.
+ 16. int8 serving at full width (ViT-B/32 and GPT-2 quantized in the port from
+     phase 5's numpy seeds) through the port's apps/serve.build_service
+     (--int8, beam 3, 100 steps): requests from 4 threads; K7 launches 12
+     times per image-tower call, K1 never after setup, K2 12 times a step.
+ 17. the int8 kernel path against the int8 plain path: image features,
+     zero-shot classes and greedy tokens.
 Any failed check raises, so the script exits nonzero and prints no verdict.
-The script imports nothing of JAX, tokenizers, transformers or PIL.
+The line before the verdict lists every kernel with its launches on the main
+paths, its error and time against its plain version, its bound (the least
+time the card could take for the same work: the bytes it must move at 3.35
+TB/s or its operations at the card's peak for their type, whichever is
+larger) and, where one PyTorch call computes the same function, that call's
+time. The script imports nothing of JAX, tokenizers, transformers or PIL.
 """
 
 from __future__ import annotations
@@ -58,14 +73,15 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from construction_clip_tpu.data.clip_tokenizer import ClipTokenizer  # noqa: E402
-from construction_clip_tpu.data.labels import (  # noqa: E402
-    CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch import convert  # noqa: E402
 from construction_clip_tpu_torch.core.configs import (  # noqa: E402
     CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
 from construction_clip_tpu_torch.core.params import as_tree  # noqa: E402
 from construction_clip_tpu_torch.core.precision import BF16_POLICY  # noqa: E402
+from construction_clip_tpu_torch.data import offline_assets  # noqa: E402
+from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer  # noqa: E402
+from construction_clip_tpu_torch.data.labels import (  # noqa: E402
+    CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch  # noqa: E402
 from construction_clip_tpu_torch.infer.caption import CaptionPipeline  # noqa: E402
 from construction_clip_tpu_torch.infer.decode import greedy_decode  # noqa: E402
@@ -78,6 +94,8 @@ from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
     fused_attention_block, fused_attention_block_plain)
 from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
     fused_attention_block_bwd, fused_attention_block_bwd_plain)
+from construction_clip_tpu_torch.ops.attention_block_int8 import (  # noqa: E402
+    fused_attention_block_int8, fused_attention_block_int8_plain)
 from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_step_attention, decode_step_attention_plain)
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -147,13 +165,38 @@ KERNELS = {
     "vocab_head_logits": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/vocab_head.cu",
         replaces="construction_clip_tpu/ops/pallas_vocab_head.py:77"),
+    "fused_attention_block_int8": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/attention_block_int8.cu",
+        replaces="construction_clip_tpu/ops/pallas_attention_block_int8.py:94"),
 }
 WRAPPERS = {"fused_attention_block": fused_attention_block,
             "decode_step_attention": decode_step_attention,
             "fused_attention_block_bwd": fused_attention_block_bwd,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "vocab_head_logits": vocab_head_logits}
+            "vocab_head_logits": vocab_head_logits,
+            "fused_attention_block_int8": fused_attention_block_int8}
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# HBM bytes/s and operations/s by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+# K7 against its plain version, relative to the plain output's largest element:
+# sums in another order, and an ulp of an fp32 row can move one int8 value by
+# one step (~7e-4 of the largest output); bf16 adds one rounding of qkv and of
+# the output (2^-8 each) that such a step can flip
+K7_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+K7_SHAPES = ((8, 50, 768, 12), (1, 50, 768, 12))   # the int8 image tower at B=8 and B=1
+# int8 kernel path against int8 plain path, relative to the largest feature: the
+# plain path rounds the LN output, the merged heads and the residual to bf16
+# where K7 does not (2.0e-2 between the port's two paths at ViT-B/32 on the CPU)
+INT8_FEATURE_TOL = 5e-2
+# int8 decode, kernel path against plain path, relative to the largest logit:
+# the steps run bf16 activations, where K2's fp32 sums in another order can flip
+# a bf16 rounding (2^-8 relative); where that element is its row's largest, the
+# row's int8 scale changes and many of its int8 values move by a step, through
+# 12 layers (1.8e-2 measured on the H100)
+INT8_LOGIT_TOL = 5e-2
 
 
 def say(phase: str, **fields) -> None:
@@ -190,6 +233,25 @@ def compare(got, want, atol: float, rtol: float, what: str) -> dict:
     if worst > 1.0:
         raise AssertionError(f"{what}: kernel and plain version disagree: {stats}")
     return stats
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: int, ops: dict) -> dict:
+    """The least time the card could take: `moved_bytes` over the HBM rate or
+    the operations ({dtype: count}) over the peak for their type, the larger."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    t_ops = sum(count / PEAK_OPS_PER_S[dtype] for dtype, count in ops.items())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_ops(b, h, t, dh, products: int) -> int:
+    """Multiply-adds (2 operations each) of `products` [t, t, dh] products per
+    (batch, head)."""
+    return 2 * b * h * t * t * dh * products
 
 
 def phase_device() -> dict:
@@ -245,6 +307,9 @@ def phase_k1(results: dict) -> None:
             stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
             say("k1", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype), **stats)
             if (b, t, d) == (8, 50, 768) and dtype == torch.bfloat16:
+                m = b * t
+                stats.update(bound(nbytes(x, *args, x), {dtype: 2 * m * d * 4 * d + attention_ops(
+                    b, h, t, d // h, 2)}), library_ms=None)   # no single PyTorch call
                 results["fused_attention_block"] = stats
 
 
@@ -279,6 +344,14 @@ def phase_k2(results: dict) -> None:
                 say("k2", **s, cache_len=cache_len, ancestry=ancestry is not None,
                     dtype=str(dtype), **stats)
                 if cache_len == 139 and ancestry is not None and dtype == torch.bfloat16:
+                    # each (cache row, position) the ancestry reaches is read once
+                    rows_read = len(set(zip(anc[:, :cache_len + 1].flatten().tolist(),
+                                            list(range(cache_len + 1)) * s["rows"])))
+                    kv_bytes = 2 * rows_read * s["heads"] * s["dh"] * q.element_size()
+                    stats.update(bound(
+                        nbytes(q, q, anc[:, :cache_len + 1]) + kv_bytes,
+                        {dtype: 2 * 2 * s["rows"] * s["heads"] * (cache_len + 1) * s["dh"]}),
+                        library_ms=None)
                     results["decode_step_attention"] = stats
 
 
@@ -309,14 +382,11 @@ class CharTokenizer:
 
 def tokenizers(tmp: str):
     """The 49,408-token CLIP BPE and the 21,128-entry BERT vocab, written by
-    tools/make_offline_assets.py into `tmp`."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_offline_assets as assets
-
+    the port's data/offline_assets.py into `tmp`."""
     merges = os.path.join(tmp, "clip_merges.txt.gz")
-    assets.write_clip_merges(merges)
+    offline_assets.write_clip_merges(merges)
     vocab = os.path.join(tmp, "vocab.txt")
-    assets.write_bert_vocab(vocab, assets.corpus_characters([]))
+    offline_assets.write_bert_vocab(vocab, offline_assets.corpus_characters([]))
     clip_tok = ClipTokenizer(merges)
     if clip_tok.vocab_size != CLIPConfig().text.vocab_size:
         raise AssertionError(f"CLIP tokenizer vocab {clip_tok.vocab_size}")
@@ -391,21 +461,31 @@ def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
     return counts
 
 
-def plain_top2_gaps(params, gcfg, embeds, tokens):
-    """Top-2 logit gap of the plain path at each greedy step, teacher-forced
-    with the plain path's own tokens: [B, steps]."""
-    with use_impl("plain"), torch.inference_mode():
+def teacher_forced_logits(params, gcfg, embeds, tokens, impl: str):
+    """Logits [B, steps, V] of each greedy step, fed `tokens` [B, steps] after
+    the prompt `embeds`, on the `impl` path."""
+    with use_impl(impl), torch.inference_mode():
         last, cache = gpt2.gpt2_forward(
             params, gcfg, inputs_embeds=embeds,
             cache=gpt2.KVCache.create(gcfg, embeds.shape[0], embeds.shape[1] + tokens.shape[1],
                                       device=embeds.device))
-        gaps = []
+        out = []
         for step in range(tokens.shape[1]):
-            top2 = last[:, -1].topk(2, dim=-1).values
-            gaps.append(top2[:, 0] - top2[:, 1])
+            out.append(last[:, -1])
             last, cache = gpt2.gpt2_forward(params, gcfg, tokens=tokens[:, step:step + 1],
                                             cache=cache)
-    return torch.stack(gaps, dim=1)
+    return torch.stack(out, dim=1)
+
+
+def top2_gaps(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def plain_top2_gaps(params, gcfg, embeds, tokens):
+    """Top-2 logit gap of the plain path at each greedy step, teacher-forced
+    with the plain path's own tokens: [B, steps]."""
+    return top2_gaps(teacher_forced_logits(params, gcfg, embeds, tokens, "plain"))
 
 
 def phase_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> None:
@@ -512,7 +592,24 @@ def phase_k3(results: dict) -> None:
             say("k3", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype),
                 scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **stats)
             if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
+                m = b * t   # recomputed qkv, dmg, dh GEMMs; six attention products
+                stats.update(bound(nbytes(x, g, *args, *got),
+                                   {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}),
+                             library_ms=None)
                 results["fused_attention_block_bwd"] = stats
+
+
+def sdpa(q, k, v, *, is_causal, scale):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=is_causal,
+                                                            scale=scale)
+
+
+def sdpa_backward_ms(q, k, v, g, kw) -> float:
+    """scaled_dot_product_attention's backward alone: the gradients of one
+    recorded forward, taken again and again."""
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    out = sdpa(*leaves, **kw)
+    return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 11, 3)
 
 
 def phase_flash(results: dict) -> None:
@@ -551,6 +648,12 @@ def phase_flash(results: dict) -> None:
             say("k5", shape=[b, h, t, dh], causal=causal, dtype=str(dtype),
                 scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **b_stats)
             if (b, h, t, dh) == FLASH_SHAPES[0][:4] and dtype == torch.bfloat16:
+                f_stats.update(bound(nbytes(q, k, v, q), {dtype: attention_ops(b, h, t, dh, 2)}),
+                               library_ms=median_ms(lambda: sdpa(q, k, v, **kw), 11, 5))
+                # the backward recomputes s and o, then dp, dv, dq and dk
+                b_stats.update(bound(nbytes(q, k, v, g, *got),
+                                     {dtype: attention_ops(b, h, t, dh, 6)}),
+                               library_ms=sdpa_backward_ms(q, k, v, g, kw))
                 results["flash_attention_fwd"] = f_stats
                 results["flash_attention_bwd"] = b_stats
 
@@ -687,6 +790,9 @@ def phase_k8(results: dict) -> None:
                 table_gb_per_s=table_bytes / (stats["ms"] * 1e-3) / 1e9,
                 plain_gb_per_s=table_bytes / (stats["plain_ms"] * 1e-3) / 1e9, **stats)
             if (rows, v, int8) == (1, 250112, False):
+                stats.update(bound(nbytes(x, table, got), {torch.bfloat16: 2 * rows * d * v}),
+                             library_ms=median_ms(
+                                 lambda: torch.mm(x, table, out_dtype=torch.float32)))
                 results["vocab_head_logits"] = stats
             del x, table, scale
 
@@ -706,8 +812,8 @@ def phase_t5_caption(clip_p, caps, cfgs, clip_tok, lm_tok, device) -> int:
     """The port's predict_t5 batch function at B=1 and B=8, sampled and
     greedy, bf16 and int8 head, 32 steps; then one B=16 call. Returns K8's
     launches over the B <= 8 calls."""
-    from construction_clip_tpu.data.schema import Annotation
     from construction_clip_tpu_torch.apps.predict_t5 import make_process
+    from construction_clip_tpu_torch.data.schema import Annotation
 
     clip_cfg, ccfg, tcfg = cfgs
     rng = np.random.default_rng(13)
@@ -849,6 +955,240 @@ def phase_t5_parity(caps, cfgs, device) -> None:
             min_plain_top2_gap=float(gaps.min()), **stats)
 
 
+def _int8_block_inputs(rng, b, t, d, dtype, dev):
+    """x, LN params and int8 attention params quantized by ops/quant.quantize_tree
+    (the layout K7 and the int8 GEMM read), plus the same weights as floats."""
+    from construction_clip_tpu_torch.ops.quant import quantize_tree
+
+    x, ln, attn = _block_inputs(rng, b, t, d, torch.float32, dev)
+    qattn = quantize_tree(attn, [("w_qkv",), ("w_out",)])
+    for key in ("b_qkv", "b_out"):
+        qattn[key] = qattn[key].to(dtype)
+    return x.to(dtype), {k: v.to(dtype) for k, v in ln.items()}, qattn, \
+        {k: v.to(dtype) for k, v in attn.items()}
+
+
+def phase_k7(results: dict) -> None:
+    """K7 against its plain version, with K1's time on the same float weights
+    in bf16 beside it."""
+    rng = np.random.default_rng(15)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, d, h in K7_SHAPES:
+            x, ln, qattn, attn = _int8_block_inputs(rng, b, t, d, dtype, "cuda")
+            args = (ln["scale"], ln["bias"], qattn["w_qkv"]["q"], qattn["w_qkv"]["s"],
+                    qattn["b_qkv"], qattn["w_out"]["q"], qattn["w_out"]["s"], qattn["b_out"])
+
+            def kernel():
+                return fused_attention_block_int8(x, ln, qattn, n_heads=h)
+
+            def plain():
+                return fused_attention_block_int8_plain(x, *args, n_heads=h)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            stats = compare_scaled(got, plain(), K7_TOL[dtype], f"K7 {[b, t, d]} h={h} {dtype}")
+            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
+            m = b * t
+            ops = {torch.int8: 2 * m * d * 4 * d, dtype: attention_ops(b, h, t, d // h, 2)}
+            stats.update(bound(nbytes(x, *args, x), ops), library_ms=None)   # no single call
+            if dtype == torch.bfloat16:
+                stats["k1_ms"] = median_ms(
+                    lambda: fused_attention_block(x, ln, attn, n_heads=h))
+            say("k7", shape=[b, t, d], heads=h, dtype=str(dtype), **stats)
+            if (b, dtype) == (8, torch.bfloat16):
+                results["fused_attention_block_int8"] = stats
+    # the int8 GEMM of int8_linear with the weight K-contiguous (ops/quant.gemm_layout,
+    # as quantize_tree stores it) against row-major, at decode and encode shapes
+    from construction_clip_tpu_torch.ops.quant import gemm_layout, int8_matmul
+
+    for m, k, n in ((24, 3072, 768), (24, 768, 21128), (400, 768, 2304)):
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).cuda()
+        w_k = gemm_layout(w)
+        if not torch.equal(int8_matmul(a, w_k), int8_matmul(a, w)):
+            raise AssertionError(f"int8_matmul {[m, k, n]}: the two layouts differ")
+        say("int8_gemm_layout", shape=[m, k, n],
+            k_contiguous_ms=median_ms(lambda: int8_matmul(a, w_k)),
+            row_major_ms=median_ms(lambda: int8_matmul(a, w)))
+
+
+def _tree_bytes(tree) -> int:
+    from construction_clip_tpu_torch.core.params import tree_leaves
+
+    return sum(nbytes(t) for t in tree_leaves(tree))
+
+
+def phase_int8_serve(clip_np, cap_np, clip_tok, lm_tok) -> dict:
+    """int8 serving through the port's apps/serve.build_service (--int8,
+    DEFAULT_POLICY, beam 3, 100 steps): 10 requests from 4 threads with a 20 ms
+    coalescing window. The service quantizes, in the port, the trees of phase
+    5's numpy seeds."""
+    import concurrent.futures as cf
+
+    from construction_clip_tpu_torch.apps import serve as serve_app
+
+    args = serve_app.parse_args(["--int8", "--batch_window_ms", "20", "--max_batch", "8",
+                                 "--device", "cuda"])
+    svc = serve_app.build_service(args, clip_tok, lm_tok, torch.device("cuda"))
+    # weight bytes by subtree: as served (int8 towers; the mapper stays fp32, as
+    # the JAX package leaves it) and as the same trees would be in bf16
+    served = {"clip": svc.pipe.clip_params, **as_tree(svc.pipe.cap_params)}
+    int8_bytes = {name: _tree_bytes(tree) for name, tree in served.items()}
+    bf16_bytes = {name: sum(a.size * 2 for a in _np_leaves(tree)
+                            if np.issubdtype(a.dtype, np.floating))
+                  for name, tree in (("clip", clip_np), *cap_np.items())}
+    batch_sizes = []
+    caption_batch = svc._caption_batch
+
+    def counted(staged):
+        batch_sizes.append(len(staged))
+        return caption_batch(staged)
+
+    svc._caption_batch = counted
+    torch.cuda.synchronize()
+    reset_launches()   # after setup: the label features ran the text tower (K1)
+    rng = np.random.default_rng(5)
+    warm = synthetic_images(rng, [(480, 640)])[0]
+    svc.predict(warm)
+    single = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        svc.predict(warm)
+        single.append(time.perf_counter() - t0)
+    shapes = [(480, 640), (768, 1024), (256, 256), (600, 400), (1080, 1920)] * 2
+    images = synthetic_images(rng, shapes)
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(4) as pool:
+        responses = list(pool.map(svc.predict, images))
+    wall = time.perf_counter() - t0
+    counts = launches()
+    for r in responses:
+        if r["caption_type"] not in ("violation", "status") or \
+                r["violation_type"] not in VIOLATION_TYPES or not isinstance(r["caption"], str):
+            raise AssertionError(f"bad response {r}")
+    if max(batch_sizes) < 2:
+        raise AssertionError(f"no coalesced batch formed: {batch_sizes}")
+    layers = CLIPConfig.vit_b_32().vision.layers
+    k7, k2 = counts["fused_attention_block_int8"], counts["decode_step_attention"]
+    if k7 != layers * len(batch_sizes) or counts["fused_attention_block"] != 0:
+        raise AssertionError(f"image tower not on K7 alone: {counts}, {len(batch_sizes)} calls")
+    if k2 <= 0 or k2 % GPT2Config().n_layer:
+        raise AssertionError(f"K2 launched {k2} times, not 12 per decode step")
+    say("int8_serve", requests=len(images), threads=4, wall_s=wall,
+        req_per_s=len(images) / wall, warm_single_request_s=statistics.median(single),
+        runs_single_request_s=single, batch_sizes=batch_sizes, image_tower_calls=len(batch_sizes),
+        k7_per_image_tower_call=k7 / len(batch_sizes), decode_steps=k2 // GPT2Config().n_layer,
+        launches=counts, served_tree_bytes=int8_bytes, bf16_tree_bytes=bf16_bytes,
+        captions=[r["caption"][:24] for r in responses[:3]])
+    return counts
+
+
+def _np_leaves(tree):
+    for value in tree.values():
+        yield from (_np_leaves(value) if isinstance(value, dict) else [np.asarray(value)])
+
+
+def phase_int8_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> None:
+    """The int8 kernel path (K7 in the image tower, K2 in the decode) against
+    the int8 plain path on the same quantized params and images: features
+    within INT8_FEATURE_TOL; each class equal, or the plain path's top-2
+    similarity gap at most 2 ||delta normalised feature|| (no larger gap can
+    flip); from the plain path's prompt, teacher-forced decode logits within
+    INT8_LOGIT_TOL, and greedy tokens equal, or parting only where the plain
+    top-2 gap is at most twice the logit difference."""
+    from construction_clip_tpu_torch.models.clip.quant import quantize_clip
+
+    cfg, gcfg, ccfg = cfgs
+    clip_q = quantize_clip(convert.to_params(clip_np, device=device))
+    cap = as_tree(convert.to_params(cap_np, device=device))
+    cap_q = dict(cap, gpt=gpt2.quantize_gpt2(cap["gpt"]))
+    ct = clip_tok.tokenize(list(CAPTION_TYPE_PROMPTS), cfg.text.context_length)
+    vt = clip_tok.tokenize(list(VIOLATION_TYPES), cfg.text.context_length)
+    u8 = np.stack(synthetic_images(np.random.default_rng(6), [(256, 256)] * 8))
+    images = preprocess_batch(u8, cfg.vision.image_size, device=device)
+    out = {}
+    for impl in ("kernel", "plain"):
+        with use_impl(impl):
+            fn = make_embed_classify_fn(clip_q, cfg, ct, vt)
+            reset_launches()
+            out[impl] = fn(images)
+        out[impl + "_launches"] = launches()["fused_attention_block_int8"]
+    (emb_k, ct_k, vt_k), (emb_p, ct_p, vt_p) = out["kernel"], out["plain"]
+    if tuple(emb_k.shape) != (8, cfg.vision.embed_dim) or not torch.isfinite(emb_k).all():
+        raise AssertionError(f"image features {tuple(emb_k.shape)} not finite/shaped")
+    if out["kernel_launches"] != cfg.vision.layers or out["plain_launches"] != 0:
+        raise AssertionError(f"paths not as asked: {out['kernel_launches']} K7 launches, "
+                             f"{out['plain_launches']} on the plain path")
+    feats = compare_scaled(emb_k, emb_p, INT8_FEATURE_TOL, "int8 image features")
+    delta = (torch.nn.functional.normalize(emb_k.float(), dim=-1)
+             - torch.nn.functional.normalize(emb_p.float(), dim=-1)).norm(dim=-1)
+    class_flips = []
+    with torch.inference_mode():
+        text = {name: encode_text_feats(clip_q, cfg, toks, device)
+                for name, toks in (("caption_type", ct), ("violation_type", vt))}
+    for name, got, want in (("caption_type", ct_k, ct_p), ("violation_type", vt_k, vt_p)):
+        sims = torch.nn.functional.normalize(emb_p.float(), dim=-1) @ text[name].T
+        top2 = sims.topk(2, dim=-1).values
+        for row in (got != want).nonzero().flatten().tolist():
+            gap = float(top2[row, 0] - top2[row, 1])
+            class_flips.append({"which": name, "row": row, "plain_top2_gap": gap})
+            if gap > 2 * float(delta[row]):
+                raise AssertionError(f"{name} differs at row {row} with a top-2 gap {gap} "
+                                     f"> 2 * {float(delta[row])}")
+
+    attr = np.zeros((8, ccfg.attribute_length), np.int32)
+    for i, (c, v) in enumerate(zip(ct_p.tolist(), vt_p.tolist())):
+        ids = lm_tok.encode(attribute_string(CAPTION_TYPE_PROMPTS[c], VIOLATION_TYPES[v]))
+        ids = ids[:ccfg.attribute_length]
+        attr[i, :len(ids)] = ids
+    with torch.inference_mode():
+        embeds = torch.cat([map_prefix(cap_q["mapper"], ccfg, gcfg, emb_p),
+                            gpt2.embed_tokens(cap_q["gpt"], torch.from_numpy(attr).to(device))],
+                           dim=1)
+    toks = {}
+    for impl in ("kernel", "plain"):
+        reset_launches()
+        with use_impl(impl):
+            toks[impl] = greedy_decode(cap_q["gpt"], gcfg, embeds, max_steps=32,
+                                       stop_token=102).tokens
+        toks[impl + "_launches"] = launches()["decode_step_attention"]
+    if toks["kernel_launches"] == 0 or toks["plain_launches"] != 0:
+        raise AssertionError("int8 decode paths not as asked")
+    # the paths part only where a difference of their logits can reorder the
+    # top two: teacher-forced along the plain path's tokens, a step where the
+    # kernel's tokens first differ must have a plain top-2 gap of at most twice
+    # the largest logit difference of that row and step
+    stream = toks["plain"]
+    lk, lp = (teacher_forced_logits(cap_q["gpt"], gcfg, embeds, stream, impl)
+              for impl in ("kernel", "plain"))
+    logits = compare_scaled(lk, lp, INT8_LOGIT_TOL, "int8 decode logits")
+    logit_diff, gaps = (lk - lp).abs().amax(dim=-1), top2_gaps(lp)
+    mismatches = []
+    for row in range(8):
+        diff = (toks["kernel"][row] != stream[row]).nonzero()
+        if len(diff):
+            step = int(diff[0])
+            gap, bound_ = float(gaps[row, step]), 2 * float(logit_diff[row, step])
+            mismatches.append({"row": row, "step": step, "plain_top2_gap": gap,
+                               "twice_logit_diff": bound_})
+            if gap > bound_:
+                raise AssertionError(f"int8 greedy tokens differ at row {row} step {step} "
+                                     f"with a top-2 gap of {gap} > {bound_}")
+    say("int8_parity", image_feature_max_abs_err=feats["max_abs_err"],
+        image_feature_scaled_err=feats["max_scaled_err"], feature_tol=INT8_FEATURE_TOL,
+        max_normed_feature_delta=float(delta.max()), classes_equal=not class_flips,
+        class_flips=class_flips, greedy_steps=32, greedy_rows_equal=8 - len(mismatches),
+        mismatches=mismatches, min_plain_top2_gap=float(gaps.min()),
+        logit_max_abs_err=logits["max_abs_err"], logit_scaled_err=logits["max_scaled_err"],
+        logit_tol=INT8_LOGIT_TOL)
+
+
+def encode_text_feats(params, cfg, tokens, device):
+    from construction_clip_tpu_torch.models.clip.model import encode_text
+
+    return encode_text(params, cfg, torch.as_tensor(tokens, device=device), normalize=True)
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -894,9 +1234,16 @@ def main() -> None:
                                                    "cuda")
     phase_t5_steps(caps, t5_cfgs, "cuda")
     phase_t5_parity(caps, t5_cfgs, "cuda")
+    del clip_p, caps
+
+    phase_k7(results)
+    int8_counts = phase_int8_serve(clip_np, cap_np, clip_tok, lm_tok)
+    counts["fused_attention_block_int8"] = int8_counts["fused_attention_block_int8"]
+    phase_int8_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
-                "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]} for name in KERNELS]
+                **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                       "bound_ms", "bound_by", "library_ms")}}
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                              "count": info["count"]}}), flush=True)

@@ -9,8 +9,8 @@ cached sampled (or --greedy) T5 decode -> caption.
 The flags, defaults and output JSON are apps/predict_t5.py's. CLIP and caption
 checkpoints are the .npz files that either package writes; without one, the
 weights are random from a fixed seed. The tokenizer is a `tokenizers` JSON
-file. It runs on the first CUDA device in bf16, or on the CPU in fp32 where
-there is none.
+file. It runs on --device: `cuda` (the default, in bf16; an error where no
+CUDA device works) or `cpu` (in fp32).
 """
 
 from __future__ import annotations
@@ -23,12 +23,15 @@ import os
 import numpy as np
 import torch
 
-from construction_clip_tpu.data.labels import (
-    CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch import convert
+from construction_clip_tpu_torch.apps.common import (
+    TokenizerFile, add_device_flag, load_clip_tokenizer, resolve_device)
 from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, T5Config
 from construction_clip_tpu_torch.core.params import as_tree
 from construction_clip_tpu_torch.core.precision import Policy, policy_from_name
+from construction_clip_tpu_torch.data.labels import (
+    CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
+from construction_clip_tpu_torch.data.pipeline import default_load_image, host_shape_unify
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch
 from construction_clip_tpu_torch.infer.decode_t5 import t5_generate
 from construction_clip_tpu_torch.infer.precompute import make_embed_classify_fn
@@ -56,6 +59,7 @@ def parse_args(argv=None):
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--out", default="output/output_t5.json")
+    add_device_flag(p)
     return p.parse_args(argv)
 
 
@@ -67,24 +71,6 @@ def fit_t5_vocab(tcfg: T5Config, vocab_size: int) -> T5Config:
         print(f"t5 vocab {tcfg.vocab_size} -> {padded} (tokenizer has {vocab_size} tokens)")
         return dataclasses.replace(tcfg, vocab_size=padded)
     return tcfg
-
-
-class JsonTokenizer:
-    """encode/decode over a `tokenizers` JSON file."""
-
-    def __init__(self, path: str):
-        from tokenizers import Tokenizer
-
-        self._tok = Tokenizer.from_file(path)
-
-    def encode(self, text: str) -> list[int]:
-        return self._tok.encode(text).ids
-
-    def decode(self, ids, skip_special_tokens: bool = True) -> str:
-        return self._tok.decode([int(i) for i in ids], skip_special_tokens=skip_special_tokens)
-
-    def vocab_size(self) -> int:
-        return self._tok.get_vocab_size()
 
 
 def attribute_ids(lm_tok, attrs) -> np.ndarray:
@@ -137,8 +123,6 @@ def make_process(clip_params, clip_cfg: CLIPConfig, cap_params, ccfg: ClipCapCon
 def stream_corpus(annotations, image_root: str, batch_size: int):
     """(annotations, staged uint8 [n, 256, 256, 3]) batches; unreadable images
     are skipped, as apps/common.py:stream_corpus does."""
-    from construction_clip_tpu.data.pipeline import default_load_image, host_shape_unify
-
     imgs, anns = [], []
     for a in annotations:
         try:
@@ -157,18 +141,17 @@ def stream_corpus(annotations, image_root: str, batch_size: int):
 
 def main(argv=None):
     args = parse_args(argv)
-    from construction_clip_tpu.data.schema import load_annotations
-    from construction_clip_tpu_torch.apps.train_clip import load_clip_tokenizer
+    from construction_clip_tpu_torch.data.schema import load_annotations
     from construction_clip_tpu_torch.train.checkpoint import load_params_npz
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    policy = policy_from_name("auto")
+    device = resolve_device(args.device)
+    policy = policy_from_name("auto", device)
     clip_cfg = getattr(CLIPConfig, args.arch)()
     clip_tree = (load_params_npz(args.clip_checkpoint) if args.clip_checkpoint
                  else convert.init_clip(0, clip_cfg))
     clip_tok = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=clip_cfg.text.vocab_size if args.clip_checkpoint else None)
-    lm_tok = JsonTokenizer(args.tokenizer)
+    lm_tok = TokenizerFile(args.tokenizer)
     tcfg = fit_t5_vocab(T5Config() if args.t5_size == "small" else T5Config.tiny(),
                         lm_tok.vocab_size())
     ccfg = ClipCapConfig(prefix_length=args.prefix_length, attribute_length=0,

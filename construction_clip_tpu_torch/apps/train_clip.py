@@ -7,8 +7,8 @@ port's counterpart of apps/train_clip.py):
 Same flags and defaults as apps/train_clip.py, except that --resume names a
 checkpoint directory of this package (train/checkpoint.py), --checkpoint takes
 the .npz that either package writes, and --native_loader is not ported. It
-trains on the first CUDA device, or on the CPU where there is none; each step
-runs the port's kernels on the card (train/contrastive.py). Every epoch is a
+trains on --device: `cuda` (the default; an error where no CUDA device works)
+or `cpu`; each step runs the port's kernels on the card (train/contrastive.py). Every epoch is a
 resumable unit: `<output_dir>/<prefix>_comb<N>/step_<epoch>.pt`, and a rerun
 resumes from the latest. At the end it writes `<prefix>_latest.npz`, which the
 JAX package's apps read as a CLIP checkpoint.
@@ -18,6 +18,9 @@ from __future__ import annotations
 
 import argparse
 import os
+
+from construction_clip_tpu_torch.apps.common import (
+    add_device_flag, load_clip_tokenizer, resolve_device)
 
 
 def parse_args(argv=None):
@@ -46,24 +49,8 @@ def parse_args(argv=None):
     p.add_argument("--native_loader", action="store_true", help="not ported")
     p.add_argument("--watchdog_timeout", type=float, default=600.0,
                    help="seconds without step progress before a stall is logged")
+    add_device_flag(p)
     return p.parse_args(argv)
-
-
-def load_clip_tokenizer(merges_path: str | None, *, expect_vocab: int | None = None):
-    """The CLIP BPE tokenizer from `merges_path` or the usual places."""
-    from construction_clip_tpu.data.clip_tokenizer import ClipTokenizer
-
-    candidates = [merges_path] if merges_path else []
-    candidates += [os.path.expanduser("~/.cache/clip/bpe_simple_vocab_16e6.txt.gz"),
-                   "bpe_simple_vocab_16e6.txt.gz"]
-    for c in candidates:
-        if c and os.path.exists(c):
-            tok = ClipTokenizer(c)
-            if expect_vocab is not None and tok.vocab_size != expect_vocab:
-                raise ValueError(f"tokenizer vocab {tok.vocab_size} != model text vocab "
-                                 f"{expect_vocab} (merges file {c})")
-            return tok
-    raise FileNotFoundError("CLIP BPE merges file not found; pass --clip_bpe")
 
 
 def main(argv=None):
@@ -74,29 +61,28 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from construction_clip_tpu.data.datasets import PairGroupDataset
-    from construction_clip_tpu.data.pipeline import default_load_image
-    from construction_clip_tpu.train.metrics import MetricLogger, StepTimer
-    from construction_clip_tpu.train.resilience import StepWatchdog
     from construction_clip_tpu_torch import convert
     from construction_clip_tpu_torch.core.configs import CLIPConfig
     from construction_clip_tpu_torch.core.precision import policy_from_name
+    from construction_clip_tpu_torch.data.datasets import PairGroupDataset
     from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
+    from construction_clip_tpu_torch.data.pipeline import default_load_image
     from construction_clip_tpu_torch.data.preprocess import preprocess_batch
     from construction_clip_tpu_torch.train.checkpoint import (
         latest_step, load_params_npz, restore_state, save_params_npz)
     from construction_clip_tpu_torch.train.contrastive import make_eval_step, make_train_step
-    from construction_clip_tpu_torch.train.resilience import run_resilient
+    from construction_clip_tpu_torch.train.metrics import MetricLogger, StepTimer
+    from construction_clip_tpu_torch.train.resilience import StepWatchdog, run_resilient
     from construction_clip_tpu_torch.train.state import TrainState, make_adamw
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     cfg = getattr(CLIPConfig, args.arch)()
     tree = (load_params_npz(args.checkpoint) if args.checkpoint
             else convert.init_clip(0, cfg))
     params = convert.to_params(tree, device=device, trainable=True)
     tokenizer = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=cfg.text.vocab_size if args.checkpoint else None)
-    policy = policy_from_name(args.precision)
+    policy = policy_from_name(args.precision, device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {device} ({name})")
 

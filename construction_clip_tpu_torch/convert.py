@@ -6,7 +6,13 @@ The port keeps the JAX layout, so this is a plain copy of each leaf; leaves may
 be numpy arrays or anything `np.asarray` takes (a JAX array included, without
 this module importing jax). A quantized leaf {"q": int8, "s": scale} (the T5
 head of `quantize_t5_head`) keeps its int8 table and fp32 scale whatever
-`dtype` asks.
+`dtype` asks. A bfloat16 leaf (the `ml_dtypes` arrays that `np.array` makes
+of a JAX bf16 array, as in a tree of the JAX package's quantizers) is carried
+bit for bit through a uint16 view.
+
+For int8 serving, convert the full-precision tree and quantize it in the port
+(models/clip/quant.quantize_clip, models/gpt2.quantize_gpt2), which gives the
+JAX quantizers' bits on the same weights.
 
 `init_clip`, `init_gpt2`, `init_clipcap`, `init_t5` and `init_clipcap_t5` build
 random trees at the JAX initialisers' shapes and scales from a numpy seed, for
@@ -35,7 +41,11 @@ def to_params(tree, *, dtype=None, device=None, trainable: bool = False) -> Para
     given, except a quantized leaf's fp32 scale), on `device`; `trainable`
     leaves require grad (serving keeps them frozen)."""
     def leaf(a, cast):
-        t = torch.from_numpy(np.array(a, copy=True))
+        a = np.array(a, copy=True)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
         if cast is not None and t.is_floating_point():
             t = t.to(cast)
         return t.to(device) if device is not None else t

@@ -20,79 +20,17 @@
 // the wrapper allocates:
 //   (a) block_gemm<kQkv> (gemm.cuh): a 64x64-tiled GEMM whose prologue computes
 //       each row's LN statistics and normalises the A tile as it is staged;
-//   (b) head_attention: one block per (batch, head) with that head's K and V
-//       (T <= 256) staged in dynamic shared memory; one warp per query row;
+//   (b) head_attention (head_attention.cuh): one block per (batch, head) with
+//       that head's K and V (T <= 256) staged in dynamic shared memory; one
+//       warp per query row;
 //   (c) block_gemm<kResidual>: merged . W_out with a bias + residual epilogue.
 // No library GEMM or attention is called.
-#include <cfloat>
-
 #include "common.cuh"
 #include "gemm.cuh"
+#include "head_attention.cuh"
 
 namespace cct {
 namespace {
-
-constexpr int kAttnThreads = 128, kAttnWarps = kAttnThreads / 32;
-
-size_t attn_smem_bytes(int t_len, int dh) {
-  return sizeof(float) * ((size_t)t_len * (dh + 1) + (size_t)t_len * dh +
-                          (size_t)kAttnWarps * (t_len + dh));
-}
-
-// merged[b, i, h*dh:(h+1)*dh] = softmax-weighted V for query i of head h.
-// K rows are padded to dh+1 floats so that lanes reading 32 keys hit 32 banks.
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-head_attention(const T* __restrict__ qkv, T* __restrict__ merged, int t_len, int d,
-               int n_heads, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int dh = d / n_heads, ks = dh + 1;
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* k_s = smem;
-  float* v_s = k_s + (size_t)t_len * ks;
-  float* p_s = v_s + (size_t)t_len * dh + (size_t)warp * t_len;
-  float* q_s = v_s + (size_t)t_len * dh + (size_t)kAttnWarps * t_len + (size_t)warp * dh;
-  const T* base = qkv + (size_t)b * t_len * 3 * d;
-
-  for (int i = threadIdx.x; i < t_len * dh; i += kAttnThreads) {
-    const int t = i / dh, c = i % dh;
-    const T* row = base + (size_t)t * 3 * d + h * dh + c;
-    k_s[t * ks + c] = to_f(row[d]);
-    v_s[t * dh + c] = to_f(row[2 * d]);
-  }
-  __syncthreads();
-
-  for (int i = warp; i < t_len; i += kAttnWarps) {
-    const T* q_row = base + (size_t)i * 3 * d + h * dh;
-    for (int c = lane; c < dh; c += 32) q_s[c] = to_f(q_row[c]);
-    __syncwarp();
-    const int n_keys = causal ? i + 1 : t_len;  // masked keys carry p == 0
-    float m = -FLT_MAX;
-    for (int j = lane; j < n_keys; j += 32) {
-      float s = 0.f;
-      for (int c = 0; c < dh; ++c) s = fmaf(q_s[c], k_s[j * ks + c], s);
-      s *= scale;
-      p_s[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < n_keys; j += 32) {
-      const float p = expf(p_s[j] - m);
-      l += p;
-      p_s[j] = round_to<T>(p);
-    }
-    l = warp_sum(l);
-    __syncwarp();
-    for (int c = lane; c < dh; c += 32) {
-      float o = 0.f;
-      for (int j = 0; j < n_keys; ++j) o = fmaf(p_s[j], v_s[j * dh + c], o);
-      merged[((size_t)b * t_len + i) * d + h * dh + c] = from_f<T>(o / l);
-    }
-    __syncwarp();
-  }
-}
 
 template <typename T>
 cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const void* w_qkv,
@@ -110,10 +48,10 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
       static_cast<T*>(qkv), m, 3 * d, d, eps, stream);
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(head_attention<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(head_attention<T, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  head_attention<T><<<dim3(b, h), kAttnThreads, smem, stream>>>(
+  head_attention<T, T><<<dim3(b, h), kAttnThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(merged), t, d, h, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

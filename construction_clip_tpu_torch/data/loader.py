@@ -1,12 +1,12 @@
-"""Host -> device input pipeline for the port: the JAX package's ImageTextLoader
-(threaded decode, host shape unification, tokenisation, prefetch queue) with its
-device transfer replaced by a torch copy to an explicit device."""
+"""Host -> device input pipeline for the port: data/pipeline.py's ImageTextLoader
+(threaded decode, host shape unification, tokenisation, prefetch queue) with a
+torch copy to an explicit device."""
 
 from __future__ import annotations
 
 import torch
 
-from construction_clip_tpu.data.pipeline import ImageTextLoader
+from construction_clip_tpu_torch.data.pipeline import ImageTextLoader
 
 
 class TorchImageTextLoader(ImageTextLoader):
@@ -15,7 +15,7 @@ class TorchImageTextLoader(ImageTextLoader):
     the prefetch queue overlaps the copy of the next batch with the current step."""
 
     def __init__(self, dataset, tokenize, *, batch_size: int, device="cpu", **kwargs):
-        super().__init__(dataset, tokenize, batch_size=batch_size, mesh=None, **kwargs)
+        super().__init__(dataset, tokenize, batch_size=batch_size, **kwargs)
         self.device = torch.device(device)
 
     def _device_put(self, batch):

@@ -4,8 +4,11 @@ construction_clip_tpu/infer/caption.py:CaptionPipeline, same fields and outputs)
 
 Params are the JAX layout (ParamTrees or nested dicts of tensors, see
 core/params.py) on one device; they are cast once to the policy's compute dtype
-at construction. Everything from the preprocessed images to the decoded tokens
-stays on that device; the host fetches one packed int32 array per batch.
+at construction, except an int8-serving image tower or GPT-2
+(models/clip/quant.quantize_clip, models/gpt2.quantize_gpt2), which stay as
+the quantizer left them: bf16 floats, int8 weights, fp32 scales. Everything
+from the preprocessed images to the decoded tokens stays on that device; the
+host fetches one packed int32 array per batch.
 """
 
 from __future__ import annotations
@@ -18,14 +21,21 @@ import numpy as np
 import torch
 
 from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, GPT2Config
-from construction_clip_tpu.data.labels import (
-    CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch.core.params import as_tree, tree_leaves
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from construction_clip_tpu_torch.data.labels import (
+    CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch.infer.decode import beam_decode, greedy_decode
 from construction_clip_tpu_torch.infer.precompute import make_embed_classify_fn
 from construction_clip_tpu_torch.models import gpt2 as gpt2_lib
+from construction_clip_tpu_torch.models.clip.quant import is_quantized_clip
 from construction_clip_tpu_torch.models.clipcap.model import map_prefix
+
+
+def _cast_except(tree, policy: Policy, keep: Optional[str]):
+    """policy.cast_to_compute over `tree`, but the subtree `keep` as it is."""
+    rest = policy.cast_to_compute({k: v for k, v in tree.items() if k != keep})
+    return rest if keep is None else dict(rest, **{keep: tree[keep]})
 
 
 @dataclasses.dataclass
@@ -44,8 +54,11 @@ class CaptionPipeline:
     temperature: float = 0.5
 
     def __post_init__(self):
-        self._clip = self.policy.cast_to_compute(as_tree(self.clip_params))
-        self._cap = self.policy.cast_to_compute(as_tree(self.cap_params))
+        clip, cap = as_tree(self.clip_params), as_tree(self.cap_params)
+        self._clip = _cast_except(clip, self.policy,
+                                  "vision" if is_quantized_clip(clip) else None)
+        self._cap = _cast_except(cap, self.policy,
+                                 "gpt" if gpt2_lib._is_quantized(cap["gpt"]) else None)
         self.device = tree_leaves(self._clip)[0].device
         ctx = self.clip_cfg.text.context_length
         ct = self.clip_tokenizer.tokenize(list(CAPTION_TYPE_PROMPTS), ctx)

@@ -20,7 +20,7 @@ import torch
 
 from construction_clip_tpu_torch.core.configs import GPT2Config
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
-from construction_clip_tpu_torch.models.gpt2 import KVCache, gpt2_forward
+from construction_clip_tpu_torch.models.gpt2 import KVCache, _is_quantized, gpt2_forward
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -29,6 +29,12 @@ class DecodeResult(NamedTuple):
     tokens: torch.Tensor   # [B, max_steps] (beam: [B, beam, max_steps])
     lengths: torch.Tensor  # [B] (beam: [B, beam]): generated tokens incl. stop token
     scores: torch.Tensor   # beam: [B, beam] length-normalised log-prob, sorted desc
+
+
+def _precast(params, policy):
+    """The params cast to the compute dtype once per decode call; a quantized
+    tree passes through untouched (its fp32 scales must not be rounded)."""
+    return params if _is_quantized(params) else policy.cast_to_compute(params)
 
 
 def _prefill(params, gcfg, embeds, max_steps, policy):
@@ -69,7 +75,7 @@ def greedy_decode(params, gcfg: GPT2Config, embeds, *, max_steps: int = 67,
                   stop_token: int = 102, policy: Policy = DEFAULT_POLICY) -> DecodeResult:
     """embeds: [B, T0, n_embd] prompt embeddings. Greedy argmax decode."""
     b = embeds.shape[0]
-    params = policy.cast_to_compute(params)
+    params = _precast(params, policy)
     last, cache = _prefill(params, gcfg, embeds, max_steps, policy)
     toks = torch.zeros((b, max_steps), dtype=torch.int32, device=embeds.device)
     done = torch.zeros((b,), dtype=torch.bool, device=embeds.device)
@@ -96,7 +102,7 @@ def beam_decode(params, gcfg: GPT2Config, embeds, *, beam_size: int = 3,
     (ops/decode_attention.py). Returns beams sorted by normalised score."""
     b, dev = embeds.shape[0], embeds.device
     v = gcfg.vocab_size
-    params = policy.cast_to_compute(params)
+    params = _precast(params, policy)
     last, cache = _prefill(params, gcfg, embeds, max_steps, policy)
     t_total = cache.k.shape[3]
 

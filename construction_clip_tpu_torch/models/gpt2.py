@@ -11,6 +11,11 @@ construction_clip_tpu/models/gpt2.py), over the JAX parameter layout
   - The t == 1 step reads the cache through decode_step_attention (kernel K2),
     following the beam ancestry row when one is given.
   - `inputs_embeds` is the door the ClipCap prefix comes in by.
+  - `quantize_gpt2` makes the int8 serving tree: the four block GEMMs and a
+    transposed logits copy of wte become {"q", "s"} leaves, which `_linear`
+    and `_lm_logits` run through ops/quant.int8_linear; the forward then
+    leaves the tree as the quantizer made it (no policy cast), as the JAX
+    package does.
 """
 
 from __future__ import annotations
@@ -21,13 +26,15 @@ from typing import Optional
 import torch
 
 from construction_clip_tpu_torch.core.configs import GPT2Config
-from construction_clip_tpu_torch.core.params import layer
+from construction_clip_tpu_torch.core.params import as_tree, layer, tree_map
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.ops import decode_attention as dec
 from construction_clip_tpu_torch.ops.activations import gelu_new
 from construction_clip_tpu_torch.ops.attention import (
     NEG_INF, merge_heads, resolve_impl, split_heads)
 from construction_clip_tpu_torch.ops.norms import layer_norm
+from construction_clip_tpu_torch.ops.quant import (
+    gemm_layout, int8_linear, quantize_tree, quantize_weight)
 
 
 @dataclasses.dataclass
@@ -56,26 +63,55 @@ def _attn_uncached(q, k, v, attn_bias):
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+def _linear(h, w, b):
+    """h @ W + b, or, for a {"q", "s"} leaf of quantize_gpt2, the int8 product
+    with per-row activation quantization in h's dtype."""
+    if isinstance(w, dict):
+        return int8_linear(h, w["q"], w["s"], b, out_dtype=h.dtype)
+    return h @ w + b
+
+
+def quantize_gpt2(params, dtype=torch.bfloat16):
+    """Inference-quantized GPT-2 params: the four block GEMM weights and a
+    transposed logits copy of wte ([n_embd, vocab], quantized from the
+    unrounded table) become int8 {"q", "s"} leaves; other float leaves are cast
+    to `dtype`. wte itself stays float for the embedding lookups."""
+    params = as_tree(params)
+    p = tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+    p = quantize_tree(p, (("blocks", "attn", "c_attn_w"), ("blocks", "attn", "c_proj_w"),
+                          ("blocks", "mlp", "c_fc_w"), ("blocks", "mlp", "c_proj_w")))
+    q, s = quantize_weight(params["wte"].T, axis=0)
+    p["wte_logits"] = {"q": gemm_layout(q), "s": s}
+    return p
+
+
+def _is_quantized(params) -> bool:
+    return isinstance(params["blocks"]["attn"]["c_attn_w"], dict)
+
+
 def _lm_logits(p, x):
-    # the head runs in the compute dtype and its logits are returned as fp32, as
+    # fp32 logits: the int8 head's rescale, or the compute-dtype head cast as
     # the JAX package's (x @ wte.T).astype(float32)
+    if "wte_logits" in p:
+        return int8_linear(x, p["wte_logits"]["q"], p["wte_logits"]["s"],
+                           out_dtype=torch.float32)
     return (x @ p["wte"].T).float()
 
 
 def _mlp(lp, h, cfg):
     y = layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps=cfg.layer_norm_epsilon)
-    y = gelu_new(y @ lp["mlp"]["c_fc_w"] + lp["mlp"]["c_fc_b"])
-    return h + (y @ lp["mlp"]["c_proj_w"] + lp["mlp"]["c_proj_b"])
+    y = gelu_new(_linear(y, lp["mlp"]["c_fc_w"], lp["mlp"]["c_fc_b"]))
+    return h + _linear(y, lp["mlp"]["c_proj_w"], lp["mlp"]["c_proj_b"])
 
 
 def _qkv(lp, h, cfg):
     y = layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps=cfg.layer_norm_epsilon)
-    qkv = y @ lp["attn"]["c_attn_w"] + lp["attn"]["c_attn_b"]
+    qkv = _linear(y, lp["attn"]["c_attn_w"], lp["attn"]["c_attn_b"])
     return (split_heads(z, cfg.n_head) for z in qkv.chunk(3, dim=-1))
 
 
 def _proj(lp, h, out):
-    return h + (merge_heads(out) @ lp["attn"]["c_proj_w"] + lp["attn"]["c_proj_b"])
+    return h + _linear(merge_heads(out), lp["attn"]["c_proj_w"], lp["attn"]["c_proj_b"])
 
 
 def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
@@ -85,8 +121,11 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
 
     With a cache the new positions start at cache.length. cache_ancestry
     [B, T_max] int32 (t == 1 steps): row i reads cache position t from row
-    ancestry[i, t] (lazy beam reorder, infer/decode.beam_decode)."""
-    p = policy.cast_to_compute(params)
+    ancestry[i, t] (lazy beam reorder, infer/decode.beam_decode). A quantized
+    tree is used as the quantizer left it: its bf16 leaves and fp32 scales are
+    not cast, so token embeddings are bf16 while `inputs_embeds` take the
+    policy's dtype, as in the JAX package."""
+    p = params if _is_quantized(params) else policy.cast_to_compute(params)
     x = p["wte"][tokens.long()] if inputs_embeds is None else inputs_embeds.to(
         policy.compute_dtype)
     start = cache.length if cache is not None else 0
@@ -110,8 +149,10 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
             cache.v[index, :, :, start] = v[:, :, 0]
             attend = (dec.decode_step_attention if resolve_impl() == "kernel"
                       else dec.decode_step_attention_plain)
-            out = attend(q[:, :, 0].contiguous(), cache.k, cache.v, index, start,
-                         cache_ancestry, attn_bias)[:, :, None]
+            # the attention reads q in the cache's dtype (exact: a quantized
+            # tree's bf16 steps over an fp32 cache) and answers in q's
+            out = attend(q[:, :, 0].to(cache.k.dtype).contiguous(), cache.k, cache.v, index,
+                         start, cache_ancestry, attn_bias)[:, :, None].to(q.dtype)
         x = _mlp(lp, _proj(lp, x, out), cfg)
 
     x = layer_norm(x, p["ln_f"]["scale"], p["ln_f"]["bias"], eps=cfg.layer_norm_epsilon)

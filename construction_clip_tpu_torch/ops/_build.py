@@ -39,6 +39,9 @@ SIGNATURES = {
     # dln_s, dln_b, b, t, d, h, causal, eps, scale, stream
     "cct_attention_block_bwd": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
     "cct_attention_block_bwd_work_floats": ([_I] * 4, _L),
+    # dtype, x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, q8, rs, qkv,
+    # merged, out, b, t, d, h, causal, eps, scale, stream
+    "cct_attention_block_int8": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
     # dtype, q, ck, cv, ancestry, out, rows, heads, t_max, dh, layer, cache_len,
     # scale, stream
     "cct_decode_attention": ([_I] + [_P] * 5 + [_I] * 6 + [_F, _P], _I),

@@ -1,8 +1,7 @@
-"""HTTP serving of the port: the JAX package's serving layer
-(construction_clip_tpu/serve/app.py: request batching, routes, JSON contract),
-which imports no JAX, driven by the port's CaptionPipeline.
+"""HTTP serving of the port: the serving layer of serve/http.py (request
+batching, routes, JSON contract) driven by the port's CaptionPipeline.
 
-    from construction_clip_tpu.serve.app import serve
+    from construction_clip_tpu_torch.serve.app import serve
     serve(TorchPredictService(pipeline, batch_window_ms=20, max_batch=8))
 """
 
@@ -10,8 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from construction_clip_tpu.serve.app import PredictService, make_handler, serve
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch
+from construction_clip_tpu_torch.serve.http import PredictService, make_handler, serve
 
 __all__ = ["TorchPredictService", "make_handler", "serve"]
 
@@ -21,8 +20,8 @@ class TorchPredictService(PredictService):
     port, on the pipeline's device."""
 
     def _caption_batch(self, staged_list):
-        # pad to the next power of two, capped at max_batch, as the parent does:
-        # a drain of n requests then runs one of log2(max_batch)+1 batch shapes
+        # pad to the next power of two, capped at max_batch: a drain of n
+        # requests then runs one of log2(max_batch)+1 batch shapes
         n = len(staged_list)
         padded = 1
         while padded < n:

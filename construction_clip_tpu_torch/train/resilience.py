@@ -1,7 +1,8 @@
 """Crash-resumable training (counterpart of construction_clip_tpu/train/resilience.py's
-`run_resilient`; its `StepWatchdog` is plain Python and is used as it is).
+`run_resilient`, and a copy of its `StepWatchdog`).
 
-`run_resilient` drives an epoch function with periodic snapshots through the
+`StepWatchdog` logs (or calls back) when no step has completed for `timeout`
+seconds. `run_resilient` drives an epoch function with periodic snapshots through the
 port's checkpoint module, and on an exception restores the latest snapshot and
 retries (bounded). AdamW updates the params and moments in place, so a state
 caught in the middle of an epoch is neither the state before it nor after it:
@@ -12,9 +13,56 @@ state to return to.
 
 from __future__ import annotations
 
+import threading
+import time
+import traceback
 from typing import Callable, Optional
 
 from construction_clip_tpu_torch.train.checkpoint import latest_step, restore_state, save_state
+
+
+class StepWatchdog:
+    """Background monitor: call .tick() per completed step; if no tick arrives for
+    `timeout` seconds, `on_stall(seconds_since_progress)` fires (once per stall)."""
+
+    def __init__(self, timeout: float = 300.0,
+                 on_stall: Optional[Callable[[float], None]] = None,
+                 poll: float = 5.0):
+        self.timeout = timeout
+        self.on_stall = on_stall or (lambda dt: print(
+            f"[watchdog] no step progress for {dt:.0f}s — device stall suspected",
+            flush=True))
+        self.poll = poll
+        self._last = time.monotonic()
+        self._stalled = False
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.stall_count = 0
+
+    def tick(self) -> None:
+        self._last = time.monotonic()
+        self._stalled = False
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll):
+            dt = time.monotonic() - self._last
+            if dt > self.timeout and not self._stalled:
+                self._stalled = True
+                self.stall_count += 1
+                try:
+                    self.on_stall(dt)
+                except Exception:  # noqa: BLE001 — the monitor thread keeps running
+                    traceback.print_exc()
+
+    def __enter__(self) -> "StepWatchdog":
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=self.poll + 1)
 
 
 def run_resilient(train_epoch: Callable, state, *, epochs: int, checkpoint_dir: str,

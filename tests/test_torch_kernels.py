@@ -16,6 +16,7 @@ import torch
 
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
+from construction_clip_tpu_torch.ops import attention_block_int8 as fab8
 from construction_clip_tpu_torch.ops import decode_attention as dec
 from construction_clip_tpu_torch.ops import flash_attention as fa
 from construction_clip_tpu_torch.ops import vocab_head as vh
@@ -35,7 +36,8 @@ def test_nvcc_command_targets_hopper():
         sources |= {os.path.basename(c) for c in cmd if c.endswith(".cu")}
         assert _build.library_path(src).name.startswith(f"libcct_{src.stem}_")
     assert sources == {"attention_block.cu", "attention_block_bwd.cu",
-                       "decode_attention.cu", "flash_attention.cu", "vocab_head.cu"}
+                       "attention_block_int8.cu", "decode_attention.cu", "flash_attention.cu",
+                       "vocab_head.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
 
@@ -286,3 +288,86 @@ def test_vocab_head_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     with pytest.raises(ValueError, match="one device"):
         vh.vocab_head_logits(x, table.cpu())
     assert vh.vocab_head_logits.launches == before
+
+
+def _int8_block_case(gen, dev, dtype, b, t, d):
+    """x, LN params and int8-quantized attention params (ops/quant.quantize_tree)."""
+    from construction_clip_tpu_torch.ops.quant import quantize_tree
+
+    def arr(*s, scale=1.0, offset=0.0):
+        a = gen.standard_normal(s).astype(np.float32) * scale + offset
+        return torch.from_numpy(a).to(dev)
+
+    attn = {"w_qkv": arr(d, 3 * d, scale=d ** -0.5), "b_qkv": arr(3 * d, scale=0.1).to(dtype),
+            "w_out": arr(d, d, scale=d ** -0.5), "b_out": arr(d, scale=0.1).to(dtype)}
+    qattn = quantize_tree(attn, [("w_qkv",), ("w_out",)])
+    ln = {"scale": arr(d, scale=0.1, offset=1.0).to(dtype), "bias": arr(d, scale=0.1).to(dtype)}
+    return arr(b, t, d).to(dtype), ln, qattn
+
+
+def _int8_plain(x, ln, qattn, h, causal=False):
+    return fab8.fused_attention_block_int8_plain(
+        x, ln["scale"], ln["bias"], qattn["w_qkv"]["q"], qattn["w_qkv"]["s"], qattn["b_qkv"],
+        qattn["w_out"]["q"], qattn["w_out"]["s"], qattn["b_out"], n_heads=h, causal=causal)
+
+
+# K7 against its plain version, relative to the plain output's largest element.
+# Both round at the same points; the LN statistics, the logits and p . v are
+# summed in another order, and one ulp of difference in an fp32 row can move
+# one int8 value by one step (about 7e-4 of the largest output at these scales,
+# from the row scale times the weight scale times |q| <= 127). bf16 adds one
+# rounding of qkv and of the output (2^-8 relative each), which such a step
+# can flip.
+INT8_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 50, 768, 12, False), (1, 50, 768, 12, False),
+                                   (3, 50, 768, 12, False), (5, 77, 512, 8, True)])
+def test_attention_block_int8_kernel_on_card(shape, dtype, gen, cuda_device):
+    b, t, d, h, causal = shape
+    x, ln, qattn = _int8_block_case(gen, cuda_device, dtype, b, t, d)
+    before = fab8.fused_attention_block_int8.launches
+    got = fab8.fused_attention_block_int8(x, ln, qattn, n_heads=h, causal=causal)
+    want = _int8_plain(x, ln, qattn, h, causal)
+    torch.cuda.synchronize()
+    assert fab8.fused_attention_block_int8.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _scaled_err(got, want) <= INT8_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_attention_block_int8_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
+    x, ln, qattn = _int8_block_case(gen, cuda_device, torch.bfloat16, 2, 50, 64)
+    before = fab8.fused_attention_block_int8.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fab8.fused_attention_block_int8(x.half(), ln, qattn, n_heads=4)
+    with pytest.raises(ValueError, match="does not take"):
+        fab8.fused_attention_block_int8(x.repeat(1, 6, 1), ln, qattn, n_heads=4)  # T 300
+    float_w = dict(qattn, w_qkv={"q": qattn["w_qkv"]["q"].float(), "s": qattn["w_qkv"]["s"]})
+    with pytest.raises(ValueError, match="w_qkv.q"):
+        fab8.fused_attention_block_int8(x, ln, float_w, n_heads=4)
+    strided = dict(qattn, w_out={"q": qattn["w_out"]["q"],
+                                 "s": torch.zeros(128, device=cuda_device)[::2]})
+    with pytest.raises(ValueError, match="w_out.s"):
+        fab8.fused_attention_block_int8(x, ln, strided, n_heads=4)
+    with pytest.raises(ValueError, match="b_qkv"):
+        fab8.fused_attention_block_int8(x, ln, dict(qattn, b_qkv=qattn["b_qkv"].float()),
+                                        n_heads=4)
+    assert fab8.fused_attention_block_int8.launches == before
+
+
+@pytest.mark.cuda
+def test_failed_build_raises_instead_of_falling_back(gen, cuda_device, tmp_path, monkeypatch):
+    """No nvcc and no built library: the wrapper raises; it never takes the
+    plain version on a CUDA tensor."""
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    x, ln, qattn = _int8_block_case(gen, cuda_device, torch.bfloat16, 2, 50, 64)
+    before = fab8.fused_attention_block_int8.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fab8.fused_attention_block_int8(x, ln, qattn, n_heads=4)
+    assert fab8.fused_attention_block_int8.launches == before

@@ -1,7 +1,8 @@
 """PyTorch port, the serving slice end to end against the JAX package: the
 port's CaptionPipeline on the same params and images gives the same attributes
-and captions; TorchPredictService answers over HTTP through the unchanged
-make_handler; and the port runs without importing jax."""
+and captions; TorchPredictService answers over HTTP through the port's
+make_handler (serve/http.py, its copy of the JAX package's); and the port runs
+without importing jax or anything of the JAX package."""
 
 import gzip
 import io
@@ -24,7 +25,6 @@ from construction_clip_tpu.data.preprocess import preprocess_batch as j_preproce
 from construction_clip_tpu.infer.caption import CaptionPipeline as JaxPipeline
 from construction_clip_tpu.models.clip import init_clip
 from construction_clip_tpu.models.clipcap import init_clipcap
-from construction_clip_tpu.serve.app import make_handler
 from construction_clip_tpu_torch import convert
 from construction_clip_tpu_torch.core.configs import (
     CLIPConfig, ClipCapConfig, GPT2Config, TextConfig, VisionConfig)
@@ -32,7 +32,7 @@ from construction_clip_tpu_torch.data.preprocess import preprocess_batch
 from construction_clip_tpu_torch.infer import caption as cap_mod
 from construction_clip_tpu_torch.infer.caption import CaptionPipeline
 from construction_clip_tpu_torch.infer.decode import DecodeResult
-from construction_clip_tpu_torch.serve.app import TorchPredictService
+from construction_clip_tpu_torch.serve.app import TorchPredictService, make_handler
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIP_CFG = CLIPConfig(
@@ -180,7 +180,7 @@ import gzip, os, sys, tempfile
 import numpy as np
 from construction_clip_tpu_torch.core.configs import (
     CLIPConfig, ClipCapConfig, GPT2Config, TextConfig, VisionConfig)
-from construction_clip_tpu.data.clip_tokenizer import ClipTokenizer
+from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer
 from construction_clip_tpu_torch import convert
 from construction_clip_tpu_torch.infer.caption import CaptionPipeline
 from construction_clip_tpu_torch.serve.app import TorchPredictService
@@ -213,9 +213,6 @@ assert out["caption_type"] in ("violation", "status"), out
 
 # the training slice: the CLI's modules, the loader, one step, the checkpoints
 import torch
-import construction_clip_tpu.data.datasets
-import construction_clip_tpu.train.metrics
-import construction_clip_tpu.train.resilience
 from construction_clip_tpu_torch.apps import train_clip
 from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
 from construction_clip_tpu_torch.train import checkpoint, contrastive, resilience, state
@@ -242,12 +239,14 @@ assert bool(torch.isfinite(m["loss"]))
 with tempfile.TemporaryDirectory() as d:
     checkpoint.save_state(d, st)
     checkpoint.save_params_npz(os.path.join(d, "p.npz"), st.params)
+with resilience.StepWatchdog(timeout=60.0) as watchdog:
+    watchdog.tick()
 
 # the mT5 slice: the app's batch function on the tiny CLIP above and a tiny T5
-import construction_clip_tpu.data.schema
 from construction_clip_tpu_torch.apps import predict_t5
 from construction_clip_tpu_torch.core.configs import T5Config
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY
+from construction_clip_tpu_torch.data.schema import Annotation
 from construction_clip_tpu_torch.models.t5 import quantize_t5_head
 
 tcfg = T5Config.tiny()
@@ -257,10 +256,32 @@ cap = dict(cap, t5=quantize_t5_head(cap["t5"]))
 process = predict_t5.make_process(
     pipe.clip_params, clip_cfg, cap, t5_ccfg, tcfg, pipe.clip_tokenizer, Tok(), max_length=4,
     policy=DEFAULT_POLICY, device="cpu")
-records, res = process([construction_clip_tpu.data.schema.Annotation(id=0, file_name="a.jpg")],
+records, res = process([Annotation(id=0, file_name="a.jpg")],
                        (np.random.default_rng(1).random((1, 40, 40, 3)) * 255).astype(np.uint8))
 assert len(records) == 1 and tuple(res.tokens.shape) == (1, 4), records
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+
+# int8 serving: the port's serve app builds the quantized service (K7's wrapper
+# in the image tower, int8 GPT-2) and answers a request
+from construction_clip_tpu_torch.apps import serve
+
+class ClipTok:
+    def tokenize(self, texts, context_length):
+        out = np.zeros((len(texts), context_length), np.int32)
+        for row, text in enumerate(texts):
+            ids = [254] + [ord(c) % 200 + 1 for c in text][: context_length - 2] + [255]
+            out[row, :len(ids)] = ids
+        return out
+
+args = serve.parse_args(["--arch", "tiny", "--prefix_length", "2", "--attribute_length", "4",
+                         "--int8", "--device", "cpu"])
+svc = serve.build_service(args, ClipTok(), Tok(), torch.device("cpu"))
+svc.pipe.max_steps = 3
+out = svc.predict((np.random.default_rng(2).random((40, 50, 3)) * 255).astype(np.uint8))
+assert out["caption_type"] in ("violation", "status"), out
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "construction_clip_tpu",
+                                    "make_offline_assets"))
 print("JAX_MODULES", bad)
 """
 

@@ -354,7 +354,7 @@ def test_predict_t5_app_writes_one_caption_per_image(corpus, tmp_path, capsys):
     predict_t5.main(["--json_path", json_path, "--image_root", str(root), "--arch", "tiny_bpe",
                      "--clip_bpe", str(merges), "--tokenizer", tok, "--t5_size", "tiny",
                      "--prefix_length", "4", "--max_length", "6", "--batch_size", "2",
-                     "--out", out])
+                     "--out", out, "--device", "cpu"])
     results = json.loads(open(out, encoding="utf-8").read())
     assert [r["id"] for r in results] == list(range(5))
     for r in results:

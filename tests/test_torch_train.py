@@ -329,7 +329,7 @@ def test_cli_trains_resumes_and_writes_npz(tmp_path, capsys, monkeypatch):
               "--clip_bpe", str(tmp_path / "merges.txt.gz"), "--combination_num", "3",
               "--save_every", "1", "--output_dir", str(tmp_path / "m"),
               "--log_dir", str(tmp_path / "log"), "--warmup_steps", "0",
-              "--groups_per_batch", "5"]
+              "--groups_per_batch", "5", "--device", "cpu"]
     train_clip.main(common + ["--epochs", "1"])
     out = capsys.readouterr().out
     assert "loss" in out and "saved inference params" in out
