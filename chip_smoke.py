@@ -46,6 +46,24 @@ Phases, each printing one line (the last line is the JSON verdict):
      times per image-tower call, K1 never after setup, K2 12 times a step.
  17. the int8 kernel path against the int8 plain path: image features,
      zero-shot classes and greedy tokens.
+ 18. K6, the uint8 normalize, against its plain version at [8,224,224,3] into
+     fp32 and bf16 (bit-equal), with times; beside them K6's device time,
+     from the replay of a CUDA graph of 20 calls.
+ 19. K9, the fused MLP residual, against its plain version at the towers'
+     shapes ([8,50,768]->3072 bf16 and fp32, [36,50,768] bf16, [9,77,512]->2048
+     bf16), with times, the composed default MLP's time beside them, the
+     backward's time, and the device times from CUDA-graph replays.
+ 20. the staged fused-MLP zero-shot path at full width (ViT-B/32, bf16,
+     USE_FUSED_MLP on): 224-staged uint8 through preprocess_staged (K6) and
+     infer/zeroshot.classify_batch (K1 and K9 in every block of both towers),
+     and the port's apps/predict_zeroshot.make_process on 256-staged arrays;
+     held against the plain path (switch on, plain impl) in bf16 and fp32.
+ 21. infer/precompute.precompute_corpus at full width over 70 synthetic
+     images (one unreadable) through a load_image hook, fused MLP on: the
+     archive's keys and shapes.
+ 22. ViT-B/32 contrastive training with the fused MLP on (bf16, B=36, 5
+     steps): the loss falls, K1, K3 and K9 launch; its median step time beside
+     phase 9's; then phase 11's fp32 gradient parity with the switch on.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -77,16 +95,18 @@ from construction_clip_tpu_torch import convert  # noqa: E402
 from construction_clip_tpu_torch.core.configs import (  # noqa: E402
     CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
 from construction_clip_tpu_torch.core.params import as_tree  # noqa: E402
-from construction_clip_tpu_torch.core.precision import BF16_POLICY  # noqa: E402
+from construction_clip_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY  # noqa: E402
 from construction_clip_tpu_torch.data import offline_assets  # noqa: E402
 from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer  # noqa: E402
 from construction_clip_tpu_torch.data.labels import (  # noqa: E402
     CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
-from construction_clip_tpu_torch.data.preprocess import preprocess_batch  # noqa: E402
+from construction_clip_tpu_torch.data.preprocess import (  # noqa: E402
+    preprocess_batch, preprocess_staged)
 from construction_clip_tpu_torch.infer.caption import CaptionPipeline  # noqa: E402
 from construction_clip_tpu_torch.infer.decode import greedy_decode  # noqa: E402
 from construction_clip_tpu_torch.infer.precompute import make_embed_classify_fn  # noqa: E402
-from construction_clip_tpu_torch.models import gpt2  # noqa: E402
+from construction_clip_tpu_torch.models import blocks, gpt2  # noqa: E402
+from construction_clip_tpu_torch.models.clip.model import encode_image  # noqa: E402
 from construction_clip_tpu_torch.models.clipcap.model import map_prefix  # noqa: E402
 from construction_clip_tpu_torch.ops import _build  # noqa: E402
 from construction_clip_tpu_torch.ops.attention import use_impl  # noqa: E402
@@ -101,6 +121,10 @@ from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
+from construction_clip_tpu_torch.ops.mlp import (  # noqa: E402
+    fused_mlp_residual, fused_mlp_residual_plain)
+from construction_clip_tpu_torch.ops.preprocess import (  # noqa: E402
+    normalize_u8, normalize_u8_plain)
 from construction_clip_tpu_torch.ops.vocab_head import (  # noqa: E402
     vocab_head_logits, vocab_head_logits_plain)
 from construction_clip_tpu_torch.serve.app import TorchPredictService  # noqa: E402
@@ -162,20 +186,28 @@ KERNELS = {
     "flash_attention_bwd": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/flash_attention.cu",
         replaces="construction_clip_tpu/ops/pallas_attention.py:303"),
-    "vocab_head_logits": dict(
-        route="cuda", source="construction_clip_tpu_torch/csrc/vocab_head.cu",
-        replaces="construction_clip_tpu/ops/pallas_vocab_head.py:77"),
+    "normalize_u8": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/normalize_u8.cu",
+        replaces="construction_clip_tpu/ops/pallas_preprocess.py:50"),
     "fused_attention_block_int8": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/attention_block_int8.cu",
         replaces="construction_clip_tpu/ops/pallas_attention_block_int8.py:94"),
+    "vocab_head_logits": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/vocab_head.cu",
+        replaces="construction_clip_tpu/ops/pallas_vocab_head.py:77"),
+    "fused_mlp_residual": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/mlp_residual.cu",
+        replaces="construction_clip_tpu/ops/pallas_mlp.py:55"),
 }
 WRAPPERS = {"fused_attention_block": fused_attention_block,
             "decode_step_attention": decode_step_attention,
             "fused_attention_block_bwd": fused_attention_block_bwd,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
+            "normalize_u8": normalize_u8,
+            "fused_attention_block_int8": fused_attention_block_int8,
             "vocab_head_logits": vocab_head_logits,
-            "fused_attention_block_int8": fused_attention_block_int8}
+            "fused_mlp_residual": fused_mlp_residual}
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s and operations/s by operand type.
@@ -197,6 +229,20 @@ INT8_FEATURE_TOL = 5e-2
 # row's int8 scale changes and many of its int8 values move by a step, through
 # 12 layers (1.8e-2 measured on the H100)
 INT8_LOGIT_TOL = 5e-2
+# K9 against its plain version, relative to the plain output's largest element:
+# fp32 by summation order (LN statistics, both GEMMs); bf16 adds single
+# roundings of h, the pre-activation, each QuickGELU step and the output that
+# another order can flip (one bf16 step is 2^-8)
+K9_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+K9_RUNS = (((8, 50, 768, 3072), torch.bfloat16),   # ViT-B/32 image tower, batch 8
+           ((8, 50, 768, 3072), torch.float32),
+           ((36, 50, 768, 3072), torch.bfloat16),  # training: 4 groups of 9
+           ((9, 77, 512, 2048), torch.bfloat16))   # text tower, 9 violation-type prompts
+K6_SHAPE = (8, 224, 224, 3)
+# fused-MLP kernel path against plain path, tower features relative to the
+# largest feature: bf16 as the int8 phase's bound; fp32 by summation order
+# through 12 layers
+FUSED_FEATURE_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 
 
 def say(phase: str, **fields) -> None:
@@ -219,6 +265,23 @@ def median_ms(fn, windows: int = 21, per_window: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_window)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call: `reps` calls captured in one CUDA graph, its
+    replay timed as median_ms times a call, so the host's launch costs (the
+    Python wrapper, the ctypes call) drop out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the default stream, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return median_ms(graph.replay, 11, 1) / reps
 
 
 def compare(got, want, atol: float, rtol: float, what: str) -> dict:
@@ -706,7 +769,9 @@ def _paths(tree, prefix=""):
             yield f"{prefix}{key}"
 
 
-def phase_train_parity(cfg, params_np, batch, device) -> None:
+def phase_train_parity(cfg, params_np, batch, device,
+                       need=("fused_attention_block", "fused_attention_block_bwd"),
+                       name="train_parity") -> None:
     """2 fp32 steps from the same params on the kernel path and on the plain
     path; the loss and every gradient leaf of both steps compared. A leaf's
     error is ||g_kernel - g_plain|| / (||g_plain|| + 1e-6 ||G||), G all of the
@@ -733,8 +798,7 @@ def phase_train_parity(cfg, params_np, batch, device) -> None:
         runs[impl + "_launches"] = launches()
     names = list(_paths(as_tree(state.params)))
     k_l, p_l = runs["kernel_launches"], runs["plain_launches"]
-    if min(k_l[n] for n in ("fused_attention_block", "fused_attention_block_bwd")) == 0 \
-            or any(p_l.values()):
+    if min(k_l[n] for n in need) == 0 or any(p_l.values()):
         raise AssertionError(f"paths not as asked: kernel {k_l}, plain {p_l}")
     report = []
     for i, ((lk, gk), (lp, gp)) in enumerate(zip(runs["kernel"], runs["plain"])):
@@ -750,7 +814,7 @@ def phase_train_parity(cfg, params_np, batch, device) -> None:
                        "worst_leaf_err": errs[worst]})
         if loss_err > 1e-5 or errs[worst] > TRAIN_GRAD_TOL:
             raise AssertionError(f"fp32 training parity, step {i + 1}: {report[-1]}")
-    say("train_parity", leaves=len(names), tol=TRAIN_GRAD_TOL, steps=report)
+    say(name, leaves=len(names), tol=TRAIN_GRAD_TOL, steps=report, kernel_launches=k_l)
 
 
 def _vocab_head_inputs(rng, rows, d, v, int8, device):
@@ -1188,6 +1252,250 @@ def encode_text_feats(params, cfg, tokens, device):
 
     return encode_text(params, cfg, torch.as_tensor(tokens, device=device), normalize=True)
 
+@contextlib.contextmanager
+def fused_mlp():
+    """USE_FUSED_MLP on (models/blocks.py), restored afterwards."""
+    previous = blocks.USE_FUSED_MLP
+    blocks.USE_FUSED_MLP = True
+    try:
+        yield
+    finally:
+        blocks.USE_FUSED_MLP = previous
+
+
+def phase_k6(results: dict) -> None:
+    """K6 against its plain version: the same fp32 operations, so bit-equal."""
+    from construction_clip_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
+
+    rng = np.random.default_rng(16)
+    u8 = torch.from_numpy((rng.random(K6_SHAPE) * 256).astype(np.uint8)).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = dict(mean=CLIP_MEAN, std=CLIP_STD, out_dtype=dtype)
+
+        def kernel():
+            return normalize_u8(u8, **kw)
+
+        def plain():
+            return normalize_u8_plain(u8, **kw)
+
+        got, want = kernel(), plain()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 {dtype}: not bit-equal to its plain version, largest "
+                                 f"difference {err}")
+        stats = {"max_abs_err": err, "ms": median_ms(kernel), "plain_ms": median_ms(plain)}
+        # three fp32 operations an element: multiply, subtract, multiply
+        stats.update(bound(nbytes(u8, got), {torch.float32: 3 * u8.numel()}),
+                     library_ms=None)   # no single PyTorch call
+        device_ms = graph_ms(kernel)   # (the plain version copies its constants in: no graph)
+        say("k6", shape=list(K6_SHAPE), out_dtype=str(dtype), bit_equal=True,
+            device_ms=device_ms,
+            device_gb_per_s=nbytes(u8, got) / (device_ms * 1e-3) / 1e9, **stats)
+        if dtype == torch.bfloat16:
+            results["normalize_u8"] = stats
+
+
+def _mlp_inputs(rng, b, t, d, hidden, dtype):
+    def arr(*shape, scale=1.0, offset=0.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale + offset
+        return torch.from_numpy(a).to(device="cuda", dtype=dtype)
+
+    return (arr(b, t, d), arr(d, scale=0.1, offset=1.0), arr(d, scale=0.1),
+            arr(d, hidden, scale=d ** -0.5), arr(hidden, scale=0.1),
+            arr(hidden, d, scale=hidden ** -0.5), arr(d, scale=0.1))
+
+
+def phase_k9(results: dict) -> None:
+    """K9 against its plain version, with the composed default MLP (the
+    port's models/blocks path with USE_FUSED_MLP off: cuBLAS GEMMs in the
+    compute dtype and elementwise ops, not one library call) and the
+    backward (autograd of the recomputed composable math) timed beside it."""
+    from construction_clip_tpu_torch.ops.activations import quick_gelu
+
+    rng = np.random.default_rng(17)
+    for (b, t, d, hidden), dtype in K9_RUNS:
+        args = _mlp_inputs(rng, b, t, d, hidden, dtype)
+        x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj = args
+        mlp_p = {"w_fc": w_fc, "b_fc": b_fc, "w_proj": w_proj, "b_proj": b_proj}
+        ln_p = {"scale": ln_s, "bias": ln_b}
+
+        def kernel():
+            return fused_mlp_residual(x, mlp_p, ln_p)
+
+        def plain():
+            return fused_mlp_residual_plain(*args)
+
+        def composed():
+            return blocks._mlp_residual(x, {"mlp": mlp_p, "ln_2": ln_p}, quick_gelu, 1e-5)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        what = f"K9 {[b, t, d]}->{hidden} {dtype}"
+        stats = compare_scaled(got, plain(), K9_TOL[dtype], what)
+        stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
+        leaves = [a.detach().requires_grad_() for a in args]
+        out = fused_mlp_residual(leaves[0], dict(zip(mlp_p, leaves[3:])),
+                                 {"scale": leaves[1], "bias": leaves[2]})
+        g = torch.randn_like(out)
+        backward_ms = median_ms(
+            lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 11, 3)
+        m = b * t
+        stats.update(bound(nbytes(x, *args[1:], got), {dtype: 4 * m * d * hidden}),
+                     library_ms=None)   # no single PyTorch call
+        device_ms = graph_ms(kernel)
+        say("k9", shape=[b, t, d], hidden=hidden, dtype=str(dtype),
+            composed_default_mlp_ms=median_ms(composed), backward_ms=backward_ms,
+            device_ms=device_ms, plain_device_ms=graph_ms(plain),
+            composed_device_ms=graph_ms(composed),
+            device_tflop_per_s=4 * m * d * hidden / (device_ms * 1e-3) / 1e12, **stats)
+        if ((b, t, d), dtype) == ((8, 50, 768), torch.bfloat16):
+            results["fused_mlp_residual"] = stats
+        del leaves, out
+
+
+def _class_flips(name, got, want, img_k, img_p, txt_k, txt_p) -> list:
+    """Rows whose class differs between the paths. Each must have a plain
+    top-2 similarity gap within what the feature differences allow: a
+    similarity moves by at most ||d img|| + ||d txt_j|| (unit vectors), so two
+    labels swap only if the gap is at most 2 (||d img|| + max_j ||d txt_j||)."""
+    d_img = (img_k.float() - img_p.float()).norm(dim=-1)
+    d_txt = float((txt_k.float() - txt_p.float()).norm(dim=-1).max())
+    top2 = (img_p.float() @ txt_p.float().T).topk(2, dim=-1).values
+    flips = []
+    for row in (got != want).nonzero().flatten().tolist():
+        gap, allowed = float(top2[row, 0] - top2[row, 1]), 2 * (float(d_img[row]) + d_txt)
+        flips.append({"which": name, "row": row, "plain_top2_gap": gap, "allowed": allowed})
+        if gap > allowed:
+            raise AssertionError(f"{name}: class differs at row {row} with a top-2 gap {gap} "
+                                 f"> {allowed}")
+    return flips
+
+
+def phase_zeroshot_fused(clip_np, cfg, clip_tok, device, *, batch: int = 8) -> dict:
+    """The staged fused-MLP zero-shot path at `cfg`, bf16: 224-staged uint8 ->
+    preprocess_staged (K6) -> classify_batch over the violation-type label
+    features (K1 and K9 in every block of both towers); then the app's batch
+    function on 256-staged arrays. Returns the launch counts of the staged
+    path."""
+    from construction_clip_tpu_torch.apps import predict_zeroshot
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.infer.zeroshot import classify_batch, label_features
+
+    size = cfg.vision.image_size
+    toks = clip_tok.tokenize(list(VIOLATION_TYPES), cfg.text.context_length)
+    rng = np.random.default_rng(18)
+    staged = np.stack(synthetic_images(rng, [(size, size)] * batch))
+    params = convert.to_params(clip_np, dtype=torch.bfloat16, device=device).tree()
+    with fused_mlp():
+        reset_launches()
+        t0 = time.perf_counter()
+        feats = label_features(params, cfg, toks, policy=BF16_POLICY)
+        images = preprocess_staged(staged, out_dtype=torch.bfloat16, device=device)
+        probs, pred = classify_batch(params, cfg, images, feats, policy=BF16_POLICY)
+        pred = pred.cpu()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        layers = cfg.vision.layers + cfg.text.layers
+        if counts["normalize_u8"] != 1 or counts["fused_attention_block"] != layers or \
+                counts["fused_mlp_residual"] != layers:
+            raise AssertionError(f"staged zero-shot path: launches {counts}, want K6 once, "
+                                 f"K1 and K9 {layers} times")
+        if tuple(probs.shape) != (batch, len(toks)) or not torch.isfinite(probs).all() or \
+                not torch.allclose(probs.sum(dim=-1), torch.ones(batch, device=probs.device)):
+            raise AssertionError(f"probabilities {tuple(probs.shape)} not finite/normalised")
+        process = predict_zeroshot.make_process(params, cfg, feats, list(VIOLATION_TYPES),
+                                                "violation_type", device, policy=BF16_POLICY)
+        staged256 = np.stack(synthetic_images(rng, [(256, 256)] * batch))
+        anns = [Annotation(id=i, file_name=f"site_{i}.jpg", violation_type=VIOLATION_TYPES[i % 9])
+                for i in range(batch)]
+        reset_launches()
+        records, app_probs = process(anns, staged256)
+        app_counts = launches()
+        if len(records) != batch or app_counts["fused_mlp_residual"] != cfg.vision.layers or \
+                not all(r["prediction"] in VIOLATION_TYPES for r in records):
+            raise AssertionError(f"predict_zeroshot.make_process: {records[:1]}, {app_counts}")
+
+    parity = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        policy = BF16_POLICY if dtype == torch.bfloat16 else DEFAULT_POLICY
+        p = params if dtype == torch.bfloat16 else convert.to_params(
+            clip_np, device=device).tree()
+        x = preprocess_staged(staged, out_dtype=dtype, device=device)
+        out = {}
+        with fused_mlp():
+            for impl in ("kernel", "plain"):
+                reset_launches()
+                with use_impl(impl), torch.inference_mode():
+                    txt = label_features(p, cfg, toks, policy=policy)
+                    img = encode_image(p, cfg, x, policy=policy, normalize=True)
+                    out[impl] = (img, txt, classify_batch(p, cfg, x, txt, policy=policy)[1])
+                out[impl + "_launches"] = launches()["fused_mlp_residual"]
+        if out["kernel_launches"] == 0 or out["plain_launches"] != 0:
+            raise AssertionError(f"fused-MLP paths not as asked: {out['kernel_launches']} K9 "
+                                 f"launches, {out['plain_launches']} on the plain path")
+        (img_k, txt_k, c_k), (img_p, txt_p, c_p) = out["kernel"], out["plain"]
+        tol = FUSED_FEATURE_TOL[dtype]
+        feats_err = {name: compare_scaled(a, b, tol, f"fused-MLP {name} features {dtype}")
+                     for name, a, b in (("image", img_k, img_p), ("text", txt_k, txt_p))}
+        flips = _class_flips("violation_type", c_k, c_p, img_k, img_p, txt_k, txt_p)
+        parity[str(dtype)] = {"tol": tol, "class_flips": flips,
+                              **{f"{n}_scaled_err": v["max_scaled_err"]
+                                 for n, v in feats_err.items()}}
+    say("zeroshot_fused", batch=batch, wall_s=wall, launches=counts,
+        predictions=pred.tolist(), app_launches=app_counts,
+        app_predictions=[r["prediction"] for r in records[:3]], parity=parity)
+    return counts
+
+
+def phase_precompute(clip_np, cfg, clip_tok, device, *, n_images: int = 70) -> None:
+    """precompute_corpus at `cfg` in bf16 with the fused MLP on, over
+    `n_images` synthetic images served by a load_image hook (one name that it
+    cannot read is skipped), 32 a batch; the archive written and read back."""
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.infer.precompute import load_archive, precompute_corpus
+
+    rng = np.random.default_rng(19)
+    shapes = [(480, 640), (256, 256), (600, 400), (224, 300)]
+    files = {f"site_{i}.jpg": synthetic_images(rng, [shapes[i % 4]])[0]
+             for i in range(n_images)}
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", caption=f"說明{i}" if i % 2 else "",
+                       violation_list=f"缺失{i}") for i in range(n_images)]
+    anns.insert(5, Annotation(id=-1, file_name="missing.jpg"))
+
+    def load_image(path):
+        name = os.path.basename(path)
+        if name not in files:
+            raise FileNotFoundError(path)
+        return files[name]
+
+    params = convert.to_params(clip_np, dtype=torch.bfloat16, device=device).tree()
+    with fused_mlp(), tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()) as skipped:
+        out_path = os.path.join(tmp, "embedding.npz")
+        reset_launches()
+        t0 = time.perf_counter()
+        out = precompute_corpus(params, cfg, anns, clip_tok, image_root="corpus",
+                                batch_size=32, load_image=load_image, policy=BF16_POLICY,
+                                out_path=out_path)
+        wall = time.perf_counter() - t0
+        counts = launches()
+        saved = load_archive(out_path)
+    emb = out["embeddings"]
+    if sorted(saved) != ["attributes", "captions", "embeddings"] or \
+            emb.shape != (n_images, cfg.vision.embed_dim) or emb.dtype != np.float32 or \
+            not np.isfinite(emb).all() or not np.array_equal(saved["embeddings"], emb) or \
+            len(out["attributes"]) != n_images or len(out["captions"]) != n_images:
+        raise AssertionError(f"archive: keys {sorted(saved)}, embeddings {emb.shape}")
+    if "skip missing.jpg" not in skipped.getvalue():
+        raise AssertionError("the unreadable image was not skipped")
+    if list(out["captions"][:3]) != ["缺失0", "說明1", "缺失2"]:
+        raise AssertionError(f"captions {list(out['captions'][:3])}")
+    if counts["fused_attention_block"] <= 0 or counts["fused_mlp_residual"] <= 0:
+        raise AssertionError(f"precompute: a kernel never launched: {counts}")
+    say("precompute", images=n_images, batch_size=32, wall_s=wall,
+        images_per_s=n_images / wall, embeddings=list(emb.shape), launches=counts,
+        attributes=list(out["attributes"][:3]))
+
 
 def main() -> None:
     info = phase_device()
@@ -1206,7 +1514,7 @@ def main() -> None:
     phase_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
 
     batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
-    out = phase_train("vit_b_32", cfgs[0], clip_np, batch, 10, "cuda")
+    out = vit_b_32_default = phase_train("vit_b_32", cfgs[0], clip_np, batch, 10, "cuda")
     if not out["losses"][-1] < out["losses"][0]:
         raise AssertionError(f"ViT-B/32 loss did not fall: {out['losses']}")
     for name in ("fused_attention_block", "fused_attention_block_bwd"):
@@ -1240,6 +1548,27 @@ def main() -> None:
     int8_counts = phase_int8_serve(clip_np, cap_np, clip_tok, lm_tok)
     counts["fused_attention_block_int8"] = int8_counts["fused_attention_block_int8"]
     phase_int8_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
+
+    phase_k6(results)
+    phase_k9(results)
+    zs_counts = phase_zeroshot_fused(clip_np, cfgs[0], clip_tok, "cuda")
+    counts.update({n: zs_counts[n] for n in ("normalize_u8", "fused_mlp_residual")})
+    phase_precompute(clip_np, cfgs[0], clip_tok, "cuda")
+    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
+    with fused_mlp():
+        out = phase_train("vit_b_32_fused_mlp", cfgs[0], clip_np, batch, 5, "cuda")
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"ViT-B/32 fused-MLP loss did not fall: {out['losses']}")
+    for name in ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in fused-MLP ViT-B/32 training")
+    say("train_fused_mlp_vs_default", fused_median_step_ms=out["median_step_ms"],
+        default_median_step_ms=vit_b_32_default["median_step_ms"], batch=out["batch"])
+    batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
+    with fused_mlp():
+        phase_train_parity(cfgs[0], clip_np, batch, "cuda",
+                           need=("fused_attention_block", "fused_attention_block_bwd",
+                                 "fused_mlp_residual"), name="train_parity_fused_mlp")
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")}}

@@ -1,4 +1,5 @@
-"""What the port's apps share: the --device flag and the tokenizers."""
+"""What the port's apps share: the --device flag, CLIP weights, the
+tokenizers and the corpus stream."""
 
 from __future__ import annotations
 
@@ -25,6 +26,22 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def load_clip(checkpoint: str | None, *, arch: str = "vit_b_32"):
+    """(numpy params tree, CLIPConfig): the .npz that either package writes, or
+    random weights from seed 0 when `checkpoint` is None. The JAX apps' .pt
+    loading (OpenAI/HF state dicts) is not ported."""
+    from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.core.configs import CLIPConfig
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+
+    cfg = getattr(CLIPConfig, arch)()
+    if checkpoint is None:
+        return convert.init_clip(0, cfg), cfg
+    if not checkpoint.endswith(".npz"):
+        raise ValueError(f"{checkpoint}: the port reads .npz CLIP checkpoints only")
+    return load_params_npz(checkpoint), cfg
+
+
 def load_clip_tokenizer(merges_path: str | None, *, expect_vocab: int | None = None):
     """The CLIP BPE tokenizer from `merges_path` or the usual places."""
     from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer
@@ -40,6 +57,30 @@ def load_clip_tokenizer(merges_path: str | None, *, expect_vocab: int | None = N
                                  f"{expect_vocab} (merges file {c})")
             return tok
     raise FileNotFoundError("CLIP BPE merges file not found; pass --clip_bpe")
+
+
+def stream_corpus(annotations, image_root: str, batch_size: int, *, stage_size: int = 256):
+    """(annotations, staged uint8 [n, S, S, 3]) batches over a corpus; images
+    that cannot be read are skipped, as the reference does (apps/common.py's
+    stream_corpus)."""
+    import numpy as np
+
+    from construction_clip_tpu_torch.data.pipeline import default_load_image, host_shape_unify
+
+    imgs, anns = [], []
+    for a in annotations:
+        try:
+            img = default_load_image(os.path.join(image_root, a.file_name))
+        except (FileNotFoundError, OSError) as e:
+            print(f"skip {a.file_name}: {e}")
+            continue
+        imgs.append(host_shape_unify(img, stage_size))
+        anns.append(a)
+        if len(imgs) == batch_size:
+            yield anns, np.stack(imgs)
+            imgs, anns = [], []
+    if imgs:
+        yield anns, np.stack(imgs)
 
 
 class TokenizerFile:

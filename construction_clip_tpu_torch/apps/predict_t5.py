@@ -25,13 +25,13 @@ import torch
 
 from construction_clip_tpu_torch import convert
 from construction_clip_tpu_torch.apps.common import (
-    TokenizerFile, add_device_flag, load_clip_tokenizer, resolve_device)
+    TokenizerFile, add_device_flag, load_clip, load_clip_tokenizer, resolve_device,
+    stream_corpus)
 from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, T5Config
 from construction_clip_tpu_torch.core.params import as_tree
 from construction_clip_tpu_torch.core.precision import Policy, policy_from_name
 from construction_clip_tpu_torch.data.labels import (
     CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
-from construction_clip_tpu_torch.data.pipeline import default_load_image, host_shape_unify
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch
 from construction_clip_tpu_torch.infer.decode_t5 import t5_generate
 from construction_clip_tpu_torch.infer.precompute import make_embed_classify_fn
@@ -120,25 +120,6 @@ def make_process(clip_params, clip_cfg: CLIPConfig, cap_params, ccfg: ClipCapCon
     return process
 
 
-def stream_corpus(annotations, image_root: str, batch_size: int):
-    """(annotations, staged uint8 [n, 256, 256, 3]) batches; unreadable images
-    are skipped, as apps/common.py:stream_corpus does."""
-    imgs, anns = [], []
-    for a in annotations:
-        try:
-            img = default_load_image(os.path.join(image_root, a.file_name))
-        except (FileNotFoundError, OSError) as e:
-            print(f"skip {a.file_name}: {e}")
-            continue
-        imgs.append(host_shape_unify(img, 256))
-        anns.append(a)
-        if len(imgs) == batch_size:
-            yield anns, np.stack(imgs)
-            imgs, anns = [], []
-    if imgs:
-        yield anns, np.stack(imgs)
-
-
 def main(argv=None):
     args = parse_args(argv)
     from construction_clip_tpu_torch.data.schema import load_annotations
@@ -146,9 +127,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     policy = policy_from_name("auto", device)
-    clip_cfg = getattr(CLIPConfig, args.arch)()
-    clip_tree = (load_params_npz(args.clip_checkpoint) if args.clip_checkpoint
-                 else convert.init_clip(0, clip_cfg))
+    clip_tree, clip_cfg = load_clip(args.clip_checkpoint, arch=args.arch)
     clip_tok = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=clip_cfg.text.vocab_size if args.clip_checkpoint else None)
     lm_tok = TokenizerFile(args.tokenizer)

@@ -20,7 +20,7 @@ import argparse
 import os
 
 from construction_clip_tpu_torch.apps.common import (
-    add_device_flag, load_clip_tokenizer, resolve_device)
+    add_device_flag, load_clip, load_clip_tokenizer, resolve_device)
 
 
 def parse_args(argv=None):
@@ -62,23 +62,20 @@ def main(argv=None):
     import torch
 
     from construction_clip_tpu_torch import convert
-    from construction_clip_tpu_torch.core.configs import CLIPConfig
     from construction_clip_tpu_torch.core.precision import policy_from_name
     from construction_clip_tpu_torch.data.datasets import PairGroupDataset
     from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
     from construction_clip_tpu_torch.data.pipeline import default_load_image
     from construction_clip_tpu_torch.data.preprocess import preprocess_batch
     from construction_clip_tpu_torch.train.checkpoint import (
-        latest_step, load_params_npz, restore_state, save_params_npz)
+        latest_step, restore_state, save_params_npz)
     from construction_clip_tpu_torch.train.contrastive import make_eval_step, make_train_step
     from construction_clip_tpu_torch.train.metrics import MetricLogger, StepTimer
     from construction_clip_tpu_torch.train.resilience import StepWatchdog, run_resilient
     from construction_clip_tpu_torch.train.state import TrainState, make_adamw
 
     device = resolve_device(args.device)
-    cfg = getattr(CLIPConfig, args.arch)()
-    tree = (load_params_npz(args.checkpoint) if args.checkpoint
-            else convert.init_clip(0, cfg))
+    tree, cfg = load_clip(args.checkpoint, arch=args.arch)
     params = convert.to_params(tree, device=device, trainable=True)
     tokenizer = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=cfg.text.vocab_size if args.checkpoint else None)

@@ -1,15 +1,19 @@
-// Tiled GEMM on the CUDA cores for the fused block's weight products (K1, K3).
+// Tiled GEMM on the CUDA cores for the fused blocks' weight products (K1, K3,
+// K9).
 //
 //   out[M, N] = epilogue(A'[M, K] . B[K, N])
 //
-// A' = T(LN(A)) with each row's LN statistics computed in the prologue (kQkv),
-// A otherwise. B is W [K, N] row-major, or with TRANS_B, W [N, K] read
+// A' = T(LN(A)) with each row's LN statistics computed in the prologue (kQkv,
+// kGelu), A otherwise. B is W [K, N] row-major, or with TRANS_B, W [N, K] read
 // transposed (the backward's g . W_out^T and dqkv . W_qkv^T). Products and
-// sums are fp32 FMA. Epilogues:
+// sums are fp32 FMA; the LN affine step and the epilogues' adds round each
+// operation (__fmul_rn/__fadd_rn), so no contraction merges two roundings
+// that the plain versions keep apart. Epilogues:
 //   kQkv      out = T(T(acc) + bias)        (the forward's qkv rounding points)
-//   kResidual out = T(resid + acc + bias)    (the forward's residual output)
+//   kResidual out = T((resid + acc) + bias)  (the forward's residual output)
 //   kRound    out = T(acc)
 //   kFloat    out = acc                      (fp32 output)
+//   kGelu     out = quick_gelu_t(T(T(acc) + bias))   (K9's hidden)
 // Each of the 256 threads owns a 4x4 set of outputs strided by 16, so the
 // shared-memory reads of a warp are broadcasts (A) or consecutive (W).
 #pragma once
@@ -20,7 +24,18 @@ namespace cct {
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 
-enum Epilogue : int { kQkv = 0, kResidual = 1, kRound = 2, kFloat = 3 };
+enum Epilogue : int { kQkv = 0, kResidual = 1, kRound = 2, kFloat = 3, kGelu = 4 };
+
+// QuickGELU x * (1 / (1 + exp(c x))) as ops/activations.quick_gelu computes
+// it: each operation in fp32 and its result rounded to T, with c = -1.702
+// rounded to T first (-1.703125 in bf16).
+template <typename T>
+__device__ __forceinline__ float quick_gelu_t(float x) {
+  const float c = round_to<T>(-1.702f);
+  const float e = round_to<T>(expf(round_to<T>(__fmul_rn(c, x))));
+  const float r = round_to<T>(__fdiv_rn(1.f, round_to<T>(__fadd_rn(1.f, e))));
+  return round_to<T>(__fmul_rn(x, r));
+}
 
 template <typename T, int EPI, bool TRANS_B, typename Out>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -36,7 +51,8 @@ block_gemm(const T* __restrict__ a, const T* __restrict__ w, const T* __restrict
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
 
-  if constexpr (EPI == kQkv) {
+  constexpr bool kLnPrologue = EPI == kQkv || EPI == kGelu;
+  if constexpr (kLnPrologue) {
     const int warp = tid >> 5, lane = tid & 31;
     for (int r = warp; r < kBM; r += kGemmThreads / 32) {
       const int m = m0 + r;
@@ -74,8 +90,10 @@ block_gemm(const T* __restrict__ a, const T* __restrict__ w, const T* __restrict
       float v = 0.f;
       if (m < M && k < K) {
         v = to_f(a[(size_t)m * K + k]);
-        if constexpr (EPI == kQkv)
-          v = round_to<T>((v - row_mean[r]) * row_rstd[r] * to_f(ln_s[k]) + to_f(ln_b[k]));
+        if constexpr (kLnPrologue)
+          v = round_to<T>(__fadd_rn(
+              __fmul_rn(__fmul_rn(v - row_mean[r], row_rstd[r]), to_f(ln_s[k])),
+              to_f(ln_b[k])));
       }
       a_s[c][r] = v;
     }
@@ -114,8 +132,11 @@ block_gemm(const T* __restrict__ a, const T* __restrict__ w, const T* __restrict
       const size_t o = (size_t)m * N + n;
       if constexpr (EPI == kQkv)
         out[o] = from_f<T>(round_to<T>(acc[i][j]) + to_f(bias[n]));
+      else if constexpr (EPI == kGelu)
+        out[o] = from_f<T>(quick_gelu_t<T>(
+            round_to<T>(__fadd_rn(round_to<T>(acc[i][j]), to_f(bias[n])))));
       else if constexpr (EPI == kResidual)
-        out[o] = from_f<T>(to_f(resid[o]) + acc[i][j] + to_f(bias[n]));
+        out[o] = from_f<T>(__fadd_rn(__fadd_rn(to_f(resid[o]), acc[i][j]), to_f(bias[n])));
       else if constexpr (EPI == kRound)
         out[o] = from_f<T>(acc[i][j]);
       else

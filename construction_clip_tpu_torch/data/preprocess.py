@@ -4,7 +4,8 @@ shorter side as two GEMMs with PIL's filter weights, center crop with
 torchvision's rounding, scale to [0, 1], clip, per-channel normalize.
 
 The host only decodes to uint8 RGB; the batch crosses to the device as bytes and
-every float step runs there.
+every float step runs there. Images already at model resolution take
+`preprocess_staged`, the fused normalize alone (ops/preprocess.py, K6).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import functools
 
 import numpy as np
 import torch
+
+from construction_clip_tpu_torch.ops.preprocess import normalize_u8
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -92,3 +95,16 @@ def preprocess_batch(imgs_u8, size: int = 224, *, mean=CLIP_MEAN, std=CLIP_STD,
     x = resize_bicubic_pil(x, th, tw)
     x = center_crop(x, size)
     return normalize(torch.clamp(x, 0.0, 1.0), mean, std)
+
+
+def preprocess_staged(images_u8, *, mean=CLIP_MEAN, std=CLIP_STD, out_dtype=None, device=None):
+    """[B, S, S, 3] uint8 already at model resolution (numpy or tensor) ->
+    normalized [B, S, S, 3] out_dtype (float32 when None) on `device` (the
+    input's device when None), in one fused pass: K6 on the card, its plain
+    version on the CPU. The JAX package's CPU path divides where K6 multiplies
+    by reciprocals, so the two differ by an ulp or so."""
+    imgs = torch.as_tensor(images_u8)
+    if device is not None:
+        imgs = imgs.to(device)
+    return normalize_u8(imgs, mean=tuple(mean), std=tuple(std),
+                        out_dtype=torch.float32 if out_dtype is None else out_dtype)

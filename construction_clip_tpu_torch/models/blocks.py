@@ -5,8 +5,11 @@ LN -> MLP(act) -> residual. Params for L layers are stacked along a leading axis
 
 The attention half takes the fused block (ops/attention_block.py, kernel K1)
 exactly where the JAX package takes its Pallas block: no bias, and `supported`.
-The MLP half stays plain PyTorch, as the JAX package leaves it to XLA
-(USE_FUSED_MLP=False there).
+The MLP half takes the fused MLP residual (ops/mlp.py, kernel K9) where the JAX
+package takes its Pallas MLP: `USE_FUSED_MLP` on, a QuickGELU block, the kernel
+impl and `mlp.supported`. `USE_FUSED_MLP` is the JAX package's switch, off by
+default as there; otherwise the MLP is plain PyTorch (cuBLAS GEMMs and
+elementwise ops).
 """
 
 from __future__ import annotations
@@ -15,8 +18,12 @@ from typing import Callable
 
 from construction_clip_tpu_torch.core.params import tree_map
 from construction_clip_tpu_torch.ops import attention_block as fab
+from construction_clip_tpu_torch.ops import mlp
+from construction_clip_tpu_torch.ops.activations import quick_gelu
 from construction_clip_tpu_torch.ops.attention import qkv_attention, resolve_impl
 from construction_clip_tpu_torch.ops.norms import layer_norm
+
+USE_FUSED_MLP = False   # construction_clip_tpu/models/blocks.py:104, off there too
 
 
 def apply_block(params, x, *, n_heads: int, act: Callable, bias=None,
@@ -31,6 +38,9 @@ def apply_block(params, x, *, n_heads: int, act: Callable, bias=None,
 
 
 def _mlp_residual(x, params, act, ln_eps):
+    if USE_FUSED_MLP and act is quick_gelu and resolve_impl() == "kernel" \
+            and mlp.supported(x, params["mlp"]["w_fc"]):
+        return mlp.fused_mlp_residual(x, params["mlp"], params["ln_2"], eps=ln_eps)
     h = layer_norm(x, params["ln_2"]["scale"], params["ln_2"]["bias"], eps=ln_eps)
     h = act(h @ params["mlp"]["w_fc"] + params["mlp"]["b_fc"])
     return x + (h @ params["mlp"]["w_proj"] + params["mlp"]["b_proj"])

@@ -51,6 +51,11 @@ SIGNATURES = {
     "cct_flash_attention_bwd": ([_I] + [_P] * 8 + [_I] * 5 + [_F, _P], _I),
     # table_dtype, x, table, scale, out, rows, d, v, stream
     "cct_vocab_head": ([_I] + [_P] * 4 + [_I] * 3 + [_P], _I),
+    # dtype, x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, hidden, out, rows, d, h, eps,
+    # stream
+    "cct_mlp_residual": ([_I] + [_P] * 9 + [_I] * 3 + [_F, _P], _I),
+    # out_dtype, in, out, n, scale, mean[3], inv_std[3], stream
+    "cct_normalize_u8": ([_I, _P, _P, _L] + [_F] * 7 + [_P], _I),
     "cct_error_string": ([_I], ctypes.c_char_p),
 }
 

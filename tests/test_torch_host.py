@@ -100,6 +100,34 @@ def test_host_shape_unify_gives_the_original_arrays(hw):
     np.testing.assert_array_equal(got, j_pipeline.host_shape_unify(img, 256))
 
 
+def test_stream_corpus_gives_the_original_batches(tmp_path):
+    """The apps' corpus stream (the port's apps/common.py copy of the JAX
+    apps' one): the same annotations and staged arrays, unreadable files
+    skipped, over PIL-written JPEGs of several sizes."""
+    import importlib.util
+
+    from PIL import Image
+
+    from construction_clip_tpu_torch.apps.common import stream_corpus
+
+    spec = importlib.util.spec_from_file_location("jax_apps_common",
+                                                  os.path.join(REPO, "apps", "common.py"))
+    j_common = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(j_common)
+    gen = np.random.default_rng(9)
+    for i, hw in enumerate([(40, 50), (256, 256), (300, 120), (64, 64), (90, 33)]):
+        Image.fromarray((gen.random(hw + (3,)) * 255).astype(np.uint8)).save(tmp_path / f"{i}.jpg")
+    anns = [schema.Annotation(id=i, file_name=f"{i}.jpg") for i in range(5)]
+    anns.insert(2, schema.Annotation(id=9, file_name="missing.jpg"))
+    for size, batch in ((256, 2), (64, 10)):
+        got = list(stream_corpus(anns, str(tmp_path), batch, stage_size=size))
+        want = list(j_common.stream_corpus(anns, str(tmp_path), batch, stage_size=size))
+        assert [[a.id for a in b] for b, _ in got] == [[a.id for a in b] for b, _ in want]
+        for (_, g), (_, w) in zip(got, want):
+            assert g.shape[1:] == (size, size, 3)
+            np.testing.assert_array_equal(g, w)
+
+
 def _python_files():
     root = os.path.join(REPO, "construction_clip_tpu_torch")
     for dirpath, _, files in os.walk(root):
@@ -129,7 +157,8 @@ def test_port_imports_nothing_of_the_jax_package():
     assert bad == []
 
 
-@pytest.mark.parametrize("app", ["train_clip", "predict_t5", "serve"])
+@pytest.mark.parametrize("app", ["train_clip", "predict_t5", "serve", "predict_zeroshot",
+                                 "parse_corpus"])
 def test_apps_refuse_a_missing_cuda_device(app, monkeypatch):
     """--device defaults to cuda; without a usable CUDA device the app stops
     at once and names --device cpu, instead of running on the CPU."""

@@ -19,6 +19,8 @@ from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import attention_block_int8 as fab8
 from construction_clip_tpu_torch.ops import decode_attention as dec
 from construction_clip_tpu_torch.ops import flash_attention as fa
+from construction_clip_tpu_torch.ops import mlp
+from construction_clip_tpu_torch.ops import preprocess as norm
 from construction_clip_tpu_torch.ops import vocab_head as vh
 
 
@@ -37,7 +39,7 @@ def test_nvcc_command_targets_hopper():
         assert _build.library_path(src).name.startswith(f"libcct_{src.stem}_")
     assert sources == {"attention_block.cu", "attention_block_bwd.cu",
                        "attention_block_int8.cu", "decode_attention.cu", "flash_attention.cu",
-                       "vocab_head.cu"}
+                       "mlp_residual.cu", "normalize_u8.cu", "vocab_head.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
 
@@ -371,3 +373,119 @@ def test_failed_build_raises_instead_of_falling_back(gen, cuda_device, tmp_path,
     with pytest.raises(RuntimeError, match="nvcc"):
         fab8.fused_attention_block_int8(x, ln, qattn, n_heads=4)
     assert fab8.fused_attention_block_int8.launches == before
+
+
+def _mlp_case(gen, dev, dtype, b, t, d, hidden):
+    def arr(*s, scale=1.0, offset=0.0):
+        a = gen.standard_normal(s).astype(np.float32) * scale + offset
+        return torch.from_numpy(a).to(dev, dtype)
+
+    return (arr(b, t, d), arr(d, scale=0.1, offset=1.0), arr(d, scale=0.1),
+            arr(d, hidden, scale=d ** -0.5), arr(hidden, scale=0.1),
+            arr(hidden, d, scale=hidden ** -0.5), arr(d, scale=0.1))
+
+
+def _mlp_call(fn, args):
+    x, s, b, wf, bf, wp, bp = args
+    return fn(x, {"w_fc": wf, "b_fc": bf, "w_proj": wp, "b_proj": bp}, {"scale": s, "bias": b})
+
+
+def test_cpu_mlp_and_normalize_take_the_plain_versions(gen):
+    args = _mlp_case(gen, "cpu", torch.float32, 2, 5, 16, 64)
+    before = mlp.fused_mlp_residual.launches
+    assert torch.equal(_mlp_call(mlp.fused_mlp_residual, args),
+                       mlp.fused_mlp_residual_plain(*args))
+    assert mlp.fused_mlp_residual.launches == before
+    u8 = torch.from_numpy((gen.random((2, 5, 7, 3)) * 256).astype(np.uint8))
+    before = norm.normalize_u8.launches
+    kw = dict(mean=(0.5, 0.4, 0.3), std=(0.2, 0.25, 0.3))
+    assert torch.equal(norm.normalize_u8(u8, **kw), norm.normalize_u8_plain(u8, **kw))
+    assert norm.normalize_u8.launches == before
+
+
+# K9 against its plain version on the card, relative to the plain output's
+# largest element: fp32 by summation order (the LN statistics and both GEMMs);
+# bf16 adds single roundings of h, the pre-activation, the QuickGELU steps and
+# the output that another order can flip (one bf16 step is 2^-8)
+MLP_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 50, 768, 3072), (9, 77, 512, 2048),
+                                   (36, 50, 768, 3072), (3, 7, 40, 100)])
+def test_mlp_residual_kernel_on_card(shape, dtype, gen, cuda_device):
+    args = _mlp_case(gen, cuda_device, dtype, *shape)
+    before = mlp.fused_mlp_residual.launches
+    got = _mlp_call(mlp.fused_mlp_residual, args)
+    want = mlp.fused_mlp_residual_plain(*args)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_residual.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert _scaled_err(got, want) <= MLP_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_mlp_residual_output_has_grad_fn_on_card(gen, cuda_device):
+    """K9 under autograd: the output joins the graph, and the backward (the
+    composable math's gradient) matches the plain path's."""
+    args = [a.requires_grad_() for a in _mlp_case(gen, cuda_device, torch.float32, 2, 50, 64,
+                                                  256)]
+    out = _mlp_call(mlp.fused_mlp_residual, args)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out.square().sum(), args)
+    want = torch.autograd.grad(mlp._ref_math(*args, 1e-5).square().sum(), args)
+    for a, w in zip(got, want):
+        assert _scaled_err(a, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mlp_residual_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
+    args = _mlp_case(gen, cuda_device, torch.bfloat16, 2, 5, 64, 256)
+    before = mlp.fused_mlp_residual.launches
+    with pytest.raises(ValueError, match="does not take"):
+        mlp.fused_mlp_residual_fwd(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="w_fc"):
+        mlp.fused_mlp_residual_fwd(args[0], args[1], args[2], args[3].float(), *args[4:])
+    with pytest.raises(ValueError, match="w_proj"):
+        mlp.fused_mlp_residual_fwd(*args[:5], args[5].mT, args[6])   # not contiguous
+    with pytest.raises(ValueError, match="b_fc"):
+        mlp.fused_mlp_residual_fwd(*args[:4], args[4][:100], *args[5:])
+    with pytest.raises(ValueError, match="ln_scale"):
+        mlp.fused_mlp_residual_fwd(args[0], args[1].cpu(), *args[2:])
+    assert mlp.fused_mlp_residual.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 224, 224, 3), (1, 7, 5, 3), (2, 3, 1, 3)])
+def test_normalize_u8_kernel_on_card(shape, out_dtype, gen, cuda_device):
+    """Bit-equal to its plain version: the same fp32 operations, each rounded
+    (a tail of fewer than 4 bytes at (1, 7, 5, 3) and (2, 3, 1, 3))."""
+    u8 = torch.from_numpy((gen.random(shape) * 256).astype(np.uint8)).to(cuda_device)
+    kw = dict(mean=(0.48145466, 0.4578275, 0.40821073),
+              std=(0.26862954, 0.26130258, 0.27577711), out_dtype=out_dtype)
+    before = norm.normalize_u8.launches
+    got = norm.normalize_u8(u8, **kw)
+    torch.cuda.synchronize()
+    assert norm.normalize_u8.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == u8.shape
+    assert torch.equal(got, norm.normalize_u8_plain(u8, **kw))
+    # an input that starts off a 4-byte boundary takes the byte loads
+    flat = torch.zeros(u8.numel() + 1, dtype=torch.uint8, device=cuda_device)
+    flat[1:] = u8.flatten()
+    assert torch.equal(norm.normalize_u8(flat[1:].view(shape), **kw), got)
+
+
+@pytest.mark.cuda
+def test_normalize_u8_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
+    u8 = torch.zeros((2, 4, 4, 3), dtype=torch.uint8, device=cuda_device)
+    kw = dict(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
+    before = norm.normalize_u8.launches
+    with pytest.raises(ValueError, match="uint8"):
+        norm.normalize_u8(u8.float(), **kw)
+    with pytest.raises(ValueError, match="uint8"):
+        norm.normalize_u8(u8[..., :1], **kw)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        norm.normalize_u8(u8, out_dtype=torch.float16, **kw)
+    assert norm.normalize_u8.launches == before

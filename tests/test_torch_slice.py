@@ -279,6 +279,25 @@ svc.pipe.max_steps = 3
 out = svc.predict((np.random.default_rng(2).random((40, 50, 3)) * 255).astype(np.uint8))
 assert out["caption_type"] in ("violation", "status"), out
 
+# zero-shot and the prefix-corpus precompute with the fused MLP on (K9's and
+# K6's wrappers), and the two apps' modules
+from construction_clip_tpu_torch.apps import parse_corpus, predict_zeroshot
+from construction_clip_tpu_torch.data.preprocess import preprocess_staged
+from construction_clip_tpu_torch.infer import precompute, zeroshot
+from construction_clip_tpu_torch.models import blocks
+
+blocks.USE_FUSED_MLP = True
+feats = zeroshot.label_features(pipe.clip_params, clip_cfg,
+                                ClipTok().tokenize(["a", "b", "c"], 12))
+staged = (np.random.default_rng(3).random((2, 32, 32, 3)) * 255).astype(np.uint8)
+probs, pred = zeroshot.classify_batch(pipe.clip_params, clip_cfg, preprocess_staged(staged),
+                                      feats)
+assert tuple(probs.shape) == (2, 3), probs.shape
+archive = precompute.precompute_corpus(
+    pipe.clip_params, clip_cfg, [Annotation(id=0, file_name="a.jpg")], ClipTok(),
+    load_image=lambda path: np.zeros((40, 48, 3), np.uint8))
+assert archive["embeddings"].shape == (1, 16), archive["embeddings"].shape
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "construction_clip_tpu",
                                     "make_offline_assets"))
