@@ -64,6 +64,23 @@ Phases, each printing one line (the last line is the JSON verdict):
  22. ViT-B/32 contrastive training with the fused MLP on (bf16, B=36, 5
      steps): the loss falls, K1, K3 and K9 launch; its median step time beside
      phase 9's; then phase 11's fp32 gradient parity with the switch on.
+ 23. K10, the data-parallel feature all-gather, with 4 ranks sharing the card
+     (spawned processes, CUDA IPC between them): bit-equal to its plain
+     version (gloo through the host) at [9,512] fp32 and bf16, [9,768], a
+     chunk that is no multiple of 16 bytes and [4096,1024] bf16; the
+     wrapper's time a call (with its barrier) on all ranks, the kernel's
+     alone by CUDA events one rank at a time, the plain version's, the bound.
+ 24. data-parallel ViT-B/32 training at full width and depth, bf16, 4 ranks on
+     the card, global B=36 (phase 9's batch, 9 rows a rank), params from
+     phase 9's seed on rank 0 broadcast to the others: 5 steps, the loss
+     falls; per rank K10 launches twice a step, K1 and K3 launch. The ranks
+     time-slice one card: the step times are no multi-GPU speed.
+ 25. the 4-rank step against the one-process step in fp32 on the same params
+     and B=36 batch: the loss, the accuracy, every gradient leaf after the
+     mean over ranks, and the global eval accuracy.
+ 26. data-parallel ViT-L/14 training (BASELINE config 5's model) at full width
+     and depth, bf16, 2 ranks, global B=18, 2 steps: K4/K5 launch from the
+     image tower and K10 from the loss in every rank.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -94,7 +111,9 @@ sys.path.insert(0, REPO)
 from construction_clip_tpu_torch import convert  # noqa: E402
 from construction_clip_tpu_torch.core.configs import (  # noqa: E402
     CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
-from construction_clip_tpu_torch.core.params import as_tree  # noqa: E402
+from construction_clip_tpu_torch.core.mesh import (  # noqa: E402
+    replicate, shard_batch, spawn_ranks)
+from construction_clip_tpu_torch.core.params import as_tree, tree_leaves  # noqa: E402
 from construction_clip_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY  # noqa: E402
 from construction_clip_tpu_torch.data import offline_assets  # noqa: E402
 from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer  # noqa: E402
@@ -114,6 +133,8 @@ from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
     fused_attention_block, fused_attention_block_plain)
 from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
     fused_attention_block_bwd, fused_attention_block_bwd_plain)
+from construction_clip_tpu_torch.ops.collectives import (  # noqa: E402
+    PeerBuffers, all_gather, all_gather_plain)
 from construction_clip_tpu_torch.ops.attention_block_int8 import (  # noqa: E402
     fused_attention_block_int8, fused_attention_block_int8_plain)
 from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
@@ -198,6 +219,9 @@ KERNELS = {
     "fused_mlp_residual": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/mlp_residual.cu",
         replaces="construction_clip_tpu/ops/pallas_mlp.py:55"),
+    "all_gather": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/all_gather.cu",
+        replaces="construction_clip_tpu/ops/pallas_collectives.py:58"),
 }
 WRAPPERS = {"fused_attention_block": fused_attention_block,
             "decode_step_attention": decode_step_attention,
@@ -207,7 +231,8 @@ WRAPPERS = {"fused_attention_block": fused_attention_block,
             "normalize_u8": normalize_u8,
             "fused_attention_block_int8": fused_attention_block_int8,
             "vocab_head_logits": vocab_head_logits,
-            "fused_mlp_residual": fused_mlp_residual}
+            "fused_mlp_residual": fused_mlp_residual,
+            "all_gather": all_gather}
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s and operations/s by operand type.
@@ -243,6 +268,29 @@ K6_SHAPE = (8, 224, 224, 3)
 # largest feature: bf16 as the int8 phase's bound; fp32 by summation order
 # through 12 layers
 FUSED_FEATURE_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+# K10 cases: the ViT-B/32 path's chunk (9 rows a rank, embed 512) in fp32 (the
+# features' type under either policy) and bf16; ViT-L/14's embed 768; a chunk of
+# 18,540 bytes, no multiple of 16; and a bandwidth shape of 8 MiB a rank
+K10_WORLD = 4
+K10_CASES = (((9, 512), torch.float32), ((9, 512), torch.bfloat16),
+             ((9, 768), torch.float32), ((9, 515), torch.float32),
+             ((4096, 1024), torch.bfloat16))
+K10_LIBRARY = "not measurable on one card (NCCL refuses two ranks on one device)"
+# the 4-rank fp32 step against the one-process step: every gradient leaf within
+# DP_GRAD_TOL of that leaf's largest element. The ranks' gradients are four
+# partial sums over 9 rows each, added in another order than the 36 rows of the
+# one-process backward, and the encoders run at batch 9 against 36
+DP_GRAD_TOL = 1e-4
+# the ranks' bf16 losses (phases 24, 26) against the one-process run on the same
+# params and batch, relative: the first step is the same forward on 9-row against
+# 36-row GEMMs; later steps follow AdamW updates from bf16 gradients summed in
+# another order, and AdamW's first steps move a weight by about lr whatever the
+# size of its gradient, so a rounding that flips a near-zero gradient's sign
+# moves that weight by 2 lr
+DP_LOSS_TOL = {"first": 1e-3, "later": 2e-2}
+# a phase's ranks, from spawn to the last result: CUDA context, the params'
+# broadcast through the host, the steps
+RANKS_TIMEOUT_S = 300
 
 
 def say(phase: str, **fields) -> None:
@@ -1497,6 +1545,224 @@ def phase_precompute(clip_np, cfg, clip_tok, device, *, n_images: int = 70) -> N
         attributes=list(out["attributes"][:3]))
 
 
+def _k10_rows(shape, rank, dtype, device):
+    gen = torch.Generator().manual_seed(rank)
+    return torch.randn(shape, generator=gen).to(device, dtype)
+
+
+def k10_rank(dp, cases, reps):
+    """One rank of phase 23: each case against the plain version, then its
+    times; the kernel alone is timed by one rank at a time while the others
+    wait at a barrier (the ranks' contexts time-slice the card)."""
+    lib = _build.load_library()
+    peers = PeerBuffers(dp, max(h * w * torch.empty((), dtype=t).element_size()
+                                for (h, w), t in cases))
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for (shape, dtype), n in zip(cases, reps):
+        x = _k10_rows(shape, dp.rank, dtype, dp.device)
+        got = all_gather(x, dp, peers)
+        want = all_gather_plain(x, dp)
+        torch.cuda.synchronize()
+        case = {"shape": list(shape), "dtype": str(dtype), "bit_equal": torch.equal(got, want),
+                "max_abs_err": float((got.float() - want.float()).abs().max())}
+        for name, fn, calls in (("ms", lambda: all_gather(x, dp, peers), n),
+                                ("plain_ms", lambda: all_gather_plain(x, dp), max(5, n // 10))):
+            dp.barrier()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            case[name] = (time.perf_counter() - t0) / calls * 1e3
+        # the last wrapper call's slots hold every rank's chunk; nobody writes them now
+        offset = ((peers.calls - 1) % 2) * peers.capacity
+        chunk_bytes = x.numel() * x.element_size()
+
+        def kernel():
+            _build.check(lib.cct_all_gather(peers.slots.data_ptr(), offset, got.data_ptr(),
+                                            chunk_bytes, dp.world, stream), "all_gather")
+
+        for r in range(dp.world):
+            dp.barrier()
+            if r == dp.rank:
+                case["kernel_ms"] = median_ms(kernel, 11, 20)
+        dp.barrier()
+        out.append(case)
+    peers.close()
+    return out
+
+
+def phase_k10(results: dict) -> None:
+    """K10 with K10_WORLD ranks on the card, against its plain version."""
+    reps = [200 if h * w < 1 << 20 else 50 for (h, w), _ in K10_CASES]
+    per_rank = spawn_ranks(k10_rank, K10_WORLD, (K10_CASES, reps), device="cuda:0",
+                           timeout=RANKS_TIMEOUT_S)
+    for i, (shape, dtype) in enumerate(K10_CASES):
+        cases = [rank[i] for rank in per_rank]
+        if not all(c["bit_equal"] for c in cases):
+            raise AssertionError(f"K10 {shape} {dtype}: not bit-equal to its plain version: "
+                                 f"{[c['max_abs_err'] for c in cases]}")
+        chunk_bytes = shape[0] * shape[1] * torch.empty((), dtype=dtype).element_size()
+        # a rank reads every rank's chunk once and writes it once
+        stats = {"max_abs_err": max(c["max_abs_err"] for c in cases),
+                 "ms": statistics.median(c["ms"] for c in cases),
+                 "plain_ms": statistics.median(c["plain_ms"] for c in cases),
+                 **bound(2 * K10_WORLD * chunk_bytes, {}), "library_ms": None}
+        kernel_ms = [c["kernel_ms"] for c in cases]
+        say("k10", world=K10_WORLD, shape=list(shape), dtype=str(dtype), bit_equal=True,
+            chunk_bytes=chunk_bytes, kernel_ms_by_rank=kernel_ms,
+            kernel_gb_per_s=2 * K10_WORLD * chunk_bytes / (statistics.median(kernel_ms) * 1e-3)
+            / 1e9, ms_by_rank=[c["ms"] for c in cases],
+            plain="gloo all_gather through the host", library=K10_LIBRARY, **stats)
+        if i == 0:
+            results["all_gather"] = stats
+
+
+def _replicated_params(dp, cfg, seed):
+    """Rank 0 draws the params from `seed`; the others take them by broadcast."""
+    tree = convert.init_clip(seed if dp.rank == 0 else convert.SHAPES, cfg)
+    return replicate(dp, convert.to_params(tree, device=dp.device, trainable=True))
+
+
+def _rank_batch(dp, batch):
+    return shard_batch(dp, {k: torch.from_numpy(v).to(dp.device) for k, v in batch.items()})
+
+
+def dp_train_rank(dp, cfg, seed, batch, steps):
+    """One rank of phases 24 and 26: bf16 steps on this rank's rows."""
+    start = time.perf_counter()
+    params = _replicated_params(dp, cfg, seed)
+    local = _rank_batch(dp, batch)
+    tx = make_adamw(1e-4, warmup_steps=0, total_steps=1000)
+    state = TrainState.create(params, tx)
+    step = contrastive.make_train_step(cfg, tx, policy=BF16_POLICY, device=dp.device, dp=dp)
+    on_card = dp.device.type == "cuda"   # (the CPU runs a rehearsal of the phase)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    dp.barrier()
+    losses, accs, times = [], [], []
+    reset_launches()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        losses.append(float(m["loss"]))   # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+        accs.append(float(m["accuracy"]))
+    return {"losses": losses, "accuracies": accs, "step_ms": times, "launches": launches(),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
+            "local_batch": int(local["tokens"].shape[0]),
+            "setup_s": time.perf_counter() - start - sum(times) / 1e3}
+
+
+def _host_batch(batch) -> dict:
+    return {k: v.cpu().numpy() for k, v in batch.items()}
+
+
+def _ranks_device(device) -> str:
+    """Every rank on the one card (or, for a rehearsal, on the CPU)."""
+    return "cuda:0" if torch.device(device).type == "cuda" else "cpu"
+
+
+def phase_dp_train(name: str, cfg, seed: int, batch, world: int, steps: int,
+                   need: tuple, one_process_losses: list, device="cuda",
+                   must_fall: bool = True) -> dict:
+    """`world` ranks train `steps` bf16 steps on the card (phases 24, 26): the
+    losses are finite, the same on every rank, within DP_LOSS_TOL of
+    `one_process_losses` (the one-process run on the same params and batch),
+    and fall with `must_fall`; every kernel of `need` launches in every rank,
+    and K10 twice a step."""
+    t0 = time.perf_counter()
+    per_rank = spawn_ranks(dp_train_rank, world, (cfg, seed, _host_batch(batch), steps),
+                           device=_ranks_device(device), timeout=RANKS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    losses = per_rank[0]["losses"]
+    rel_errs = [abs(a - b) / abs(b) for a, b in zip(losses, one_process_losses)]
+    tols = [DP_LOSS_TOL["first"]] + [DP_LOSS_TOL["later"]] * (steps - 1)
+    if not all(np.isfinite(losses)) or len(one_process_losses) != steps or \
+            any(e > t for e, t in zip(rel_errs, tols)) or \
+            (must_fall and not losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: losses {losses} against the one-process "
+                             f"{one_process_losses}: relative errors {rel_errs}, tols {tols}")
+    for r, out in enumerate(per_rank):
+        if out["losses"] != losses:
+            raise AssertionError(f"{name}: rank {r}'s losses {out['losses']} != {losses}")
+        if out["launches"]["all_gather"] != 2 * steps or \
+                min(out["launches"][n] for n in need) <= 0:
+            raise AssertionError(f"{name}: rank {r}'s launches {out['launches']}")
+    counts = {n: sum(out["launches"][n] for out in per_rank) for n in WRAPPERS}
+    say(name, world=world, global_batch=int(batch["tokens"].shape[0]),
+        local_batch=per_rank[0]["local_batch"], steps=steps, losses=losses,
+        one_process_losses=one_process_losses, loss_rel_errs=rel_errs, loss_tols=tols,
+        accuracies=per_rank[0]["accuracies"],
+        wall_s=wall, setup_s_by_rank=[o["setup_s"] for o in per_rank],
+        median_step_ms_by_rank=[statistics.median(o["step_ms"]) for o in per_rank],
+        step_ms_rank0=per_rank[0]["step_ms"],
+        peak_memory_gib_by_rank=[o["peak_memory_gib"] for o in per_rank],
+        launches_per_rank=per_rank[0]["launches"], launches_all_ranks=counts,
+        note="ranks time-slice one card: no multi-GPU speed")
+    return counts
+
+
+def dp_parity_rank(dp, cfg, seed, batch):
+    """One rank of phase 25: the fp32 loss, accuracy and mean gradients on
+    this rank's rows, and the global eval accuracy."""
+    t0 = time.perf_counter()
+    params = _replicated_params(dp, cfg, seed)
+    local = _rank_batch(dp, batch)
+    t1 = time.perf_counter()
+    reset_launches()
+    loss, acc, grads = contrastive.loss_and_grads(params, cfg, local["images"], local["tokens"],
+                                                  dp=dp)
+    eval_acc = contrastive.make_eval_step(cfg, dp=dp)(params, local)
+    leaves = tree_leaves(grads)
+    out = {"loss": float(loss), "accuracy": float(acc), "eval_accuracy": float(eval_acc),
+           "launches": launches(), "sums": [float(g.double().sum()) for g in leaves],
+           "setup_s": t1 - t0, "step_and_eval_s": time.perf_counter() - t1}
+    if dp.rank == 0:
+        out["grads"] = [g.cpu().numpy() for g in leaves]
+    return out
+
+
+def phase_dp_parity(cfg, seed: int, batch, world: int, device="cuda") -> None:
+    """Phase 25: the `world`-rank fp32 step against the one-process step. The
+    accuracies are held to 1e-6: the ranks' mean of four fractions of 9 rounds
+    otherwise than one fraction of 36."""
+    params = convert.to_params(convert.init_clip(seed, cfg), device=device, trainable=True)
+    loss, acc, grads = contrastive.loss_and_grads(params, cfg, batch["images"], batch["tokens"])
+    eval_acc = float(contrastive.make_eval_step(cfg)(params, batch))
+    want = [g.detach() for g in tree_leaves(grads)]
+    names = list(_paths(as_tree(params)))
+    loss, acc = float(loss), float(acc)
+    del params, grads
+    t0 = time.perf_counter()
+    per_rank = spawn_ranks(dp_parity_rank, world, (cfg, seed, _host_batch(batch)),
+                           device=_ranks_device(device), timeout=RANKS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    errs = {}
+    for name, got, ref in zip(names, per_rank[0]["grads"], want):
+        errs[name] = float((torch.from_numpy(got).to(ref.device) - ref).abs().max()
+                           / ref.abs().max())
+    worst = max(errs, key=errs.get)
+    report = {"loss_one_process": loss, "loss_ranks": per_rank[0]["loss"],
+              "loss_rel_err": abs(per_rank[0]["loss"] - loss) / abs(loss),
+              "accuracy": [acc, per_rank[0]["accuracy"]],
+              "eval_accuracy": [eval_acc, per_rank[0]["eval_accuracy"]],
+              "worst_leaf": worst, "worst_leaf_err": errs[worst], "tol": DP_GRAD_TOL}
+    same = all(o["sums"] == per_rank[0]["sums"] and o["loss"] == per_rank[0]["loss"]
+               for o in per_rank)
+    if report["loss_rel_err"] > 1e-5 or abs(per_rank[0]["accuracy"] - acc) > 1e-6 or \
+            abs(per_rank[0]["eval_accuracy"] - eval_acc) > 1e-6 or errs[worst] > DP_GRAD_TOL or \
+            not same:
+        raise AssertionError(f"data-parallel fp32 parity: {report}, ranks agree: {same}")
+    if any(o["launches"]["all_gather"] != 4 for o in per_rank):   # 2 in the loss, 2 in eval
+        raise AssertionError(f"K10 launches {[o['launches'] for o in per_rank]}")
+    say("dp_parity", world=world, global_batch=int(batch["tokens"].shape[0]),
+        leaves=len(names), ranks_agree=same, wall_s=wall,
+        setup_s_by_rank=[o["setup_s"] for o in per_rank],
+        step_and_eval_s_by_rank=[o["step_and_eval_s"] for o in per_rank], **report)
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -1569,6 +1835,26 @@ def main() -> None:
         phase_train_parity(cfgs[0], clip_np, batch, "cuda",
                            need=("fused_attention_block", "fused_attention_block_bwd",
                                  "fused_mlp_residual"), name="train_parity_fused_mlp")
+
+    phase_k10(results)
+    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")   # phase 9's
+    dp_counts = phase_dp_train("dp_train_vit_b_32", cfgs[0], 0, batch, K10_WORLD, 5,
+                               need=("fused_attention_block", "fused_attention_block_bwd"),
+                               one_process_losses=vit_b_32_default["losses"][:5])
+    counts["all_gather"] = dp_counts["all_gather"]
+    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 11, "cuda")
+    phase_dp_parity(cfgs[0], 0, batch, K10_WORLD)
+    batch = class_balanced_batch(cfg_l, clip_tok, 2, 10, "cuda")
+    del clip_np, cap_np
+    # the same 2 steps in one process: ViT-L/14's loss may rise at this lr, so the
+    # ranks are held to this run and not to a falling loss
+    one_process = phase_train("vit_l_14_b18", cfg_l, convert.init_clip(2, cfg_l), batch, 2,
+                              "cuda")
+    torch.cuda.empty_cache()
+    phase_dp_train("dp_train_vit_l_14", cfg_l, 2, batch, 2, 2,
+                   need=("flash_attention_fwd", "flash_attention_bwd",
+                         "fused_attention_block", "fused_attention_block_bwd"),
+                   one_process_losses=one_process["losses"], must_fall=False)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")}}

@@ -27,9 +27,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_clip(checkpoint: str | None, *, arch: str = "vit_b_32"):
-    """(numpy params tree, CLIPConfig): the .npz that either package writes, or
-    random weights from seed 0 when `checkpoint` is None. The JAX apps' .pt
-    loading (OpenAI/HF state dicts) is not ported."""
+    """(numpy params tree, CLIPConfig): the .npz that either package writes,
+    checked against the shapes of `arch`, or random weights from seed 0 when
+    `checkpoint` is None. The JAX apps' .pt loading (OpenAI/HF state dicts)
+    is not ported."""
     from construction_clip_tpu_torch import convert
     from construction_clip_tpu_torch.core.configs import CLIPConfig
     from construction_clip_tpu_torch.train.checkpoint import load_params_npz
@@ -39,7 +40,7 @@ def load_clip(checkpoint: str | None, *, arch: str = "vit_b_32"):
         return convert.init_clip(0, cfg), cfg
     if not checkpoint.endswith(".npz"):
         raise ValueError(f"{checkpoint}: the port reads .npz CLIP checkpoints only")
-    return load_params_npz(checkpoint), cfg
+    return load_params_npz(checkpoint, convert.init_clip(convert.SHAPES, cfg)), cfg
 
 
 def load_clip_tokenizer(merges_path: str | None, *, expect_vocab: int | None = None):

@@ -8,8 +8,9 @@ parse_coco.py entry point):
 The flags and defaults are apps/parse_corpus.py's, and it writes the same .npz
 keys (embeddings, attributes, captions) for the ClipCap training. --checkpoint
 takes the .npz that either package writes; without one, the weights are random
-from a fixed seed. It runs on --device: `cuda` (the default, in bf16; an error
-where no CUDA device works) or `cpu` (in fp32). Images are read with PIL; on a
+from a fixed seed. It runs on --device: `cuda` (the default; an error where no
+CUDA device works) or `cpu`, in fp32 weights and compute on both, as the JAX
+app (it passes no precision policy). Images are read with PIL; on a
 machine without PIL, call infer/precompute.precompute_corpus with a
 `load_image` of its own.
 """
@@ -46,12 +47,12 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from construction_clip_tpu_torch import convert
-    from construction_clip_tpu_torch.core.precision import policy_from_name
+    from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY
     from construction_clip_tpu_torch.data.schema import load_annotations
     from construction_clip_tpu_torch.infer.precompute import precompute_corpus
 
     device = resolve_device(args.device)
-    policy = policy_from_name("auto", device)
+    policy = DEFAULT_POLICY
     tree, cfg = load_clip(args.checkpoint, arch=args.arch or ARCHES[args.clip_model_type])
     params = convert.to_params(tree, dtype=policy.compute_dtype, device=device).tree()
     tokenizer = load_clip_tokenizer(

@@ -9,8 +9,9 @@ cached sampled (or --greedy) T5 decode -> caption.
 The flags, defaults and output JSON are apps/predict_t5.py's. CLIP and caption
 checkpoints are the .npz files that either package writes; without one, the
 weights are random from a fixed seed. The tokenizer is a `tokenizers` JSON
-file. It runs on --device: `cuda` (the default, in bf16; an error where no
-CUDA device works) or `cpu` (in fp32).
+file. It runs on --device: `cuda` (the default; an error where no CUDA device
+works) or `cpu`, in fp32 weights and compute on both, as the JAX app (it
+passes no precision policy).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from construction_clip_tpu_torch.apps.common import (
     stream_corpus)
 from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, T5Config
 from construction_clip_tpu_torch.core.params import as_tree
-from construction_clip_tpu_torch.core.precision import Policy, policy_from_name
+from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.data.labels import (
     CAPTION_TYPE_PROMPTS, VIOLATION_TYPES, attribute_string)
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch
@@ -126,7 +127,7 @@ def main(argv=None):
     from construction_clip_tpu_torch.train.checkpoint import load_params_npz
 
     device = resolve_device(args.device)
-    policy = policy_from_name("auto", device)
+    policy = DEFAULT_POLICY
     clip_tree, clip_cfg = load_clip(args.clip_checkpoint, arch=args.arch)
     clip_tok = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=clip_cfg.text.vocab_size if args.clip_checkpoint else None)
@@ -135,8 +136,9 @@ def main(argv=None):
                         lm_tok.vocab_size())
     ccfg = ClipCapConfig(prefix_length=args.prefix_length, attribute_length=0,
                          clip_dim=clip_cfg.text.embed_dim, mapper=args.mapping_type)
-    cap_tree = (load_params_npz(args.caption_checkpoint) if args.caption_checkpoint
-                else convert.init_clipcap_t5(0, ccfg, tcfg))
+    cap_tree = (load_params_npz(args.caption_checkpoint,
+                                convert.init_clipcap_t5(convert.SHAPES, ccfg, tcfg))
+                if args.caption_checkpoint else convert.init_clipcap_t5(0, ccfg, tcfg))
     clip_params = convert.to_params(clip_tree, dtype=policy.compute_dtype, device=device)
     cap_params = convert.to_params(cap_tree, dtype=policy.compute_dtype, device=device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

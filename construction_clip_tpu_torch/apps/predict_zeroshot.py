@@ -6,8 +6,9 @@ plot (the port's counterpart of apps/predict_zeroshot.py):
 
 The flags, defaults and output JSON are apps/predict_zeroshot.py's. --checkpoint
 takes the .npz that either package writes; without one, the weights are random
-from a fixed seed. It runs on --device: `cuda` (the default, in bf16; an error
-where no CUDA device works) or `cpu` (in fp32). Images are read with PIL and
+from a fixed seed. It runs on --device: `cuda` (the default; an error where no
+CUDA device works) or `cpu`, in fp32 weights and compute on both, as the JAX
+app (it passes no precision policy). Images are read with PIL and
 staged at 256x256 on the host; on a machine without PIL, drive `make_process`
 with uint8 arrays.
 """
@@ -23,7 +24,7 @@ import torch
 from construction_clip_tpu_torch.apps.common import (
     add_device_flag, load_clip, load_clip_tokenizer, resolve_device, stream_corpus)
 from construction_clip_tpu_torch.core.configs import CLIPConfig
-from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy, policy_from_name
+from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.data.labels import (
     CAPTION_TYPE_PROMPTS, CAPTION_TYPES, VIOLATION_TYPES)
 from construction_clip_tpu_torch.data.preprocess import preprocess_batch
@@ -89,7 +90,7 @@ def main(argv=None):
     from construction_clip_tpu_torch.infer.zeroshot import label_features
 
     device = resolve_device(args.device)
-    policy = policy_from_name("auto", device)
+    policy = DEFAULT_POLICY
     tree, cfg = load_clip(args.checkpoint, arch=args.arch)
     params = convert.to_params(tree, dtype=policy.compute_dtype, device=device).tree()
     tokenizer = load_clip_tokenizer(

@@ -69,10 +69,11 @@ def build_service(args, clip_tok, lm_tok, device):
                          attribute_length=args.attribute_length, mapper=args.mapping_type,
                          clip_dim=clip_cfg.text.embed_dim)
     gcfg = GPT2Config() if args.arch != "tiny" else GPT2Config.tiny()
-    clip_tree = (load_params_npz(args.clip_checkpoint) if args.clip_checkpoint
-                 else convert.init_clip(0, clip_cfg))
-    cap_tree = (load_params_npz(args.caption_checkpoint) if args.caption_checkpoint
-                else convert.init_clipcap(1, ccfg, gcfg))
+    clip_tree = (load_params_npz(args.clip_checkpoint, convert.init_clip(convert.SHAPES, clip_cfg))
+                 if args.clip_checkpoint else convert.init_clip(0, clip_cfg))
+    cap_tree = (load_params_npz(args.caption_checkpoint,
+                                convert.init_clipcap(convert.SHAPES, ccfg, gcfg))
+                if args.caption_checkpoint else convert.init_clipcap(1, ccfg, gcfg))
     clip_params = as_tree(convert.to_params(clip_tree, device=device))
     cap_params = as_tree(convert.to_params(cap_tree, device=device))
     if args.int8:

@@ -1,8 +1,10 @@
-"""Contrastive CLIP fine-tune on class-balanced N-way pairs, on one device (the
-port's counterpart of apps/train_clip.py):
+"""Contrastive CLIP fine-tune on class-balanced N-way pairs (the port's
+counterpart of apps/train_clip.py), on one device or data-parallel:
 
     python -m construction_clip_tpu_torch.apps.train_clip --json_path all.json \\
         --image_path images/ --arch vit_b_32 --groups_per_batch 4
+    torchrun --nproc_per_node 4 -m construction_clip_tpu_torch.apps.train_clip \\
+        --json_path all.json --image_path images/ --groups_per_batch 4
 
 Same flags and defaults as apps/train_clip.py, except that --resume names a
 checkpoint directory of this package (train/checkpoint.py), --checkpoint takes
@@ -12,6 +14,17 @@ or `cpu`; each step runs the port's kernels on the card (train/contrastive.py). 
 resumable unit: `<output_dir>/<prefix>_comb<N>/step_<epoch>.pt`, and a rerun
 resumes from the latest. At the end it writes `<prefix>_latest.npz`, which the
 JAX package's apps read as a CLIP checkpoint.
+
+Under `torchrun` (WORLD_SIZE > 1) every rank trains a replica on
+cuda:LOCAL_RANK (or on the CPU with --device cpu): each decodes its own rows
+of the global batch of --groups_per_batch groups, the loss is the global
+batch's InfoNCE (the features all-gathered by K10), the gradients go through
+NCCL (gloo on the CPU) and barriers through gloo, and rank 0 alone prints,
+logs and writes the checkpoints. Where the JAX app trains on the largest
+number of chips that divides the step batch (groups_per_batch *
+combination_num) and notes the rest unused, a torchrun world cannot drop
+ranks: a world that does not divide the step batch is an error, and so is a
+world larger than the number of CUDA devices (a card is never shared).
 """
 
 from __future__ import annotations
@@ -57,11 +70,40 @@ def main(argv=None):
     args = parse_args(argv)
     if args.native_loader:
         raise SystemExit("--native_loader is not ported to construction_clip_tpu_torch")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return train(args)
+    dp = join_world(args.device, world)
+    try:
+        train(args, dp)
+    finally:
+        dp.close()
 
+
+def join_world(device_flag: str, world: int):
+    """This process's DataParallel in a torchrun world of `world` ranks, on
+    cuda:LOCAL_RANK (--device cuda) or the CPU (--device cpu)."""
+    import torch
+
+    from construction_clip_tpu_torch.core.mesh import init_data_parallel
+
+    device = resolve_device(device_flag)
+    if device.type == "cuda":
+        if world > torch.cuda.device_count():
+            raise RuntimeError(f"WORLD_SIZE {world} exceeds the {torch.cuda.device_count()} "
+                               "CUDA devices: each rank needs a card of its own")
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return init_data_parallel(device=device)
+
+
+def train(args, dp=None):
+    """The training run of parsed `args`, data-parallel over `dp` (a
+    core/mesh.DataParallel) when given."""
     import numpy as np
     import torch
 
     from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.core.mesh import replicate
     from construction_clip_tpu_torch.core.precision import policy_from_name
     from construction_clip_tpu_torch.data.datasets import PairGroupDataset
     from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
@@ -74,14 +116,23 @@ def main(argv=None):
     from construction_clip_tpu_torch.train.resilience import StepWatchdog, run_resilient
     from construction_clip_tpu_torch.train.state import TrainState, make_adamw
 
-    device = resolve_device(args.device)
+    device = dp.device if dp is not None else resolve_device(args.device)
+    world = dp.world if dp is not None else 1
+    main_rank = dp is None or dp.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    step_batch = args.groups_per_batch * args.combination_num
+    if step_batch % world:
+        raise ValueError(f"step batch {step_batch} (--groups_per_batch x --combination_num) "
+                         f"must be divisible by the {world} ranks (raise --groups_per_batch)")
     tree, cfg = load_clip(args.checkpoint, arch=args.arch)
     params = convert.to_params(tree, device=device, trainable=True)
+    if dp is not None:
+        replicate(dp, params)
     tokenizer = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=cfg.text.vocab_size if args.checkpoint else None)
-    policy = policy_from_name(args.precision, device)
+    policy = policy_from_name(args.precision)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device: {device} ({name})")
+    say(f"device: {device} ({name}), {world} data-parallel rank(s)")
 
     def dataset(split):
         return PairGroupDataset(args.json_path, key=args.key, split=split,
@@ -91,22 +142,27 @@ def main(argv=None):
     def make_loader(ds):
         return TorchImageTextLoader(
             ds, lambda texts: tokenizer.tokenize(texts, cfg.text.context_length),
-            batch_size=args.groups_per_batch, device=device,
+            batch_size=args.groups_per_batch, device=device, dp=dp,
             load_image=lambda f: default_load_image(os.path.join(args.image_path, f)))
 
     train_loader, test_loader = make_loader(dataset("train")), make_loader(dataset("test"))
     tx = make_adamw(args.lr, warmup_steps=args.warmup_steps,
                     total_steps=args.epochs * max(len(train_loader), 1))
-    step_fn = make_train_step(cfg, tx, policy=policy, device=device)
-    eval_fn = make_eval_step(cfg, policy=policy, device=device)
+    step_fn = make_train_step(cfg, tx, policy=policy, device=device, dp=dp)
+    eval_fn = make_eval_step(cfg, policy=policy, device=device, dp=dp)
 
     state = TrainState.create(params, tx)
     if args.resume and latest_step(args.resume) is not None:
         state = restore_state(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step}")
+        say(f"resumed from {args.resume} at step {state.step}")
 
     run_name = f"{args.output_prefix}_comb{args.combination_num}"
-    logger = MetricLogger(args.log_dir, run_name)
+    logger = MetricLogger(args.log_dir, run_name) if main_rank else None
+
+    def log(step, **metrics):
+        if logger is not None:
+            logger.log(step, **metrics)
+
     timer = StepTimer()
     size = cfg.vision.image_size
     os.makedirs(args.output_dir, exist_ok=True)
@@ -123,29 +179,30 @@ def main(argv=None):
                 watchdog.tick()
                 if state.step % 10 == 0:
                     loss, acc = float(m["loss"]), float(m["accuracy"])
-                    logger.log(state.step, loss=loss, accuracy=acc, step_time=timer.mean)
-                    print(f"epoch {epoch} step {state.step} loss {loss:.4f} acc {acc:.3f} "
-                          f"{timer.mean * 1e3:.0f} ms/step")
+                    log(state.step, loss=loss, accuracy=acc, step_time=timer.mean)
+                    say(f"epoch {epoch} step {state.step} loss {loss:.4f} acc {acc:.3f} "
+                        f"{timer.mean * 1e3:.0f} ms/step")
             if m is None:
                 raise RuntimeError(
                     f"epoch {epoch} ran zero steps — dataset produced no groups "
                     f"(need >= {args.combination_num} distinct --key classes)")
-            logger.log(state.step, loss=float(m["loss"]), accuracy=float(m["accuracy"]),
-                       step_time=timer.mean)
+            log(state.step, loss=float(m["loss"]), accuracy=float(m["accuracy"]),
+                step_time=timer.mean)
             if (epoch + 1) % args.save_every == 0:
                 accs = [float(eval_fn(state.params, {"images": images(b),
                                                      "tokens": b["tokens"]}))
                         for b in test_loader]
-                logger.log(state.step, test_accuracy=float(np.mean(accs)) if accs else 0.0)
+                log(state.step, test_accuracy=float(np.mean(accs)) if accs else 0.0)
             return state
 
         state = run_resilient(train_epoch, state, epochs=args.epochs,
                               checkpoint_dir=os.path.join(args.output_dir, run_name),
-                              save_every_epochs=args.save_every)
+                              save_every_epochs=args.save_every, dp=dp)
     npz_path = os.path.join(args.output_dir, f"{args.output_prefix}_latest.npz")
-    save_params_npz(npz_path, state.params)
-    print(f"saved inference params {npz_path}")
-    logger.close()
+    save_params_npz(npz_path, state.params, dp=dp)
+    say(f"saved inference params {npz_path}")
+    if logger is not None:
+        logger.close()
 
 
 if __name__ == "__main__":

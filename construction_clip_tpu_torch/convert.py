@@ -18,7 +18,10 @@ JAX quantizers' bits on the same weights.
 random trees at the JAX initialisers' shapes and scales from a numpy seed, for
 machines without JAX.
 They draw other numbers than jax.random: for parity with the JAX package, make
-the tree there and copy it with `to_params`.
+the tree there and copy it with `to_params`. Given `SHAPES` for the seed, they
+draw nothing and return the tree's shapes and dtypes alone (zero-stride views
+of one zero), the template that `train/checkpoint.load_params_npz` checks a
+file against.
 """
 
 from __future__ import annotations
@@ -59,7 +62,23 @@ def to_params(tree, *, dtype=None, device=None, trainable: bool = False) -> Para
     return ParamTree(convert(tree, dtype), trainable=trainable)
 
 
+class _Shapes:
+    """The seed that asks an init_* for its tree's shapes alone (`SHAPES`)."""
+
+    def __add__(self, other):   # init_clipcap seeds GPT-2 with seed + 1
+        return self
+
+
+SHAPES = _Shapes()
+
+
+def _rng(seed):
+    return seed if isinstance(seed, _Shapes) else np.random.default_rng(seed)
+
+
 def _normal(rng, shape, std, dtype):
+    if isinstance(rng, _Shapes):
+        return np.broadcast_to(np.zeros((), dtype), shape)
     return (rng.standard_normal(shape, dtype=np.float32) * np.float32(std)).astype(dtype)
 
 
@@ -70,6 +89,8 @@ def _ln(width, dtype):
 def _stack(blocks):
     if isinstance(blocks[0], dict):
         return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    if blocks[0].ndim and not any(blocks[0].strides):   # SHAPES' views stay views
+        return np.broadcast_to(blocks[0], (len(blocks),) + blocks[0].shape)
     return np.stack(blocks)
 
 
@@ -96,7 +117,7 @@ def _stack_init(rng, layers, width, mlp_ratio=4.0, dtype=np.float32):
 
 def init_clip(seed: int, cfg: CLIPConfig, dtype=np.float32) -> dict:
     """Numpy tree at construction_clip_tpu.models.clip.init_clip's shapes/scales."""
-    rng = np.random.default_rng(seed)
+    rng = _rng(seed)
     v, t = cfg.vision, cfg.text
     vs = v.width ** -0.5
     vision = {
@@ -121,7 +142,7 @@ def init_clip(seed: int, cfg: CLIPConfig, dtype=np.float32) -> dict:
 
 def init_gpt2(seed: int, cfg: GPT2Config, dtype=np.float32) -> dict:
     """Numpy tree at construction_clip_tpu.models.gpt2.init_gpt2's shapes/scales."""
-    rng = np.random.default_rng(seed)
+    rng = _rng(seed)
     d, h = cfg.n_embd, 4 * cfg.n_embd
 
     def block():
@@ -151,7 +172,7 @@ def init_mapper(seed: int, ccfg: ClipCapConfig, gcfg: GPT2Config, dtype=np.float
     shapes/scales."""
     if ccfg.mapper != "mlp":
         raise NotImplementedError(f"mapper {ccfg.mapper!r} is not ported yet (only 'mlp')")
-    rng = np.random.default_rng(seed)
+    rng = _rng(seed)
     hidden = (gcfg.n_embd * ccfg.prefix_length) // 2
     out = gcfg.n_embd * ccfg.prefix_length
     return {"w1": _normal(rng, (ccfg.clip_dim, hidden), ccfg.clip_dim ** -0.5, dtype),
@@ -169,7 +190,7 @@ def init_clipcap(seed: int, ccfg: ClipCapConfig, gcfg: GPT2Config, dtype=np.floa
 
 def init_t5(seed: int, cfg: T5Config, dtype=np.float32) -> dict:
     """Numpy tree at construction_clip_tpu.models.t5.init_t5's shapes/scales."""
-    rng = np.random.default_rng(seed)
+    rng = _rng(seed)
     d, inner = cfg.d_model, cfg.num_heads * cfg.d_kv
 
     def attn():

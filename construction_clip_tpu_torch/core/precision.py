@@ -42,10 +42,6 @@ DEFAULT_POLICY = Policy()
 BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
 
 
-def policy_from_name(name: str, device) -> Policy:
-    """'auto' is bf16 on a CUDA `device` and fp32 on the CPU (the parity
-    runs): it follows the device asked for."""
-    if name == "auto":
-        return BF16_POLICY if torch.device(device).type == "cuda" else DEFAULT_POLICY
+def policy_from_name(name: str) -> Policy:
     return {"float32": DEFAULT_POLICY, "fp32": DEFAULT_POLICY,
             "bfloat16": BF16_POLICY, "bf16": BF16_POLICY}[name]

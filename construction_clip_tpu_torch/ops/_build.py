@@ -56,6 +56,16 @@ SIGNATURES = {
     "cct_mlp_residual": ([_I] + [_P] * 9 + [_I] * 3 + [_F, _P], _I),
     # out_dtype, in, out, n, scale, mean[3], inv_std[3], stream
     "cct_normalize_u8": ([_I, _P, _P, _L] + [_F] * 7 + [_P], _I),
+    # K10's staging buffers: bytes, &ptr / ptr / ptr, handle[64] / handle[64], &ptr /
+    # ptr / slot, src, bytes, stream
+    "cct_peer_alloc": ([_L, ctypes.POINTER(_P)], _I),
+    "cct_peer_free": ([_P], _I),
+    "cct_peer_handle": ([_P, _P], _I),
+    "cct_peer_open": ([_P, ctypes.POINTER(_P)], _I),
+    "cct_peer_close": ([_P], _I),
+    "cct_peer_put": ([_P, _P, _L, _P], _I),
+    # slots, slot_offset, out, chunk_bytes, ranks, stream
+    "cct_all_gather": ([_P, _L, _P, _L, _I, _P], _I),
     "cct_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -5,7 +5,12 @@ A checkpoint is the whole TrainState (step, params, optimizer state) in one
 so a crash never leaves a torn latest checkpoint. `save_params_npz` writes the
 inference artifact with the JAX package's flat keys ("vision/blocks/ln_1/scale"),
 so that package's `load_params_npz` and `apps/predict.py` read what the port
-trains.
+trains; `load_params_npz` reads it back against a template, as that
+package's does.
+
+Data-parallel (`dp`, core/mesh.py), the replicas are equal, so only rank 0
+writes, and every rank waits at a barrier until the file is there; every
+rank restores from it.
 """
 
 from __future__ import annotations
@@ -35,10 +40,16 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def save_state(directory: str, state: TrainState, *, step: Optional[int] = None,
-               max_to_keep: int = 5) -> int:
+               max_to_keep: int = 5, dp=None) -> int:
     """Save a TrainState under `step` (its own step when None), keeping the
-    newest `max_to_keep`. Returns the step used."""
+    newest `max_to_keep`. Returns the step used. With `dp`, rank 0 writes and
+    every rank leaves once it has."""
     step = state.step if step is None else int(step)
+    if dp is not None:
+        if dp.rank == 0:
+            save_state(directory, state, step=step, max_to_keep=max_to_keep)
+        dp.barrier()
+        return step
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"step_{step}.pt")
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -86,22 +97,39 @@ def _flat(tree, prefix=""):
             yield name, value
 
 
-def save_params_npz(path: str, params) -> None:
-    """Flat portable dump of the params, keys as the JAX package writes them."""
+def save_params_npz(path: str, params, dp=None) -> None:
+    """Flat portable dump of the params, keys as the JAX package writes them.
+    With `dp`, rank 0 writes and every rank leaves once it has."""
+    if dp is not None:
+        if dp.rank == 0:
+            save_params_npz(path, params)
+        dp.barrier()
+        return
     np.savez(path, **{k: v.detach().float().cpu().numpy() if v.is_floating_point()
                       else v.detach().cpu().numpy()
                       for k, v in _flat(as_tree(params))})
 
 
-def load_params_npz(path: str) -> dict:
-    """The nested dict of numpy arrays that `save_params_npz` (of either package)
-    wrote; `convert.to_params` makes it a ParamTree."""
-    tree: dict = {}
+def load_params_npz(path: str, template) -> dict:
+    """The params that `save_params_npz` (of either package) wrote, as a
+    nested dict of numpy arrays in the structure of `template` (a tree of the
+    config's `convert.init_*`, `convert.SHAPES` for its shapes alone), each
+    leaf cast to the template's dtype; `convert.to_params` makes it a
+    ParamTree. A key the file lacks, or a leaf of another shape, is an error
+    that names the key."""
     with np.load(path, allow_pickle=False) as data:
-        for key in data.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
-    return tree
+        def load(key, want):
+            if key not in data.files:
+                raise KeyError(f"{path}: no parameter {key!r} (another architecture "
+                               f"or config?)")
+            arr = data[key]
+            if arr.shape != want.shape:
+                raise ValueError(f"{path}: parameter {key!r} has shape {arr.shape}, the "
+                                 f"config wants {want.shape}")
+            return arr.astype(want.dtype)
+
+        def walk(node, prefix):
+            return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict) else
+                    load(f"{prefix}{k}", np.asarray(v)) for k, v in node.items()}
+
+        return walk(template, "")

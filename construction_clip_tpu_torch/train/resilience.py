@@ -8,7 +8,10 @@ retries (bounded). AdamW updates the params and moments in place, so a state
 caught in the middle of an epoch is neither the state before it nor after it:
 only states at epoch boundaries are ever saved, and the one before the first
 epoch is saved too, so that a failure before the first periodic snapshot has a
-state to return to.
+state to return to. Data-parallel (`dp`), rank 0 writes the snapshots and
+every rank restores from them (train/checkpoint.py); a rank whose epoch
+raises while the others go on leaves them waiting in the step's next
+collective, which the watchdog reports as a stall.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ class StepWatchdog:
 
 def run_resilient(train_epoch: Callable, state, *, epochs: int, checkpoint_dir: str,
                   save_every_epochs: int = 1, max_retries: int = 3,
-                  on_retry: Optional[Callable[[int, Exception], None]] = None):
+                  on_retry: Optional[Callable[[int, Exception], None]] = None, dp=None):
     """Run `train_epoch(state, epoch) -> state` for `epochs`, checkpointing the
     state before the first epoch, every `save_every_epochs` and after the last;
     on exception, restore the latest checkpoint and retry (up to max_retries
@@ -75,8 +78,10 @@ def run_resilient(train_epoch: Callable, state, *, epochs: int, checkpoint_dir: 
     A KeyboardInterrupt saves nothing (the state is mid-epoch) and propagates.
     Returns the final state."""
     start_epoch = latest_step(checkpoint_dir)
+    if dp is not None:
+        dp.barrier()   # every rank has looked before rank 0 writes step 0
     if start_epoch is None:
-        start_epoch = save_state(checkpoint_dir, state, step=0)
+        start_epoch = save_state(checkpoint_dir, state, step=0, dp=dp)
     else:
         state = restore_state(checkpoint_dir, state)
         print(f"[resilience] resumed from epoch {start_epoch}")
@@ -88,7 +93,7 @@ def run_resilient(train_epoch: Callable, state, *, epochs: int, checkpoint_dir: 
             state = train_epoch(state, epoch)
             retries = 0
             if (epoch + 1) % save_every_epochs == 0 or epoch == epochs - 1:
-                save_state(checkpoint_dir, state, step=epoch + 1)
+                save_state(checkpoint_dir, state, step=epoch + 1, dp=dp)
             epoch += 1
         except Exception as e:  # noqa: BLE001 — deliberate: retry any epoch failure
             retries += 1

@@ -9,6 +9,7 @@ the build module and the wrappers' dispatch on the CPU."""
 
 import os
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import attention_block_int8 as fab8
+from construction_clip_tpu_torch.ops import collectives as coll
 from construction_clip_tpu_torch.ops import decode_attention as dec
 from construction_clip_tpu_torch.ops import flash_attention as fa
 from construction_clip_tpu_torch.ops import mlp
@@ -37,7 +39,7 @@ def test_nvcc_command_targets_hopper():
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-O3" in cmd
         sources |= {os.path.basename(c) for c in cmd if c.endswith(".cu")}
         assert _build.library_path(src).name.startswith(f"libcct_{src.stem}_")
-    assert sources == {"attention_block.cu", "attention_block_bwd.cu",
+    assert sources == {"all_gather.cu", "attention_block.cu", "attention_block_bwd.cu",
                        "attention_block_int8.cu", "decode_attention.cu", "flash_attention.cu",
                        "mlp_residual.cu", "normalize_u8.cu", "vocab_head.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
@@ -489,3 +491,81 @@ def test_normalize_u8_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         norm.normalize_u8(u8, out_dtype=torch.float16, **kw)
     assert norm.normalize_u8.launches == before
+
+
+# K10: [9, 512] is the ViT-B/32 path's feature chunk (9 rows a rank); 13 and 515
+# columns give chunks that are no multiple of 16 bytes (the kernel then copies
+# in 4- or 2-byte units)
+K10_CASES = (((9, 512), torch.float32), ((9, 512), torch.bfloat16), ((9, 768), torch.float32),
+             ((9, 13), torch.float32), ((9, 13), torch.bfloat16), ((9, 515), torch.float32),
+             ((9, 515), torch.bfloat16))
+
+
+def _k10_rows(shape, rank, dtype, device):
+    """Integers (exact in bf16 below 256) that name the rank."""
+    n = shape[0] * shape[1]
+    vals = (torch.arange(n) % 97 + 100 * rank).float().reshape(shape)
+    return vals.to(device, dtype)
+
+
+def _k10_rank(dp, cases):
+    """K10 against its plain version for each case; then a chunk above the
+    slot; then the autograd gather's backward."""
+    from construction_clip_tpu_torch.parallel.infonce import _GatherRows
+
+    equal = []
+    for shape, dtype in cases:
+        x = _k10_rows(shape, dp.rank, dtype, dp.device)
+        before = coll.all_gather.launches
+        got = coll.all_gather(x, dp)
+        torch.cuda.synchronize()
+        equal.append(bool(torch.equal(got, coll.all_gather_plain(x, dp)))
+                     and coll.all_gather.launches == before + 1)
+    too_big = torch.zeros((dp.peers.capacity // 4 + 1, 1), device=dp.device)
+    try:
+        coll.all_gather(too_big, dp)
+        refused = False
+    except ValueError as e:
+        refused = "exceeds" in str(e)
+    # rank r weights the gathered rows by w_r; rank p's gradient is the sum
+    # over r of w_r's rows of rank p (integers: the sums are exact)
+    shape = (3, 5)
+    x = _k10_rows(shape, dp.rank, torch.float32, dp.device).requires_grad_()
+
+    def weights(r):
+        return _k10_rows((dp.world * shape[0], shape[1]), r, torch.float32, dp.device) - 50
+
+    (_GatherRows.apply(x, dp) * weights(dp.rank)).sum().backward()
+    rows = slice(dp.rank * shape[0], (dp.rank + 1) * shape[0])
+    want = sum(weights(r)[rows] for r in range(dp.world))
+    return equal, refused, bool(torch.equal(x.grad, want))
+
+
+@pytest.mark.cuda
+def test_all_gather_kernel_on_card(cuda_device):
+    """K10 with 2 ranks sharing the card (CUDA IPC between two processes):
+    bit-equal to its plain version at each case, one launch a call; a chunk
+    above the slot's capacity raises before any rank waits; the autograd
+    gather's backward gives the reduce-scattered gradient."""
+    from construction_clip_tpu_torch.core.mesh import spawn_ranks
+
+    _build.load_library()   # built once here, loaded by the ranks
+    results = spawn_ranks(_k10_rank, 2, (K10_CASES,), device="cuda:0", timeout=120)
+    for equal, refused, grad_ok in results:
+        assert equal == [True] * len(K10_CASES)
+        assert refused and grad_ok
+
+
+def test_all_gather_needs_peer_buffers_on_card():
+    """On a CUDA tensor the wrapper launches K10 or raises: without the
+    ranks' PeerBuffers it raises (checked with a stand-in whose device is
+    cuda, so no card is needed)."""
+    class FakeCuda:
+        device = torch.device("cuda")
+
+        def dim(self):
+            return 2
+
+    dp = types.SimpleNamespace(peers=None, world=2, rank=0)
+    with pytest.raises(RuntimeError, match="PeerBuffers"):
+        coll.all_gather(FakeCuda(), dp)

@@ -112,9 +112,10 @@ def test_policy_casts_floating_leaves_only():
 
 
 def test_policy_from_name():
-    assert policy_from_name("fp32", "cpu") is DEFAULT_POLICY
-    assert policy_from_name("bf16", "cpu") is BF16_POLICY
-    # "auto" follows the device asked for, not the one this machine has
-    assert policy_from_name("auto", "cpu") is DEFAULT_POLICY
-    assert policy_from_name("auto", torch.device("cuda")) is BF16_POLICY
+    assert policy_from_name("fp32") is DEFAULT_POLICY
+    assert policy_from_name("float32") is DEFAULT_POLICY
+    assert policy_from_name("bf16") is BF16_POLICY
+    assert policy_from_name("bfloat16") is BF16_POLICY
+    with pytest.raises(KeyError):   # no device-dependent choice: the caller names it
+        policy_from_name("auto")
     assert torch.backends.cuda.matmul.allow_tf32 is False

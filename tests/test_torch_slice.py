@@ -242,6 +242,15 @@ with tempfile.TemporaryDirectory() as d:
 with resilience.StepWatchdog(timeout=60.0) as watchdog:
     watchdog.tick()
 
+# the data-parallel slice: its modules, and two spawned ranks taking their rows
+from construction_clip_tpu_torch.core import mesh
+from construction_clip_tpu_torch.ops import collectives
+from construction_clip_tpu_torch.parallel import infonce
+
+rows = mesh.spawn_ranks(mesh.shard_batch, 2, ({"x": np.arange(4)},), device="cpu",
+                       timeout=60)
+assert [r["x"].tolist() for r in rows] == [[0, 1], [2, 3]], rows
+
 # the mT5 slice: the app's batch function on the tiny CLIP above and a tiny T5
 from construction_clip_tpu_torch.apps import predict_t5
 from construction_clip_tpu_torch.core.configs import T5Config

@@ -209,7 +209,7 @@ def test_npz_is_read_by_the_jax_package(tmp_path):
     template = init_clip(jax.random.key(0), JCLIPConfig.tiny())
     loaded = jckpt.load_params_npz(path, template)
     _tree_close(as_tree(params), _np_tree(loaded), rtol=0, atol=0)
-    back = checkpoint.load_params_npz(path)
+    back = checkpoint.load_params_npz(path, convert.init_clip(convert.SHAPES, cfg))
     _tree_close(convert.to_params(back).tree(), _np_tree(loaded), rtol=0, atol=0)
 
 
