@@ -17,12 +17,19 @@ Phases, each printing one line (the last line is the JSON verdict):
   7. K3, the fused block's backward, against its plain version at the training
      path's shapes, bf16 and fp32, with times.
   8. K4 and K5, flash attention forward and backward, against their plain
-     versions at the ViT-L/14 image tower's shape and a causal text shape.
+     versions at the ViT-L/14 image tower's shape, a causal text shape, T=1024
+     causal and T=65, bf16 on the tensor-core route and fp32 on the SIMT
+     route (each route's launch counter must move); the tensor-core
+     instructions (HGMMA/HMMA) and registers of each K4/K5 kernel in the built
+     library; the wrapper times and, for bf16, the device times (CUDA-graph
+     replays) of K4, K5 and scaled_dot_product_attention's forward and
+     backward, and of each of K5's three launches (torch.profiler).
   9. ViT-B/32 contrastive training at full width and depth, bf16, B=36 (4
      class-balanced groups of 9): 10 make_train_step steps on one batch; the
      loss must fall; launch counts of K1 and K3.
  10. ViT-L/14 contrastive training at full width and depth, bf16, B=9, 3 steps;
-     K4 and K5 launch from the image tower, K1 and K3 from the text tower.
+     K4 and K5 launch from the image tower, every launch on the tensor-core
+     route, K1 and K3 from the text tower; the median step time.
  11. the kernel path against the plain path in fp32: loss and every gradient
      leaf over 2 ViT-B/32 steps from the same params.
  12. K8, the vocab-head GEMV, against its plain version at mT5-small's head
@@ -96,6 +103,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -175,7 +183,9 @@ K3_SHAPES = ((36, 50, 768, 12, False),   # ViT-B/32 image tower, 4 groups of 9
 # ds that another order can flip (one bf16 step is 2^-8)
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 FLASH_SHAPES = ((9, 16, 257, 64, False),   # ViT-L/14 image tower, B=9
-                (9, 12, 77, 64, True))     # a causal text-tower shape
+                (9, 12, 77, 64, True),     # a causal text-tower shape
+                (2, 8, 1024, 64, True),    # the longest T the gate admits, causal
+                (4, 16, 65, 64, False))    # one key alone in the last 64-key tile
 # the forward rounds p to bf16 relative to a running max in K4 and to the
 # final max in the plain version: a bf16 step apart at most
 FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 2e-5)}
@@ -511,6 +521,8 @@ def synthetic_images(rng, shapes):
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in (flash_attention_fwd, flash_attention_bwd):   # K4/K5 by route
+        fn.tc_launches = fn.simt_launches = 0
 
 
 def launches() -> dict:
@@ -723,8 +735,96 @@ def sdpa_backward_ms(q, k, v, g, kw) -> float:
     return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 11, 3)
 
 
+def sdpa_backward_device_ms(q, k, v, g, kw, reps: int = 20) -> float:
+    """The device time of scaled_dot_product_attention's backward: `reps`
+    autograd.grad calls captured in one CUDA graph (the forward recorded on the
+    capture stream, so that the backward runs there), its replay timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+        out = sdpa(*leaves, **kw)
+
+        def grad():
+            return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+        for _ in range(3):
+            grad()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            grad()
+    return median_ms(graph.replay, 11, 1) / reps
+
+
+# the tensor-core route's kernels in csrc/flash_attention.cu (forward; the
+# backward's statistics, dq and dk/dv passes)
+TC_KERNELS = ("tc_fwd", "tc_stats", "tc_dq", "tc_dkv")
+
+
+def tensor_core_counts(source: str) -> dict:
+    """{kernel: {"HGMMA": n, "HMMA": n, "registers": n}}: the tensor-core
+    instructions (wgmma, mma.sync) of each kernel in the built library of
+    `source`, from `cuobjdump -sass`, and its registers a thread, from
+    `cuobjdump -res-usage` (None where that output does not say)."""
+    src = next(p for p in _build.sources() if p.name == source)
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, str(_build.library_path(src))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+
+    counts, kernel = {}, None
+    for line in dump("-sass").splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            kernel = found.group(1)
+            counts[kernel] = {"HGMMA": 0, "HMMA": 0, "registers": None}
+        elif kernel:
+            for name in ("HGMMA", "HMMA"):
+                counts[kernel][name] += name in line
+    kernel = None
+    for line in dump("-res-usage").splitlines():
+        found = re.search(r"Function (\S+?):", line)
+        if found:
+            kernel = found.group(1)
+        elif kernel in counts and "REG:" in line:
+            counts[kernel]["registers"] = int(re.search(r"REG:(\d+)", line).group(1))
+    return counts
+
+
+def k5_pass_device_ms(bwd, reps: int = 20) -> dict:
+    """Device ms a call of each of K5's three tensor-core launches, summed
+    under torch.profiler over `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bwd()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    per = {name: sum(e.self_device_time_total for e in events if f"::{name}(" in e.key)
+           / reps / 1e3 for name in TC_KERNELS[1:]}
+    if min(per.values()) <= 0:
+        raise AssertionError(f"torch.profiler saw no device time for a pass of K5: {per}")
+    return per
+
+
+def phase_tensor_cores() -> None:
+    counts = tensor_core_counts("flash_attention.cu")
+    say("k4_k5_tensor_core_instructions", counts=counts)
+    for name in TC_KERNELS:
+        got = [c["HGMMA"] + c["HMMA"] for k, c in counts.items() if name in k]
+        if len(got) != 1 or got[0] <= 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in the build: {counts}")
+
+
 def phase_flash(results: dict) -> None:
     rng = np.random.default_rng(8)
+    phase_tensor_cores()
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, t, dh, causal in FLASH_SHAPES:
             q, k, v, g = (torch.from_numpy(rng.standard_normal((b, h, t, dh))
@@ -745,26 +845,38 @@ def phase_flash(results: dict) -> None:
             def bwd_plain():
                 return flash_attention_bwd_plain(q, k, v, g, **kw)
 
+            route = "tc_launches" if dtype == torch.bfloat16 else "simt_launches"
+            before = (getattr(flash_attention_fwd, route), getattr(flash_attention_bwd, route))
             got = fwd()
             torch.cuda.synchronize()
             f_stats = compare(got, fwd_plain(), *FLASH_TOL[dtype], what=f"K4 {what}")
             f_stats.update(ms=median_ms(fwd, 11, 5), plain_ms=median_ms(fwd_plain, 11, 5))
-            say("k4", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), **f_stats)
             got = bwd()
             torch.cuda.synchronize()
+            if (getattr(flash_attention_fwd, route) == before[0] or
+                    getattr(flash_attention_bwd, route) == before[1]):
+                raise AssertionError(f"K4/K5 {what}: no launch counted on {route}")
             per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"K5 {what} {n}")
                    for n, a, w in zip(("dq", "dk", "dv"), got, bwd_plain())}
             b_stats = _merge(per)
             b_stats.update(ms=median_ms(bwd, 11, 3), plain_ms=median_ms(bwd_plain, 11, 3))
-            say("k5", shape=[b, h, t, dh], causal=causal, dtype=str(dtype),
+            if dtype == torch.bfloat16:   # device times, the host's launch costs left out
+                f_stats.update(device_ms=graph_ms(fwd),
+                               library_ms=median_ms(lambda: sdpa(q, k, v, **kw), 11, 5),
+                               library_device_ms=graph_ms(lambda: sdpa(q, k, v, **kw)))
+                b_stats.update(device_ms=graph_ms(bwd), pass_device_ms=k5_pass_device_ms(bwd),
+                               library_ms=sdpa_backward_ms(q, k, v, g, kw),
+                               library_device_ms=sdpa_backward_device_ms(q, k, v, g, kw))
+            say("k4", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), route=route,
+                **f_stats)
+            say("k5", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), route=route,
                 scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **b_stats)
             if (b, h, t, dh) == FLASH_SHAPES[0][:4] and dtype == torch.bfloat16:
-                f_stats.update(bound(nbytes(q, k, v, q), {dtype: attention_ops(b, h, t, dh, 2)}),
-                               library_ms=median_ms(lambda: sdpa(q, k, v, **kw), 11, 5))
-                # the backward recomputes s and o, then dp, dv, dq and dk
+                f_stats.update(bound(nbytes(q, k, v, q), {dtype: attention_ops(b, h, t, dh, 2)}))
+                # the function's products: s, then dp, dv, dq and dk (the
+                # Pallas kernel's cost estimate, 10 T^2 dh a head)
                 b_stats.update(bound(nbytes(q, k, v, g, *got),
-                                     {dtype: attention_ops(b, h, t, dh, 6)}),
-                               library_ms=sdpa_backward_ms(q, k, v, g, kw))
+                                     {dtype: attention_ops(b, h, t, dh, 5)}))
                 results["flash_attention_fwd"] = f_stats
                 results["flash_attention_bwd"] = b_stats
 
@@ -1796,6 +1908,13 @@ def main() -> None:
     if min(out["launches"][n] for n in train_kernels) <= 0:
         raise AssertionError(f"a kernel of ViT-L/14 training never launched: "
                              f"{out['launches']}")
+    tc = {"flash_attention_fwd": flash_attention_fwd.tc_launches,
+          "flash_attention_bwd": flash_attention_bwd.tc_launches}
+    if any(tc[n] != out["launches"][n] for n in tc):
+        raise AssertionError(f"ViT-L/14 bf16: K4/K5 launches off the tensor-core route: "
+                             f"{tc} of {out['launches']}")
+    say("train_vit_l_14_tensor_cores", tc_launches=tc, median_step_ms=out["median_step_ms"],
+        batch=out["batch"])
     counts.update({n: out["launches"][n] for n in ("flash_attention_fwd", "flash_attention_bwd")})
 
     batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")

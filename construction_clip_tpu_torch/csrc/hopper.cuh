@@ -1,0 +1,272 @@
+// Hopper (sm_90a) building blocks in inline PTX, for kernels that run their
+// products on the tensor cores with tiles streamed by the Tensor Memory
+// Accelerator:
+//
+//   mbarrier   init, arrive with an expected byte count, wait on a phase;
+//   TMA        a 3-D tile copy from device memory into shared memory that
+//              completes on an mbarrier (rows past the tensor's end are zero);
+//   wgmma      m64n64k16 bf16 -> fp32 with both operands in shared memory
+//              (ss) or A in registers (rs), its fence / commit / wait, and the
+//              shared-memory descriptor of a 128-byte-swizzled tile.
+//
+// A tile here is 64 rows of 64 bf16 (128 bytes a row), written by a TMA load
+// with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned slot: the layout
+// wgmma reads through a descriptor with the 128-byte swizzle.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the driver's enums (types only: no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cct {
+namespace hopper {
+
+constexpr int kBoxRows = 64;                                       // rows of a tile
+constexpr uint32_t kBoxBytes = kBoxRows * 64 * sizeof(__nv_bfloat16);   // 8 KB
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p (a 128-byte-swizzled tile's
+// alignment); the caller asks for 1024 bytes more than it uses.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ---- mbarrier ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the async proxy (TMA); a __syncthreads
+// follows before any thread uses them.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also tells the barrier to wait for `bytes` from TMA.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase of parity `parity` has completed. A phase
+// that never completes (a copy that was never issued, a wrong byte count) traps
+// after ~2^24 polls, seconds, so that a fault ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// Copies the box at coordinates (c0 innermost, c1, c2) of `map` into dst; the
+// bytes count against `bar`'s expected transaction count.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins an accumulator's registers at this point of the program, so that the
+// compiler moves no read or write of them across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled tile in shared memory (start address,
+// leading and stride byte offsets in 16-byte units, layout 1 = 128B swizzle).
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+// A tile whose rows run along the product's M or N and whose 64 columns are
+// the reduction index (K-major): 8-row groups 1024 bytes apart; a k-step of
+// 16 columns is 32 bytes further (+2 in the descriptor).
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
+  return desc_sw128(tile, 0, 1024);
+}
+// A tile whose rows are the reduction index and whose 64 columns run along N
+// (MN-major, read with the transpose bit): one 64-wide swizzle atom in N, 8-row
+// groups 1024 bytes apart; a k-step of 16 rows is 2048 bytes further (+128).
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
+  return desc_sw128(tile, 1024, 1024);
+}
+
+#define CCT_WGMMA_D32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define CCT_D8(i)                                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A . B over k = 16, A [64 x 16] and B [16 x 64] in shared memory.
+// accumulate == 0 overwrites d. d's element (row, col) of the warpgroup's
+// [64 x 64] lives in thread 32w + 4g + q (w = row / 16, g = row % 8, q = col % 8
+// / 2) at index 4 (col / 8) + 2 (row % 16 / 8) + col % 2.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CCT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : CCT_D8(0), CCT_D8(8), CCT_D8(16), CCT_D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// The same with A in registers: a[0..3] hold the bf16 pairs of a warp's 16
+// rows as mma.sync's m16n8k16 A fragment (rows g and g + 8, columns 2q, 2q + 1
+// and 2q + 8, 2q + 9 of the k-step).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CCT_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : CCT_D8(0), CCT_D8(8), CCT_D8(16), CCT_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+#undef CCT_D8
+#undef CCT_WGMMA_D32
+
+// Row and column, within the warpgroup's [64 x 64] accumulator, of this
+// thread's element k (0..31).
+__device__ __forceinline__ int acc_row(int k) {
+  return ((threadIdx.x >> 5) << 4) + ((threadIdx.x & 31) >> 2) + (((k >> 1) & 1) << 3);
+}
+__device__ __forceinline__ int acc_col(int k) {
+  return ((k >> 2) << 3) + ((threadIdx.x & 3) << 1) + (k & 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The register A operand of a product whose reduction index is an
+// accumulator's columns: accumulator elements k, k + 1 (k even: columns
+// 8 (k / 4) + 2q and the next, row half (k / 2) % 2) as bf16 in word
+// a_word(k) of the operand, k-step kk in words 4 kk .. 4 kk + 3.
+__device__ __forceinline__ constexpr int a_word(int k) {
+  return 4 * (k >> 3) + 2 * ((k >> 2) & 1) + ((k >> 1) & 1);
+}
+__device__ __forceinline__ void pack_a(const float (&d)[32], uint32_t (&a)[16]) {
+#pragma unroll
+  for (int k = 0; k < 32; k += 2) a[a_word(k)] = pack_bf16(d[k], d[k + 1]);
+}
+
+// d = A . B^T over a reduction of 64: A and B K-major tiles (four k-steps).
+__device__ __forceinline__ void mma_abt(float (&d)[32], const void* a, const void* b) {
+  const uint64_t da = desc_k_major(a), db = desc_k_major(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss<0>(d, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// d += A . B over the first 16 `ksteps` rows of a reduction of 64: A from
+// pack_a, B an MN-major tile. ksteps is the same in every thread.
+__device__ __forceinline__ void mma_rb(float (&d)[32], const uint32_t (&a)[16], const void* b,
+                                       int ksteps) {
+  const uint64_t db = desc_mn_major(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < ksteps) wgmma_m64n64k16_rs<1>(d, &a[4 * kk], db + 128 * kk, 1);
+  }
+}
+
+// Quad reductions: the four threads 4g .. 4g + 3 of a warp share accumulator rows.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- host: TMA descriptors --------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so that the
+// library links against no libcuda; null where the driver lacks it.
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a contiguous bf16 [heads, rows, 64] array in 64 x 64 boxes with
+// the 128-byte swizzle; a box past `rows` reads zeros.
+inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int heads, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {64 * sizeof(__nv_bfloat16),
+                                 static_cast<cuuint64_t>(rows) * 64 * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {64, kBoxRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
+}  // namespace cct

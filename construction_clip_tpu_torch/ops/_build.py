@@ -45,10 +45,12 @@ SIGNATURES = {
     # dtype, q, ck, cv, ancestry, out, rows, heads, t_max, dh, layer, cache_len,
     # scale, stream
     "cct_decode_attention": ([_I] + [_P] * 5 + [_I] * 6 + [_F, _P], _I),
-    # dtype, q, k, v, o, b, h, t, dh, causal, scale, stream
+    # dtype, q, k, v, o, b, h, t, dh, causal, scale, stream (SIMT and tensor-core routes)
     "cct_flash_attention_fwd": ([_I] + [_P] * 4 + [_I] * 5 + [_F, _P], _I),
+    "cct_flash_attention_fwd_tc": ([_I] + [_P] * 4 + [_I] * 5 + [_F, _P], _I),
     # dtype, q, k, v, g, work, dq, dk, dv, b, h, t, dh, causal, scale, stream
     "cct_flash_attention_bwd": ([_I] + [_P] * 8 + [_I] * 5 + [_F, _P], _I),
+    "cct_flash_attention_bwd_tc": ([_I] + [_P] * 8 + [_I] * 5 + [_F, _P], _I),
     # table_dtype, x, table, scale, out, rows, d, v, stream
     "cct_vocab_head": ([_I] + [_P] * 4 + [_I] * 3 + [_P], _I),
     # dtype, x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, hidden, out, rows, d, h, eps,

@@ -3,12 +3,15 @@ and backward (counterpart of construction_clip_tpu/ops/pallas_attention.py).
 
 `flash_attention` is a `torch.autograd.Function` whose forward is K4 and whose
 backward is K5 (csrc/flash_attention.cu) on CUDA tensors, and the plain
-versions on CPU tensors. The plain forward mirrors `_attn_kernel`: p = exp(s -
-max) in fp32, rounded to v's dtype for p.v, and the sum divided by the fp32 row
-sum of p afterwards. The plain backward mirrors `_bwd_kernel`: p recomputed
-from q and k in fp32, and dv, dp, ds, dq, dk all in fp32, rounded once. The
-Pallas kernels' lane-aligned key split (`_split_point`) is TPU layout
-scaffolding with the same math, and has no counterpart here.
+versions on CPU tensors. On the card `route` picks one of two hand-written
+kernels by type and head width: the tensor-core kernels (wgmma, TMA) for bf16
+at dh = 64, the SIMT tiles for fp32 and other widths; a launch that fails
+raises and never retries on the other route. The plain forward mirrors
+`_attn_kernel`: p = exp(s - max) in fp32, rounded to v's dtype for p.v, and the
+sum divided by the fp32 row sum of p afterwards. The plain backward mirrors
+`_bwd_kernel`: p recomputed from q and k in fp32, and dv, dp, ds, dq, dk all in
+fp32, rounded once. The Pallas kernels' lane-aligned key split (`_split_point`)
+is TPU layout scaffolding with the same math, and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,6 +23,14 @@ from construction_clip_tpu_torch.ops import _build
 MAX_T = 1024   # the JAX gate
 MAX_DH = 128   # the kernels' per-lane register tiles (csrc/attention_tiles.cuh)
 NEG_INF = torch.finfo(torch.float32).min
+TC_DH = (64,)  # head widths of the tensor-core kernels (64 x 64 tiles)
+
+
+def route(dtype, dh: int) -> str:
+    """The kernel K4/K5 launch on the card: "tc" (bf16 products on the tensor
+    cores) for bf16 at a head width of TC_DH, else "simt" (fp32 FMA tiles; fp32
+    on the tensor cores would be TF32)."""
+    return "tc" if dtype == torch.bfloat16 and dh in TC_DH else "simt"
 
 
 def supported(q, k, v, *, bias=None) -> bool:
@@ -81,14 +92,15 @@ def flash_attention_fwd(q, k, v, *, is_causal: bool, scale: float):
     _check("flash_attention", (q, k, v), q)
     b, h, t, dh = q.shape
     lib = _build.load_library()
+    tc = route(q.dtype, dh) == "tc"
+    entry = lib.cct_flash_attention_fwd_tc if tc else lib.cct_flash_attention_fwd
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = lib.cct_flash_attention_fwd(
-            _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, h, t, dh, int(is_causal), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = entry(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), b, h, t, dh, int(is_causal), float(scale),
+                    torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, tc)
     return out
 
 
@@ -99,17 +111,26 @@ def flash_attention_bwd(q, k, v, g, *, is_causal: bool, scale: float):
     _check("flash_attention_bwd", (q, k, v, g), q)
     b, h, t, dh = q.shape
     lib = _build.load_library()
+    tc = route(q.dtype, dh) == "tc"
+    entry = lib.cct_flash_attention_bwd_tc if tc else lib.cct_flash_attention_bwd
     work = torch.empty(3 * b * h * t, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = lib.cct_flash_attention_bwd(
-            _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, t, dh, int(is_causal), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = entry(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    g.data_ptr(), work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    b, h, t, dh, int(is_causal), float(scale),
+                    torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, tc)
     return dq, dk, dv
+
+
+def _count(wrapper, tc: bool) -> None:
+    wrapper.launches += 1
+    if tc:
+        wrapper.tc_launches += 1
+    else:
+        wrapper.simt_launches += 1
 
 
 class _Flash(torch.autograd.Function):
@@ -137,5 +158,7 @@ def flash_attention(q, k, v, *, is_causal: bool = False, scale: float | None = N
     return _Flash.apply(q, k, v, bool(is_causal), float(scale))
 
 
-flash_attention_fwd.launches = 0   # K4
-flash_attention_bwd.launches = 0   # K5
+# launches of K4 and K5, and of each on its route
+flash_attention_fwd.launches = flash_attention_fwd.tc_launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
+flash_attention_fwd.simt_launches = flash_attention_bwd.simt_launches = 0

@@ -227,27 +227,65 @@ def test_attention_block_backward_kernel_on_card(shape, dtype, gen, cuda_device)
         assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
 
 
+# bf16 at dh=64 takes the tensor-core route (fa.route): the edges of its 64-row
+# tiles (T=1, a lone key; 63, 64, 65 about one tile; 77, the text towers; 257,
+# ViT-L/14; 1024, the gate), causal and not. fp32, and bf16 at another head
+# width, take the SIMT route.
+FLASH_CASES = ([((2, 3, t, 64, causal), torch.bfloat16)
+                for t in (1, 63, 64, 65, 77, 257, 1024) for causal in (False, True)] +
+               [((9, 16, 257, 64, False), torch.bfloat16), ((9, 12, 77, 64, True), torch.bfloat16),
+                ((9, 16, 257, 64, False), torch.float32), ((9, 12, 77, 64, True), torch.float32),
+                ((2, 3, 77, 32, True), torch.bfloat16)])
+
+
+def _within(got, want, tol):
+    """Largest difference within `tol` of the plain version's largest element
+    (both may be all zero: dq and dk of a lone key)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(9, 16, 257, 64, False), (9, 12, 77, 64, True)])
+@pytest.mark.parametrize("shape, dtype", FLASH_CASES)
 def test_flash_attention_kernels_on_card(shape, dtype, gen, cuda_device):
     b, h, t, dh, causal = shape
     q, k, v, g = (torch.from_numpy(gen.standard_normal((b, h, t, dh)).astype(np.float32))
                   .to(cuda_device, dtype) for _ in range(4))
     scale = dh ** -0.5
-    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    route = f"{fa.route(dtype, dh)}_launches"
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    before = [(w.launches, getattr(w, route)) for w in wrappers]
     out = fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale)
     grads = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert [(w.launches, getattr(w, route)) for w in wrappers] == \
+        [(n + 1, r + 1) for n, r in before]
     want = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal, scale=scale)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                **CARD_TOL[dtype])
     for name, a, w in zip(("dq", "dk", "dv"), grads,
                           fa.flash_attention_bwd_plain(q, k, v, g, is_causal=causal,
                                                        scale=scale)):
-        assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
+        assert _within(a, w, GRAD_TOL[dtype]), name
+    # fixed-order sums, no atomics: a second call gives the same bits
+    assert torch.equal(fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale), out)
+    again = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
+    assert all(torch.equal(a, c) for a, c in zip(again, grads))
+
+
+@pytest.mark.cuda
+def test_flash_attention_tensor_core_entry_refuses_what_it_does_not_take(gen, cuda_device):
+    """The tensor-core C entry refuses fp32 and other head widths with an
+    error; it never runs them on the SIMT tiles."""
+    lib = _build.load_library()
+    for dtype, dh in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q = torch.zeros(1, 1, 8, dh, dtype=dtype, device=cuda_device)
+        err = lib.cct_flash_attention_fwd_tc(
+            _build.dtype_code(dtype), q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+            1, 1, 8, dh, 0, 0.125, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(err, "flash_attention")
 
 
 def _vocab_case(gen, dev, rows, d, v, int8):
