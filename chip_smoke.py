@@ -7,34 +7,47 @@ Phases, each printing one line (the last line is the JSON verdict):
   1. device: the card's name and power limit; no CUDA device is an error.
   2. build: nvcc builds the port's CUDA kernels from csrc/ (timed).
   3. K1, the fused attention block, against its plain version at the serving
-     and training paths' shapes, bf16 and fp32, with times.
-  4. K2, decode-step attention with beam ancestry, against its plain version.
+     and training paths' shapes, bf16 and fp32, with times (bf16: also the
+     device time, the replay of a CUDA graph of 20 calls).
+  4. K2, decode-step attention with beam ancestry, against its plain version
+     at 8 images x beam 3 (R=24) and 1 image x beam 3 (R=3), cache lengths 0
+     to t_max - 1, bf16 and fp32, bit-equal on a second call; at cache_len
+     139 with ancestry in bf16 its device time beside a torch.gather + SDPA
+     yardstick's.
   5. the serving path at full width (ViT-B/32, GPT-2 12x768, MLP mapper, random
      weights from a numpy seed, bf16): requests from 4 threads through
      TorchPredictService; launch counts of both kernels in that run.
   6. kernel path against plain path at full width in fp32: image features,
      zero-shot classes and greedy tokens.
   7. K3, the fused block's backward, against its plain version at the training
-     path's shapes, bf16 and fp32, with times.
+     path's shapes, bf16 (tensor-core route: its counter must move) and fp32
+     (SIMT route), with times; for bf16 the device time, each of its launches'
+     device time under torch.profiler with the GEMMs' TFLOP/s, and the fused
+     block's whole backward against the composed block's (layer_norm,
+     Linear, SDPA, Linear: cuBLAS and SDPA) autograd backward, with both
+     backwards' kernels at the first shape.
   8. K4 and K5, flash attention forward and backward, against their plain
      versions at the ViT-L/14 image tower's shape, a causal text shape, T=1024
      causal and T=65, bf16 on the tensor-core route and fp32 on the SIMT
      route (each route's launch counter must move); the tensor-core
-     instructions (HGMMA/HMMA) and registers of each K4/K5 kernel in the built
-     library; the wrapper times and, for bf16, the device times (CUDA-graph
+     instructions (HGMMA/HMMA) and registers of each K3/K4/K5 kernel in the
+     built libraries (a tensor-core kernel without HGMMA fails the run); the
+     wrapper times and, for bf16, the device times (CUDA-graph
      replays) of K4, K5 and scaled_dot_product_attention's forward and
      backward, and of each of K5's three launches (torch.profiler).
   9. ViT-B/32 contrastive training at full width and depth, bf16, B=36 (4
      class-balanced groups of 9): 10 make_train_step steps on one batch; the
-     loss must fall; launch counts of K1 and K3.
+     loss must fall; launch counts of K1 and K3, every K3 launch on the
+     tensor-core route; the median step.
  10. ViT-L/14 contrastive training at full width and depth, bf16, B=9, 3 steps;
-     K4 and K5 launch from the image tower, every launch on the tensor-core
-     route, K1 and K3 from the text tower; the median step time.
+     K4 and K5 launch from the image tower, K1 and K3 from the text tower,
+     every K3/K4/K5 launch on the tensor-core route; the median step time.
  11. the kernel path against the plain path in fp32: loss and every gradient
      leaf over 2 ViT-B/32 steps from the same params.
  12. K8, the vocab-head GEMV, against its plain version at mT5-small's head
      (D=512, V=250112) at B=1 and B=8, bf16 and int8 + scale, and at a V that
-     is not a multiple of its column tile; times and the table read's GB/s.
+     is not a multiple of its column tile; times, device times and the table
+     read's GB/s.
  13. mT5 captioning at full width (ViT-B/32, the MLP mapper with prefix 20,
      mT5-small 8+8 layers, random weights from numpy seeds, bf16) through the
      batch function of the port's apps/predict_t5.py: B=1 and B=8, sampled and
@@ -45,8 +58,8 @@ Phases, each printing one line (the last line is the JSON verdict):
      logits over one token stream, and greedy tokens.
  15. K7, the int8 fused attention block, against its plain version at the
      int8 image tower's shapes ([8,50,768] and [1,50,768], H=12), bf16 and
-     fp32, with K1's time at the same bf16 shapes; and the int8 GEMM of
-     int8_linear with the weight K-contiguous against row-major.
+     fp32, with device times and K1's time at the same bf16 shapes; and the
+     int8 GEMM of int8_linear with the weight K-contiguous against row-major.
  16. int8 serving at full width (ViT-B/32 and GPT-2 quantized in the port from
      phase 5's numpy seeds) through the port's apps/serve.build_service
      (--int8, beam 3, 100 steps): requests from 4 threads; K7 launches 12
@@ -80,21 +93,24 @@ Phases, each printing one line (the last line is the JSON verdict):
  24. data-parallel ViT-B/32 training at full width and depth, bf16, 4 ranks on
      the card, global B=36 (phase 9's batch, 9 rows a rank), params from
      phase 9's seed on rank 0 broadcast to the others: 5 steps, the loss
-     falls; per rank K10 launches twice a step, K1 and K3 launch. The ranks
+     falls; per rank K10 launches twice a step, K1 and K3 launch, every K3
+     launch on the tensor-core route. The ranks
      time-slice one card: the step times are no multi-GPU speed.
  25. the 4-rank step against the one-process step in fp32 on the same params
      and B=36 batch: the loss, the accuracy, every gradient leaf after the
      mean over ranks, and the global eval accuracy.
  26. data-parallel ViT-L/14 training (BASELINE config 5's model) at full width
      and depth, bf16, 2 ranks, global B=18, 2 steps: K4/K5 launch from the
-     image tower and K10 from the loss in every rank.
+     image tower and K10 from the loss in every rank, every K3/K4/K5 launch on
+     the tensor-core route.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
 time the card could take for the same work: the bytes it must move at 3.35
 TB/s or its operations at the card's peak for their type, whichever is
-larger) and, where one PyTorch call computes the same function, that call's
-time. The script imports nothing of JAX, tokenizers, transformers or PIL.
+larger), where one PyTorch call computes the same function that call's time,
+and its device time (CUDA-graph replay; K10: none, its kernel alone is phase
+23's kernel_ms). The script imports nothing of JAX, tokenizers, transformers or PIL.
 """
 
 from __future__ import annotations
@@ -146,7 +162,7 @@ from construction_clip_tpu_torch.ops.collectives import (  # noqa: E402
 from construction_clip_tpu_torch.ops.attention_block_int8 import (  # noqa: E402
     fused_attention_block_int8, fused_attention_block_int8_plain)
 from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
-    decode_step_attention, decode_step_attention_plain)
+    chunk_count, decode_step_attention, decode_step_attention_plain)
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
@@ -172,8 +188,9 @@ K1_SHAPES = ((8, 50, 768, 12, False),   # ViT-B/32 image tower, batch 8
 K1_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-4, 2e-4)}   # (atol, rtol)
 # K2 rounds once, at the output: at most one bf16 step apart; fp32 order only.
 K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
-K2_SHAPE = dict(layers=12, rows=24, heads=12, t_max=140, dh=64)   # 8 images x beam 3
-K2_CACHE_LENS = (39, 90, 139)
+K2_SHAPES = (dict(layers=12, rows=24, heads=12, t_max=140, dh=64),   # 8 images x beam 3
+             dict(layers=12, rows=3, heads=12, t_max=140, dh=64))    # 1 image x beam 3
+K2_CACHE_LENS = (0, 39, 90, 139)   # the first step alone ... t_max - 1
 
 K3_SHAPES = ((36, 50, 768, 12, False),   # ViT-B/32 image tower, 4 groups of 9
              (36, 77, 512, 8, True),     # ViT-B/32 text tower
@@ -426,6 +443,8 @@ def phase_k1(results: dict) -> None:
             stats = compare(got, plain(), *K1_TOL[dtype],
                             what=f"K1 {[b, t, d]} h={h} causal={causal} {dtype}")
             stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
+            if dtype == torch.bfloat16:
+                stats["device_ms"] = graph_ms(kernel)
             say("k1", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype), **stats)
             if (b, t, d) == (8, 50, 768) and dtype == torch.bfloat16:
                 m = b * t
@@ -434,46 +453,72 @@ def phase_k1(results: dict) -> None:
                 results["fused_attention_block"] = stats
 
 
+def k2_yardstick(q, ck, cv, layer, cache_len, ancestry):
+    """The window gathered by torch.gather, then scaled_dot_product_attention:
+    several PyTorch calls computing K2's function (used nowhere in the port)."""
+    n = cache_len + 1
+    k, v = ck[layer][:, :, :n], cv[layer][:, :, :n]
+    if ancestry is not None:
+        idx = ancestry[:, None, :n, None].long().expand(-1, k.shape[1], -1, k.shape[3])
+        k, v = torch.gather(k, 0, idx), torch.gather(v, 0, idx)
+    return sdpa(q[:, :, None, :], k, v, is_causal=False, scale=q.shape[-1] ** -0.5)[:, :, 0]
+
+
 def phase_k2(results: dict) -> None:
     rng = np.random.default_rng(2)
-    s = K2_SHAPE
-    cache_shape = (s["layers"], s["rows"], s["heads"], s["t_max"], s["dh"])
-    layer = s["layers"] - 1
-    for dtype in (torch.bfloat16, torch.float32):
-        def arr(*shape):
-            return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-                device="cuda", dtype=dtype)
+    for s in K2_SHAPES:
+        cache_shape = (s["layers"], s["rows"], s["heads"], s["t_max"], s["dh"])
+        layer = s["layers"] - 1
+        for dtype in (torch.bfloat16, torch.float32):
+            def arr(*shape):
+                return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+                    device="cuda", dtype=dtype)
 
-        ck, cv = arr(*cache_shape), arr(*cache_shape)
-        q = arr(s["rows"], s["heads"], s["dh"])
-        anc = torch.from_numpy(rng.integers(0, s["rows"], (s["rows"], s["t_max"]),
-                                            dtype=np.int32)).cuda()
-        for cache_len in K2_CACHE_LENS:
-            for ancestry in (None, anc):
-                def kernel():
-                    return decode_step_attention(q, ck, cv, layer, cache_len, ancestry)
+            ck, cv = arr(*cache_shape), arr(*cache_shape)
+            q = arr(s["rows"], s["heads"], s["dh"])
+            anc = torch.from_numpy(rng.integers(0, s["rows"], (s["rows"], s["t_max"]),
+                                                dtype=np.int32)).cuda()
+            for cache_len in K2_CACHE_LENS:
+                for ancestry in (None, anc):
+                    def kernel():
+                        return decode_step_attention(q, ck, cv, layer, cache_len, ancestry)
 
-                def plain():
-                    return decode_step_attention_plain(q, ck, cv, layer, cache_len, ancestry)
+                    def plain():
+                        return decode_step_attention_plain(q, ck, cv, layer, cache_len,
+                                                           ancestry)
 
-                got = kernel()
-                torch.cuda.synchronize()
-                stats = compare(got, plain(), *K2_TOL[dtype],
-                                what=f"K2 cache_len={cache_len} ancestry={ancestry is not None}"
-                                     f" {dtype}")
-                stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
-                say("k2", **s, cache_len=cache_len, ancestry=ancestry is not None,
-                    dtype=str(dtype), **stats)
-                if cache_len == 139 and ancestry is not None and dtype == torch.bfloat16:
-                    # each (cache row, position) the ancestry reaches is read once
-                    rows_read = len(set(zip(anc[:, :cache_len + 1].flatten().tolist(),
-                                            list(range(cache_len + 1)) * s["rows"])))
-                    kv_bytes = 2 * rows_read * s["heads"] * s["dh"] * q.element_size()
-                    stats.update(bound(
-                        nbytes(q, q, anc[:, :cache_len + 1]) + kv_bytes,
-                        {dtype: 2 * 2 * s["rows"] * s["heads"] * (cache_len + 1) * s["dh"]}),
-                        library_ms=None)
-                    results["decode_step_attention"] = stats
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    stats = compare(got, plain(), *K2_TOL[dtype],
+                                    what=f"K2 R={s['rows']} cache_len={cache_len} "
+                                         f"ancestry={ancestry is not None} {dtype}")
+                    if not torch.equal(kernel(), got):
+                        raise AssertionError(f"K2 R={s['rows']} cache_len={cache_len}: two "
+                                             f"runs differ")
+                    stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
+                                 chunks=chunk_count(s["rows"], s["heads"], cache_len + 1))
+                    timed = cache_len == K2_CACHE_LENS[-1] and ancestry is not None and \
+                        dtype == torch.bfloat16
+                    if timed:   # device times, the host's launch costs left out
+
+                        def yardstick():
+                            return k2_yardstick(q, ck, cv, layer, cache_len, ancestry)
+
+                        # each (cache row, position) the ancestry reaches is read once
+                        rows_read = len(set(zip(anc[:, :cache_len + 1].flatten().tolist(),
+                                                list(range(cache_len + 1)) * s["rows"])))
+                        kv_bytes = 2 * rows_read * s["heads"] * s["dh"] * q.element_size()
+                        stats.update(bound(
+                            nbytes(q, q, anc[:, :cache_len + 1]) + kv_bytes,
+                            {dtype: 2 * 2 * s["rows"] * s["heads"] * (cache_len + 1) *
+                             s["dh"]}),
+                            device_ms=graph_ms(kernel), library_ms=None,   # no single call
+                            yardstick_ms=median_ms(yardstick),
+                            yardstick_device_ms=graph_ms(yardstick))
+                    say("k2", **s, cache_len=cache_len, ancestry=ancestry is not None,
+                        dtype=str(dtype), **stats)
+                    if timed and s is K2_SHAPES[0]:
+                        results["decode_step_attention"] = stats
 
 
 class CharTokenizer:
@@ -518,15 +563,33 @@ def synthetic_images(rng, shapes):
     return [(rng.random((h, w, 3)) * 255).astype(np.uint8) for h, w in shapes]
 
 
+# the kernels with a tensor-core route, each counting its launches there
+TC_WRAPPERS = ("fused_attention_block_bwd", "flash_attention_fwd", "flash_attention_bwd")
+
+
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for fn in (flash_attention_fwd, flash_attention_bwd):   # K4/K5 by route
-        fn.tc_launches = fn.simt_launches = 0
+    for name in TC_WRAPPERS:
+        WRAPPERS[name].tc_launches = 0
+    for fn in (flash_attention_fwd, flash_attention_bwd):   # K4/K5's other route
+        fn.simt_launches = 0
 
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def tc_launches() -> dict:
+    return {name: WRAPPERS[name].tc_launches for name in TC_WRAPPERS}
+
+
+def check_tc_route(what: str, counts: dict, tc: dict, names=TC_WRAPPERS) -> None:
+    """In a bf16 run every launch of `names` (kernels with a tensor-core route
+    at the port's dh = 64) took that route."""
+    if any(tc[n] != counts[n] for n in names):
+        raise AssertionError(f"{what}: launches off the tensor-core route: "
+                             f"{ {n: tc[n] for n in names} } of { {n: counts[n] for n in names} }")
 
 
 SERVE_KERNELS = ("fused_attention_block", "decode_step_attention")
@@ -689,61 +752,23 @@ def _merge(per: dict) -> dict:
             "tol": next(iter(per.values()))["tol"]}
 
 
-def phase_k3(results: dict) -> None:
-    rng = np.random.default_rng(7)
-    names = ("dx", "dqkv", "merged", "dln_scale", "dln_bias")
-    for dtype in (torch.bfloat16, torch.float32):
-        for b, t, d, h, causal in K3_SHAPES:
-            x, ln, attn = _block_inputs(rng, b, t, d, dtype, "cuda")
-            g = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(
-                "cuda", dtype)
-            args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"])
-
-            def kernel():
-                return fused_attention_block_bwd(x, g, *args, n_heads=h, causal=causal)
-
-            def plain():
-                return fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
-
-            got = kernel()
-            torch.cuda.synchronize()
-            what = f"K3 {[b, t, d]} h={h} causal={causal} {dtype}"
-            per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"{what} {n}")
-                   for n, a, w in zip(names, got, plain())}
-            stats = _merge(per)
-            stats.update(ms=median_ms(kernel, 11, 3), plain_ms=median_ms(plain, 11, 3))
-            say("k3", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype),
-                scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **stats)
-            if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
-                m = b * t   # recomputed qkv, dmg, dh GEMMs; six attention products
-                stats.update(bound(nbytes(x, g, *args, *got),
-                                   {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}),
-                             library_ms=None)
-                results["fused_attention_block_bwd"] = stats
-
-
-def sdpa(q, k, v, *, is_causal, scale):
-    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=is_causal,
-                                                            scale=scale)
-
-
-def sdpa_backward_ms(q, k, v, g, kw) -> float:
-    """scaled_dot_product_attention's backward alone: the gradients of one
+def backward_ms(forward, inputs, g) -> float:
+    """The backward alone of `forward` on `inputs`: the gradients of one
     recorded forward, taken again and again."""
-    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
-    out = sdpa(*leaves, **kw)
+    leaves = [a.detach().requires_grad_() for a in inputs]
+    out = forward(*leaves)
     return median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 11, 3)
 
 
-def sdpa_backward_device_ms(q, k, v, g, kw, reps: int = 20) -> float:
-    """The device time of scaled_dot_product_attention's backward: `reps`
-    autograd.grad calls captured in one CUDA graph (the forward recorded on the
-    capture stream, so that the backward runs there), its replay timed."""
+def backward_device_ms(forward, inputs, g, reps: int = 20) -> float:
+    """The device time of that backward: `reps` autograd.grad calls captured in
+    one CUDA graph (the forward recorded on the capture stream, so that the
+    backward runs there), its replay timed."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
-        out = sdpa(*leaves, **kw)
+        leaves = [a.detach().requires_grad_() for a in inputs]
+        out = forward(*leaves)
 
         def grad():
             return torch.autograd.grad(out, leaves, g, retain_graph=True)
@@ -758,9 +783,136 @@ def sdpa_backward_device_ms(q, k, v, g, kw, reps: int = 20) -> float:
     return median_ms(graph.replay, 11, 1) / reps
 
 
-# the tensor-core route's kernels in csrc/flash_attention.cu (forward; the
-# backward's statistics, dq and dk/dv passes)
-TC_KERNELS = ("tc_fwd", "tc_stats", "tc_dq", "tc_dkv")
+def sdpa(q, k, v, *, is_causal, scale):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=is_causal,
+                                                            scale=scale)
+
+
+def composed_block(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_heads, causal):
+    """The fused block composed of library calls: layer_norm, a Linear, SDPA
+    and a Linear plus the residual (cuBLAS and SDPA; several calls, used
+    nowhere in the port): the yardstick of the block's backward."""
+    b, t, d = x.shape
+    h = torch.nn.functional.layer_norm(x, (d,), ln_s, ln_b, eps=1e-5)
+    qkv = torch.addmm(b_qkv, h.reshape(-1, d), w_qkv).view(b, t, 3, n_heads, d // n_heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = sdpa(q, k, v, is_causal=causal, scale=(d // n_heads) ** -0.5)
+    return x + torch.addmm(b_out, o.transpose(1, 2).reshape(-1, d), w_out).view(b, t, d)
+
+
+def kernel_device_ms(fn, reps: int = 20) -> dict:
+    """{kernel: device ms a call} of every kernel `fn` launches, summed under
+    torch.profiler over `reps` calls; names without namespaces and arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            found = re.search(r"(\w+(<[^()]*>)?)\(", e.key)
+            name = found.group(1) if found else e.key
+            per[name] = per.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+    if not per:
+        raise AssertionError("torch.profiler saw no device time")
+    return per
+
+
+def backward_kernels(forward, inputs, g) -> dict:
+    """{kernel: device ms} of the backward of `forward` on `inputs`."""
+    leaves = [a.detach().requires_grad_() for a in inputs]
+    out = forward(*leaves)
+    return kernel_device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+
+
+# K3's tensor-core GEMMs by epilogue (gemm.cuh's Epilogue: kQkv 0, kRound 2,
+# kFloat 3): what each computes, and its multiply-adds in rows x D x D
+K3_GEMMS = {"gemm_tc<0": ("qkv = T(h W_qkv + b)", 3), "gemm_tc<2": ("dmg = T(g W_out^T)", 1),
+            "gemm_tc<3": ("dh = dqkv W_qkv^T", 3)}
+
+
+def k3_launches(per: dict, rows: int, d: int) -> dict:
+    """K3's launches with their device ms, and each GEMM's TFLOP/s; every
+    tensor-core GEMM must be there."""
+    out = {}
+    for name, ms in per.items():
+        out[name] = {"ms": ms}
+        gemm = next((v for k, v in K3_GEMMS.items() if name.startswith(k)), None)
+        if gemm:
+            out[name].update(what=gemm[0], tflop_per_s=2 * rows * d * d * gemm[1] / ms / 1e9)
+    if {k for k in K3_GEMMS for n in out if n.startswith(k)} != set(K3_GEMMS):
+        raise AssertionError(f"K3's profile lacks a tensor-core GEMM: {sorted(out)}")
+    return out
+
+
+def phase_k3(results: dict) -> None:
+    rng = np.random.default_rng(7)
+    names = ("dx", "dqkv", "merged", "dln_scale", "dln_bias")
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, d, h, causal in K3_SHAPES:
+            x, ln, attn = _block_inputs(rng, b, t, d, dtype, "cuda")
+            g = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(
+                "cuda", dtype)
+            args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"])
+            block_args = (x, *args, attn["b_out"])
+
+            def kernel():
+                return fused_attention_block_bwd(x, g, *args, n_heads=h, causal=causal)
+
+            def plain():
+                return fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
+
+            def fused_block(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out):
+                return fused_attention_block(
+                    x, {"scale": ln_s, "bias": ln_b},
+                    {"w_qkv": w_qkv, "b_qkv": b_qkv, "w_out": w_out, "b_out": b_out},
+                    n_heads=h, causal=causal)
+
+            def composed(*a):
+                return composed_block(*a, n_heads=h, causal=causal)
+
+            tc_before = fused_attention_block_bwd.tc_launches
+            got = kernel()
+            torch.cuda.synchronize()
+            what = f"K3 {[b, t, d]} h={h} causal={causal} {dtype}"
+            on_tc = fused_attention_block_bwd.tc_launches != tc_before
+            if on_tc != (dtype == torch.bfloat16):
+                raise AssertionError(f"{what}: the tensor-core route's counter "
+                                     f"{'moved' if on_tc else 'did not move'}")
+            per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"{what} {n}")
+                   for n, a, w in zip(names, got, plain())}
+            stats = _merge(per)
+            stats.update(ms=median_ms(kernel, 11, 3), plain_ms=median_ms(plain, 11, 3),
+                         route="tc" if on_tc else "simt")
+            if dtype == torch.bfloat16:   # device times, the host's launch costs left out
+                stats.update(
+                    device_ms=graph_ms(kernel),
+                    launch_device_ms=k3_launches(kernel_device_ms(kernel), b * t, d),
+                    block_backward_ms=backward_ms(fused_block, block_args, g),
+                    block_backward_device_ms=backward_device_ms(fused_block, block_args, g),
+                    yardstick_backward_ms=backward_ms(composed, block_args, g),
+                    yardstick_backward_device_ms=backward_device_ms(composed, block_args, g))
+            if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
+                stats.update(block_backward_kernels=backward_kernels(fused_block, block_args, g),
+                             yardstick_backward_kernels=backward_kernels(composed, block_args, g))
+            say("k3", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype),
+                scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **stats)
+            if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
+                m = b * t   # recomputed qkv, dmg, dh GEMMs; six attention products
+                stats.update(bound(nbytes(x, g, *args, *got),
+                                   {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}),
+                             library_ms=None)
+                results["fused_attention_block_bwd"] = stats
+
+
+# the tensor-core routes' kernels by source: K4/K5's (forward; the backward's
+# statistics, dq and dk/dv passes) and K3's (its GEMMs and the same passes)
+TC_KERNELS = {"flash_attention.cu": ("tc_fwd", "tc_stats", "tc_dq", "tc_dkv"),
+              "attention_block_bwd.cu": ("gemm_tc", "tc_stats", "tc_dq", "tc_dkv")}
 
 
 def tensor_core_counts(source: str) -> dict:
@@ -794,32 +946,26 @@ def tensor_core_counts(source: str) -> dict:
     return counts
 
 
-def k5_pass_device_ms(bwd, reps: int = 20) -> dict:
-    """Device ms a call of each of K5's three tensor-core launches, summed
-    under torch.profiler over `reps` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    bwd()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            bwd()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    per = {name: sum(e.self_device_time_total for e in events if f"::{name}(" in e.key)
-           / reps / 1e3 for name in TC_KERNELS[1:]}
+def k5_pass_device_ms(bwd) -> dict:
+    """Device ms a call of each of K5's three tensor-core launches."""
+    launched = kernel_device_ms(bwd)
+    per = {name: sum(ms for k, ms in launched.items() if k == name or k.startswith(name + "<"))
+           for name in TC_KERNELS["flash_attention.cu"][1:]}
     if min(per.values()) <= 0:
         raise AssertionError(f"torch.profiler saw no device time for a pass of K5: {per}")
     return per
 
 
 def phase_tensor_cores() -> None:
-    counts = tensor_core_counts("flash_attention.cu")
-    say("k4_k5_tensor_core_instructions", counts=counts)
-    for name in TC_KERNELS:
-        got = [c["HGMMA"] + c["HMMA"] for k, c in counts.items() if name in k]
-        if len(got) != 1 or got[0] <= 0:
-            raise AssertionError(f"{name}: no tensor-core instruction in the build: {counts}")
+    """Every kernel of a tensor-core route runs wgmma (HGMMA in its SASS)."""
+    for source, names in TC_KERNELS.items():
+        counts = tensor_core_counts(source)
+        say("tensor_core_instructions", source=source, counts=counts)
+        for name in names:
+            got = [c["HGMMA"] for k, c in counts.items() if name in k]
+            if not got or min(got) <= 0:
+                raise AssertionError(f"{source} {name}: a kernel without HGMMA in the build: "
+                                     f"{counts}")
 
 
 def phase_flash(results: dict) -> None:
@@ -865,8 +1011,9 @@ def phase_flash(results: dict) -> None:
                                library_ms=median_ms(lambda: sdpa(q, k, v, **kw), 11, 5),
                                library_device_ms=graph_ms(lambda: sdpa(q, k, v, **kw)))
                 b_stats.update(device_ms=graph_ms(bwd), pass_device_ms=k5_pass_device_ms(bwd),
-                               library_ms=sdpa_backward_ms(q, k, v, g, kw),
-                               library_device_ms=sdpa_backward_device_ms(q, k, v, g, kw))
+                               library_ms=backward_ms(lambda *a: sdpa(*a, **kw), (q, k, v), g),
+                               library_device_ms=backward_device_ms(lambda *a: sdpa(*a, **kw),
+                                                                    (q, k, v), g))
             say("k4", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), route=route,
                 **f_stats)
             say("k5", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), route=route,
@@ -916,7 +1063,7 @@ def phase_train(name: str, cfg, params_np, batch, steps: int, device) -> dict:
     out = {"batch": int(batch["tokens"].shape[0]), "steps": steps, "losses": losses,
            "median_step_ms": statistics.median(times) * 1e3,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": counts}
+           "launches": counts, "tc_launches": tc_launches()}
     say(f"train_{name}", **out)
     return out
 
@@ -1007,7 +1154,8 @@ def phase_k8(results: dict) -> None:
             stats = compare_scaled(got, plain(), K8_TOL, f"K8 B={rows} V={v} {mode}")
             if not torch.equal(got, kernel()):
                 raise AssertionError(f"K8 B={rows} V={v} {mode}: two runs differ")
-            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain, 11, 3))
+            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain, 11, 3),
+                         device_ms=graph_ms(kernel))
             table_bytes = table.numel() * table.element_size() + (
                 scale.numel() * 4 if int8 else 0)
             say("k8", shape=[rows, d, v], table=mode, table_mb=table_bytes / 1e6,
@@ -1211,7 +1359,8 @@ def phase_k7(results: dict) -> None:
             got = kernel()
             torch.cuda.synchronize()
             stats = compare_scaled(got, plain(), K7_TOL[dtype], f"K7 {[b, t, d]} h={h} {dtype}")
-            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
+            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
+                         device_ms=graph_ms(kernel))
             m = b * t
             ops = {torch.int8: 2 * m * d * 4 * d, dtype: attention_ops(b, h, t, d // h, 2)}
             stats.update(bound(nbytes(x, *args, x), ops), library_ms=None)   # no single call
@@ -1447,9 +1596,9 @@ def phase_k6(results: dict) -> None:
         # three fp32 operations an element: multiply, subtract, multiply
         stats.update(bound(nbytes(u8, got), {torch.float32: 3 * u8.numel()}),
                      library_ms=None)   # no single PyTorch call
-        device_ms = graph_ms(kernel)   # (the plain version copies its constants in: no graph)
+        # (the plain version copies its constants in: no graph)
+        stats["device_ms"] = device_ms = graph_ms(kernel)
         say("k6", shape=list(K6_SHAPE), out_dtype=str(dtype), bit_equal=True,
-            device_ms=device_ms,
             device_gb_per_s=nbytes(u8, got) / (device_ms * 1e-3) / 1e9, **stats)
         if dtype == torch.bfloat16:
             results["normalize_u8"] = stats
@@ -1497,15 +1646,15 @@ def phase_k9(results: dict) -> None:
         out = fused_mlp_residual(leaves[0], dict(zip(mlp_p, leaves[3:])),
                                  {"scale": leaves[1], "bias": leaves[2]})
         g = torch.randn_like(out)
-        backward_ms = median_ms(
+        bwd_ms = median_ms(
             lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 11, 3)
         m = b * t
         stats.update(bound(nbytes(x, *args[1:], got), {dtype: 4 * m * d * hidden}),
                      library_ms=None)   # no single PyTorch call
-        device_ms = graph_ms(kernel)
+        stats["device_ms"] = device_ms = graph_ms(kernel)
         say("k9", shape=[b, t, d], hidden=hidden, dtype=str(dtype),
-            composed_default_mlp_ms=median_ms(composed), backward_ms=backward_ms,
-            device_ms=device_ms, plain_device_ms=graph_ms(plain),
+            composed_default_mlp_ms=median_ms(composed), backward_ms=bwd_ms,
+            plain_device_ms=graph_ms(plain),
             composed_device_ms=graph_ms(composed),
             device_tflop_per_s=4 * m * d * hidden / (device_ms * 1e-3) / 1e12, **stats)
         if ((b, t, d), dtype) == ((8, 50, 768), torch.bfloat16):
@@ -1762,6 +1911,7 @@ def dp_train_rank(dp, cfg, seed, batch, steps):
         times.append((time.perf_counter() - t0) * 1e3)
         accs.append(float(m["accuracy"]))
     return {"losses": losses, "accuracies": accs, "step_ms": times, "launches": launches(),
+            "tc_launches": tc_launches(),
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None,
             "local_batch": int(local["tokens"].shape[0]),
             "setup_s": time.perf_counter() - start - sum(times) / 1e3}
@@ -1802,6 +1952,8 @@ def phase_dp_train(name: str, cfg, seed: int, batch, world: int, steps: int,
         if out["launches"]["all_gather"] != 2 * steps or \
                 min(out["launches"][n] for n in need) <= 0:
             raise AssertionError(f"{name}: rank {r}'s launches {out['launches']}")
+        check_tc_route(f"{name} rank {r}", out["launches"], out["tc_launches"],
+                       [n for n in TC_WRAPPERS if n in need])
     counts = {n: sum(out["launches"][n] for out in per_rank) for n in WRAPPERS}
     say(name, world=world, global_batch=int(batch["tokens"].shape[0]),
         local_batch=per_rank[0]["local_batch"], steps=steps, losses=losses,
@@ -1812,6 +1964,7 @@ def phase_dp_train(name: str, cfg, seed: int, batch, world: int, steps: int,
         step_ms_rank0=per_rank[0]["step_ms"],
         peak_memory_gib_by_rank=[o["peak_memory_gib"] for o in per_rank],
         launches_per_rank=per_rank[0]["launches"], launches_all_ranks=counts,
+        tc_launches_per_rank=per_rank[0]["tc_launches"],
         note="ranks time-slice one card: no multi-GPU speed")
     return counts
 
@@ -1898,6 +2051,10 @@ def main() -> None:
     for name in ("fused_attention_block", "fused_attention_block_bwd"):
         if out["launches"][name] <= 0:
             raise AssertionError(f"{name} never launched in ViT-B/32 training")
+    check_tc_route("ViT-B/32 bf16", out["launches"], out["tc_launches"],
+                   ("fused_attention_block_bwd",))
+    say("train_vit_b_32_tensor_cores", median_step_ms=out["median_step_ms"],
+        tc_launches=out["tc_launches"], batch=out["batch"])
     counts["fused_attention_block_bwd"] = out["launches"]["fused_attention_block_bwd"]
 
     cfg_l = CLIPConfig.vit_l_14()
@@ -1908,13 +2065,9 @@ def main() -> None:
     if min(out["launches"][n] for n in train_kernels) <= 0:
         raise AssertionError(f"a kernel of ViT-L/14 training never launched: "
                              f"{out['launches']}")
-    tc = {"flash_attention_fwd": flash_attention_fwd.tc_launches,
-          "flash_attention_bwd": flash_attention_bwd.tc_launches}
-    if any(tc[n] != out["launches"][n] for n in tc):
-        raise AssertionError(f"ViT-L/14 bf16: K4/K5 launches off the tensor-core route: "
-                             f"{tc} of {out['launches']}")
-    say("train_vit_l_14_tensor_cores", tc_launches=tc, median_step_ms=out["median_step_ms"],
-        batch=out["batch"])
+    check_tc_route("ViT-L/14 bf16", out["launches"], out["tc_launches"])
+    say("train_vit_l_14_tensor_cores", tc_launches=out["tc_launches"],
+        median_step_ms=out["median_step_ms"], batch=out["batch"])
     counts.update({n: out["launches"][n] for n in ("flash_attention_fwd", "flash_attention_bwd")})
 
     batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
@@ -1947,6 +2100,8 @@ def main() -> None:
     for name in ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"):
         if out["launches"][name] <= 0:
             raise AssertionError(f"{name} never launched in fused-MLP ViT-B/32 training")
+    check_tc_route("fused-MLP ViT-B/32 bf16", out["launches"], out["tc_launches"],
+                   ("fused_attention_block_bwd",))
     say("train_fused_mlp_vs_default", fused_median_step_ms=out["median_step_ms"],
         default_median_step_ms=vit_b_32_default["median_step_ms"], batch=out["batch"])
     batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
@@ -1976,7 +2131,8 @@ def main() -> None:
                    one_process_losses=one_process["losses"], must_fall=False)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                       "bound_ms", "bound_by", "library_ms")}}
+                                                       "bound_ms", "bound_by", "library_ms")},
+                "device_ms": results[name].get("device_ms")}   # K10: its kernel_ms alone
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

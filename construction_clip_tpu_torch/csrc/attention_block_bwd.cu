@@ -12,9 +12,11 @@
 // ds = T(p (dp - rowsum(dp p)) scale); dq, dk, dv rounded to T; dh = dqkv .
 // W_qkv^T in fp32 and the LN backward in fp32, dx rounded once.
 //
-// What bounds it on the H100: the four weight products (recomputed qkv,
-// dmerged, dh) hold most of the FLOPs; like K1 this first version runs them
-// on the CUDA cores in fp32 FMA, so it is bound by the FMA rate.
+// What bounds it on the H100: the three weight products (recomputed qkv,
+// dmerged, dh) hold most of the FLOPs (14.9 of 15.7 GFLOP at [36, 50, 768]):
+// the tensor cores' rate. The SIMT route (fp32, other head widths) runs them
+// on the CUDA cores in fp32 FMA and is bound by the FMA rate; the tensor-core
+// route below runs every product on wgmma.
 //
 // Design: the Pallas kernel keeps both weight matrices in 16 MiB of VMEM and
 // carries the dLN sums across a sequential grid; a Hopper block has neither,
@@ -34,9 +36,26 @@
 // panels stay in registers. (8)+(9) replace the TPU's cross-grid accumulator
 // with a second pass instead of atomics, so two runs give the same bits.
 // No library GEMM or attention is called.
+//
+// Tensor-core route (bf16 at dh = 64, cct_attention_block_bwd_tc; chosen by
+// ops/attention_block.py:route, never a retry of the other route): the same
+// nine steps with the three weight products on wgmma (gemm_tc.cuh) and the
+// three attention passes on wgmma (attention_tc.cuh, the K5 passes reading q,
+// k, v out of qkv and dO out of dmg through column offsets, writing dq, dk and
+// dv into their column slices of dqkv, and the dq pass writing merged). The
+// products' A operands come from memory through TMA, so a row pass first
+// writes h = T(LN(x)) into a fifth D-wide slot of the T-typed scratch, where
+// the caller finds it for the weight gradient of W_qkv (10 launches in all).
+// A row pass and not a producer that normalises into the swizzled tile: TMA
+// then stays a plain copy, and the pass moves 4 rows D bytes (5.5 MB at
+// [36, 50, 768], ~2 us at the HBM rate). The rounding points are the SIMT chain's; p_lo and
+// ds are the bf16 operands wgmma takes anyway. The LN backward (7)-(9) is
+// shared with the SIMT chain.
+#include "attention_tc.cuh"
 #include "attention_tiles.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace cct {
 namespace {
@@ -130,6 +149,23 @@ ln_param_reduce(const float* __restrict__ partial, float* __restrict__ dln_s,
     if (e_ != cudaSuccess) return e_;      \
   } while (0)
 
+// The LN backward (7)-(9), shared by both routes.
+template <typename T>
+cudaError_t ln_backward(const T* x, const T* g, const float* dh, const T* ln_s, T* dx,
+                        float* row_mean, float* row_rstd, float* partial, float* dln_s,
+                        float* dln_b, int rows, int d, float eps, cudaStream_t stream) {
+  const int chunks = (int)ln_chunks(rows);
+  ln_backward_rows<T><<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0, stream>>>(
+      x, g, dh, ln_s, dx, row_mean, row_rstd, rows, d, eps);
+  CCT_TRY(cudaGetLastError());
+  const int col_blocks = (d + kColThreads - 1) / kColThreads;
+  ln_param_partials<T><<<dim3(col_blocks, chunks), kColThreads, 0, stream>>>(
+      x, dh, row_mean, row_rstd, partial, rows, d);
+  CCT_TRY(cudaGetLastError());
+  ln_param_reduce<<<col_blocks, kColThreads, 0, stream>>>(partial, dln_s, dln_b, chunks, d);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, const void* ln_b_,
                           const void* w_qkv_, const void* b_qkv_, const void* w_out_,
@@ -151,7 +187,6 @@ cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, con
   float* row_mean = dh + (size_t)rows * d;
   float* row_rstd = row_mean + rows;
   float* partial = row_rstd + rows;
-  const int chunks = (int)ln_chunks(rows);
 
   CCT_TRY((launch_gemm<T, kQkv, false, T>(x, static_cast<const T*>(w_qkv_),
                                           static_cast<const T*>(b_qkv_), ln_s,
@@ -189,15 +224,71 @@ cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, con
   CCT_TRY((launch_gemm<T, kFloat, true, float>(dqkv, static_cast<const T*>(w_qkv_), nullptr,
                                                nullptr, nullptr, nullptr, dh, rows, d, 3 * d,
                                                eps, stream)));
-  ln_backward_rows<T><<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0, stream>>>(
-      x, g, dh, ln_s, static_cast<T*>(dx), row_mean, row_rstd, rows, d, eps);
+  return ln_backward<T>(x, g, dh, ln_s, static_cast<T*>(dx), row_mean, row_rstd, partial, dln_s,
+                        dln_b, rows, d, eps, stream);
+}
+
+// ---- tensor-core route (bf16, dh = 64) --------------------------------------
+
+// h = T(LN(x)), one warp a row, with gemm.cuh's prologue arithmetic (two-pass
+// statistics, each affine step rounded): the A operand of the qkv product.
+__global__ void __launch_bounds__(32 * kLnWarps)
+ln_rows(const bf16* __restrict__ x, const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
+        bf16* __restrict__ h, int rows, int d, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kLnWarps + warp;
+  if (m >= rows) return;
+  const bf16* xr = x + (size_t)m * d;
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s += to_f(xr[c]);
+  const float mean = warp_sum(s) / d;
+  float var = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float dv = to_f(xr[c]) - mean;
+    var += dv * dv;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / d + eps);
+  for (int c = lane; c < d; c += 32)
+    h[(size_t)m * d + c] = from_f<bf16>(__fadd_rn(
+        __fmul_rn(__fmul_rn(to_f(xr[c]) - mean, rstd), to_f(ln_s[c])), to_f(ln_b[c])));
+}
+
+cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, const bf16* ln_b,
+                             const bf16* w_qkv, const bf16* b_qkv, const bf16* w_out,
+                             bf16* work_t, float* work_f, bf16* dx, bf16* dqkv, bf16* merged,
+                             float* dln_s, float* dln_b, int b, int t, int d, int h, int causal,
+                             float eps, float scale, cudaStream_t stream) {
+  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0 || d / h != kTcDh) return cudaErrorInvalidValue;
+  const int rows = b * t, heads = b * h;
+  bf16* qkv = work_t;                          // [rows, 3D]
+  bf16* dmg = qkv + (size_t)rows * 3 * d;      // [rows, D]
+  bf16* hn = dmg + (size_t)rows * d;           // [rows, D]: h = T(LN(x)), left for the caller
+  float* st_m = work_f;
+  float* dh = st_m + 3 * (size_t)heads * t;    // [rows, D]
+  float* row_mean = dh + (size_t)rows * d;
+  float* row_rstd = row_mean + rows;
+  float* partial = row_rstd + rows;
+
+  ln_rows<<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0, stream>>>(x, ln_s, ln_b, hn,
+                                                                           rows, d, eps);
   CCT_TRY(cudaGetLastError());
-  const int col_blocks = (d + kColThreads - 1) / kColThreads;
-  ln_param_partials<T><<<dim3(col_blocks, chunks), kColThreads, 0, stream>>>(
-      x, dh, row_mean, row_rstd, partial, rows, d);
-  CCT_TRY(cudaGetLastError());
-  ln_param_reduce<<<col_blocks, kColThreads, 0, stream>>>(partial, dln_s, dln_b, chunks, d);
-  return cudaGetLastError();
+  CCT_TRY((launch_gemm_tc<kQkv, false>(hn, w_qkv, b_qkv, qkv, rows, 3 * d, d, stream)));
+  CCT_TRY((launch_gemm_tc<kRound, true>(g, w_out, nullptr, dmg, rows, d, d, stream)));
+
+  CUtensorMap mqkv, mg;  // [B, T, 3D] and [B, T, D] in 64 x 64 boxes, zeros past T
+  CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
+  CCT_TRY(hopper::tile_map(&mg, dmg, b, t, d, kBoxRows));
+  const TcGeom geo{h, {0, d, 2 * d, 0}};
+  const long long z3 = (long long)t * 3 * d;
+  CCT_TRY(tc_attention_bwd<true>(mqkv, mqkv, mqkv, mg, geo, st_m, st_m + (size_t)heads * t,
+                                 st_m + 2 * (size_t)heads * t, TcOut{dqkv, z3, 3 * d},
+                                 TcOut{merged, (long long)t * d, d}, TcOut{dqkv + d, z3, 3 * d},
+                                 TcOut{dqkv + 2 * d, z3, 3 * d}, heads, t, causal, scale,
+                                 stream));
+
+  CCT_TRY((launch_gemm_tc<kFloat, true>(dqkv, w_qkv, nullptr, dh, rows, d, 3 * d, stream)));
+  return ln_backward<bf16>(x, g, dh, ln_s, dx, row_mean, row_rstd, partial, dln_s, dln_b, rows,
+                           d, eps, stream);
 }
 
 }  // namespace
@@ -210,7 +301,8 @@ extern "C" long long cct_attention_block_bwd_work_floats(int b, int t, int d, in
 }
 
 // Returns a cudaError_t; nonzero means a launch was refused. All arrays are
-// contiguous; dln_s and dln_b are fp32 [D], the rest of the input type.
+// contiguous; dln_s and dln_b are fp32 [D], the rest of the input type. The
+// SIMT route.
 extern "C" int cct_attention_block_bwd(int dtype, const void* x, const void* g,
                                        const void* ln_s, const void* ln_b, const void* w_qkv,
                                        const void* b_qkv, const void* w_out, void* work_t,
@@ -232,4 +324,26 @@ extern "C" int cct_attention_block_bwd(int dtype, const void* x, const void* g,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core route, same arguments: bf16 at dh = 64 only (anything else
+// is refused, never run on the other route). Its T-typed workspace holds
+// B*T*5D elements: qkv, dmg and h = T(LN(x)), which it leaves in the last
+// B*T*D.
+extern "C" int cct_attention_block_bwd_tc(int dtype, const void* x, const void* g,
+                                          const void* ln_s, const void* ln_b, const void* w_qkv,
+                                          const void* b_qkv, const void* w_out, void* work_t,
+                                          void* work_f, void* dx, void* dqkv, void* merged,
+                                          void* dln_s, void* dln_b, int b, int t, int d, int h,
+                                          int causal, float eps, float scale, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (dtype != cct::kBFloat16) return cudaErrorInvalidValue;
+  return cct::run_block_bwd_tc(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(ln_s),
+      static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w_qkv),
+      static_cast<const bf16*>(b_qkv), static_cast<const bf16*>(w_out),
+      static_cast<bf16*>(work_t), static_cast<float*>(work_f), static_cast<bf16*>(dx),
+      static_cast<bf16*>(dqkv), static_cast<bf16*>(merged), static_cast<float*>(dln_s),
+      static_cast<float*>(dln_b), b, t, d, h, causal, eps, scale,
+      static_cast<cudaStream_t>(stream));
 }

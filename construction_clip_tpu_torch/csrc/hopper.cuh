@@ -2,12 +2,14 @@
 // products on the tensor cores with tiles streamed by the Tensor Memory
 // Accelerator:
 //
-//   mbarrier   init, arrive with an expected byte count, wait on a phase;
-//   TMA        a 3-D tile copy from device memory into shared memory that
-//              completes on an mbarrier (rows past the tensor's end are zero);
-//   wgmma      m64n64k16 bf16 -> fp32 with both operands in shared memory
-//              (ss) or A in registers (rs), its fence / commit / wait, and the
-//              shared-memory descriptor of a 128-byte-swizzled tile.
+//   mbarrier   init, arrive (with an expected byte count), wait on a phase;
+//   TMA        a 2-D or 3-D tile copy from device memory into shared memory
+//              that completes on an mbarrier (rows past the tensor's end are
+//              zero);
+//   wgmma      m64n64k16 and m64n128k16 bf16 -> fp32 with both operands in
+//              shared memory (ss), m64n64k16 with A in registers (rs), its
+//              fence / commit / wait, and the shared-memory descriptors of
+//              128-byte-swizzled tiles.
 //
 // A tile here is 64 rows of 64 bf16 (128 bytes a row), written by a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned slot: the layout
@@ -56,6 +58,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One arrival (a consumer releasing a stage).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Spins until the barrier's phase of parity `parity` has completed. A phase
 // that never completes (a copy that was never issued, a wrong byte count) traps
 // after ~2^24 polls, seconds, so that a fault ends the launch with an error
@@ -86,6 +93,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same for a 2-D map (c0 innermost).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -129,6 +146,13 @@ __device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
 __device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
   return desc_sw128(tile, 1024, 1024);
 }
+// An MN-major operand wider than 64 columns, built of one 64 x 64 tile per 64
+// columns of N placed `atom_bytes` apart (each tile one TMA box): the leading
+// byte offset is the step from one 64-column swizzle atom to the next, the
+// stride byte offset the step between 8-row groups of the reduction, as above.
+__device__ __forceinline__ uint64_t desc_mn_major_wide(const void* tile, uint32_t atom_bytes) {
+  return desc_sw128(tile, atom_bytes, 1024);
+}
 
 #define CCT_WGMMA_D32                                                                  \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
@@ -167,11 +191,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "n"(TRANS_B));
 }
 
+#define CCT_WGMMA_D64                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A . B over k = 16, A [64 x 16] and B [16 x 128] in shared memory. d's
+// element (row, col) lives where m64n64k16 puts it, with col / 8 up to 15:
+// index 4 (col / 8) + 2 (row % 16 / 8) + col % 2 (acc_row / acc_col hold).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " CCT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : CCT_D8(0), CCT_D8(8), CCT_D8(16), CCT_D8(24), CCT_D8(32), CCT_D8(40), CCT_D8(48),
+        CCT_D8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
 #undef CCT_D8
 #undef CCT_WGMMA_D32
+#undef CCT_WGMMA_D64
 
-// Row and column, within the warpgroup's [64 x 64] accumulator, of this
-// thread's element k (0..31).
+// Row and column, within the warpgroup's [64 x N] accumulator, of this
+// thread's element k (0 .. N / 2 - 1).
 __device__ __forceinline__ int acc_row(int k) {
   return ((threadIdx.x >> 5) << 4) + ((threadIdx.x & 31) >> 2) + (((k >> 1) & 1) << 3);
 }
@@ -251,21 +297,32 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous bf16 [heads, rows, 64] array in 64 x 64 boxes with
-// the 128-byte swizzle; a box past `rows` reads zeros.
-inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int heads, int rows) {
+// The map of a bf16 array [depth, rows, cols] (cols contiguous, a row
+// `cols` elements long) in boxes of 64 columns x box_rows rows x 1 with the
+// 128-byte swizzle; a box reaching past `rows` or `cols` reads zeros. depth 0
+// gives a 2-D map of [rows, cols] (coordinates column, row), depth >= 1 a 3-D
+// map (column, row, depth index).
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, int depth, int rows, int cols,
+                            int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {64 * sizeof(__nv_bfloat16),
-                                 static_cast<cuuint64_t>(rows) * 64 * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[3] = {64, kBoxRows, 1};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * sizeof(__nv_bfloat16);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth > 0 ? depth : 1)};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2,
+                            const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a contiguous bf16 [heads, rows, 64] array in 64 x 64 boxes; a
+// box past `rows` reads zeros.
+inline cudaError_t head_tile_map(CUtensorMap* map, const void* base, int heads, int rows) {
+  return tile_map(map, base, heads, rows, 64, kBoxRows);
 }
 
 }  // namespace hopper

@@ -37,14 +37,16 @@ SIGNATURES = {
     "cct_attention_block_fwd": ([_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P], _I),
     # dtype, x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, work_t, work_f, dx, dqkv, merged,
     # dln_s, dln_b, b, t, d, h, causal, eps, scale, stream
+    # (SIMT and tensor-core routes)
     "cct_attention_block_bwd": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
+    "cct_attention_block_bwd_tc": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
     "cct_attention_block_bwd_work_floats": ([_I] * 4, _L),
     # dtype, x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, q8, rs, qkv,
     # merged, out, b, t, d, h, causal, eps, scale, stream
     "cct_attention_block_int8": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
-    # dtype, q, ck, cv, ancestry, out, rows, heads, t_max, dh, layer, cache_len,
+    # dtype, q, ck, cv, ancestry, out, rows, heads, t_max, dh, layer, cache_len, chunks,
     # scale, stream
-    "cct_decode_attention": ([_I] + [_P] * 5 + [_I] * 6 + [_F, _P], _I),
+    "cct_decode_attention": ([_I] + [_P] * 5 + [_I] * 7 + [_F, _P], _I),
     # dtype, q, k, v, o, b, h, t, dh, causal, scale, stream (SIMT and tensor-core routes)
     "cct_flash_attention_fwd": ([_I] + [_P] * 4 + [_I] * 5 + [_F, _P], _I),
     "cct_flash_attention_fwd_tc": ([_I] + [_P] * 4 + [_I] * 5 + [_F, _P], _I),

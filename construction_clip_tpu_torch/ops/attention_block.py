@@ -4,11 +4,15 @@ backward (counterpart of construction_clip_tpu/ops/pallas_attention_block.py).
 
 `fused_attention_block` is a `torch.autograd.Function` whose forward is K1
 (csrc/attention_block.cu) and whose backward is K3 (csrc/attention_block_bwd.cu)
-on CUDA tensors, and the plain versions on CPU tensors. K3 recomputes LN, qkv
-and the probabilities from x, as the Pallas backward does, so the Function saves
-only its inputs. Where autograd records no graph (serving under
-`torch.inference_mode()`, or no input requiring grad), nothing is kept after
-the forward. The plain versions keep the Pallas kernels' rounding
+on CUDA tensors, and the plain versions on CPU tensors. On the card `route`
+picks K3's kernel: the tensor-core chain (wgmma, TMA) for bf16 at dh = 64, the
+SIMT chain for fp32 and other widths; a launch that fails raises and never
+retries on the other route. K3 recomputes LN, qkv and the probabilities from x,
+as the Pallas backward does, so the Function saves only its inputs; its
+tensor-core route also hands back h = T(LN(x)), the operand of W_qkv's
+gradient, which the Function recomputes otherwise. Where autograd records no
+graph (serving under `torch.inference_mode()`, or no input requiring grad),
+nothing is kept after the forward. The plain versions keep the Pallas kernels' rounding
 points (see the CUDA sources), so on the card kernel and plain version agree to
 summation order.
 """
@@ -23,6 +27,7 @@ from construction_clip_tpu_torch.ops.norms import layer_norm
 
 MAX_T = 256
 MAX_DH = 128             # K3's per-lane register tiles (csrc/attention_tiles.cuh)
+TC_DH = (64,)            # head widths of K3's tensor-core route (64 x 64 tiles)
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
 _ATTN_WARPS = 4
 
@@ -32,6 +37,13 @@ def attention_smem_bytes(t: int, dh: int) -> int:
     fp32, plus per-warp logits and query rows (csrc/attention_block.cu:
     attn_smem_bytes)."""
     return 4 * (t * (dh + 1) + t * dh + _ATTN_WARPS * (t + dh))
+
+
+def route(dtype, dh: int) -> str:
+    """The chain K3 launches on the card: "tc" (bf16 products on the tensor
+    cores) for bf16 at a head width of TC_DH, else "simt" (fp32 FMA; fp32 on
+    the tensor cores would be TF32)."""
+    return "tc" if dtype == torch.bfloat16 and dh in TC_DH else "simt"
 
 
 def supported(x, n_heads: int) -> bool:
@@ -143,20 +155,25 @@ def fused_attention_block_fwd(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_he
 
 
 def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads: int,
-                              causal: bool = False, eps: float = 1e-5):
+                              causal: bool = False, eps: float = 1e-5, with_h: bool = False):
     """-> dx, dqkv, merged, dln_scale, dln_bias: K3 on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors. With `with_h`, also h = T(LN(x)) where K3's
+    tensor-core route left it in its workspace, else None."""
     args = (ln_s, ln_b, w_qkv, b_qkv, w_out)
     if _build.on_cpu(x, "fused_attention_block_bwd"):
-        return fused_attention_block_bwd_plain(x, g, *args, n_heads=n_heads, causal=causal,
-                                               eps=eps)
+        grads = fused_attention_block_bwd_plain(x, g, *args, n_heads=n_heads, causal=causal,
+                                                eps=eps)
+        return (*grads, None) if with_h else grads
     b, t, d = x.shape
     _check_kernel_args("fused_attention_block_bwd", x, (x, g) + args,
                        ((b, t, d), (b, t, d), (d,), (d,), (d, 3 * d), (3 * d,), (d, d)),
                        n_heads)
     lib = _build.load_library()
     dev, dtype = x.device, x.dtype
-    work_t = torch.empty(b * t * 4 * d, dtype=dtype, device=dev)
+    tc = route(dtype, d // n_heads) == "tc"
+    entry = lib.cct_attention_block_bwd_tc if tc else lib.cct_attention_block_bwd
+    # qkv [B*T, 3D] and dmg [B*T, D]; the tensor-core route leaves h [B*T, D] after them
+    work_t = torch.empty((5 if tc else 4) * b * t * d, dtype=dtype, device=dev)
     work_f = torch.empty(lib.cct_attention_block_bwd_work_floats(b, t, d, n_heads),
                          dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -165,7 +182,7 @@ def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads:
     dln_s = torch.empty(d, dtype=torch.float32, device=dev)
     dln_b = torch.empty(d, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.cct_attention_block_bwd(
+        err = entry(
             _build.dtype_code(dtype), x.data_ptr(), g.data_ptr(),
             *(a.data_ptr() for a in args), work_t.data_ptr(), work_f.data_ptr(),
             dx.data_ptr(), dqkv.data_ptr(), merged.data_ptr(), dln_s.data_ptr(),
@@ -173,7 +190,11 @@ def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads:
             float((d // n_heads) ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_attention_block_bwd")
     fused_attention_block_bwd.launches += 1
-    return dx, dqkv, merged, dln_s, dln_b
+    fused_attention_block_bwd.tc_launches += tc
+    grads = (dx, dqkv, merged, dln_s, dln_b)
+    if not with_h:
+        return grads
+    return (*grads, work_t[4 * b * t * d:].view(b, t, d) if tc else None)
 
 
 def _weight_grad(a, b, dtype):
@@ -198,14 +219,16 @@ class _FusedBlock(torch.autograd.Function):
         x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out = ctx.saved_tensors
         n_heads, causal, eps = ctx.cfg
         g = g.to(x.dtype).contiguous()
-        dx, dqkv, merged, dln_s, dln_b = fused_attention_block_bwd(
-            x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, n_heads=n_heads, causal=causal, eps=eps)
-        h = layer_norm(x, ln_s, ln_b, eps=eps)
+        dx, dqkv, merged, dln_s, dln_b, h = fused_attention_block_bwd(
+            x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, n_heads=n_heads, causal=causal, eps=eps,
+            with_h=True)
+        if h is None:
+            h = layer_norm(x, ln_s, ln_b, eps=eps)
         return (dx, dln_s.to(ln_s.dtype), dln_b.to(ln_b.dtype),
                 _weight_grad(h, dqkv, w_qkv.dtype),
-                dqkv.float().sum(dim=(0, 1)).to(b_qkv.dtype),
+                dqkv.sum(dim=(0, 1), dtype=torch.float32).to(b_qkv.dtype),
                 _weight_grad(merged, g, w_out.dtype),
-                g.float().sum(dim=(0, 1)).to(b_out.dtype), None, None, None)
+                g.sum(dim=(0, 1), dtype=torch.float32).to(b_out.dtype), None, None, None)
 
 
 def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
@@ -217,4 +240,5 @@ def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
 
 
 fused_attention_block.launches = 0      # K1
-fused_attention_block_bwd.launches = 0  # K3
+fused_attention_block_bwd.launches = 0  # K3, and those of its tensor-core route
+fused_attention_block_bwd.tc_launches = 0

@@ -132,7 +132,7 @@ def _python_files():
     root = os.path.join(REPO, "construction_clip_tpu_torch")
     for dirpath, _, files in os.walk(root):
         yield from (os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py"))
-    yield os.path.join(REPO, "chip_smoke.py")
+    yield from (os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_ab.py"))
 
 
 def _imports(path):

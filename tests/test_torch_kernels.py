@@ -227,6 +227,91 @@ def test_attention_block_backward_kernel_on_card(shape, dtype, gen, cuda_device)
         assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
 
 
+# K3's tensor-core route (fab.route: bf16 at dh=64): the training towers'
+# shapes, and the edges of its 64-row tiles (T = 1, a lone key; 64, one whole
+# tile; 65, one row in the last; 256, the gate) at 3 rows a batch
+K3_TC_CASES = ([(36, 50, 768, 12, False), (36, 77, 512, 8, True), (9, 77, 768, 12, True)] +
+               [(3, t, 128, 2, causal) for t in (1, 64, 65, 256) for causal in (False, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_TC_CASES)
+def test_attention_block_backward_tensor_cores_on_card(shape, gen, cuda_device):
+    b, t, d, h, causal = shape
+    x, g, args = _block_case(gen, cuda_device, torch.bfloat16, b, t, d)
+    wrapper = fab.fused_attention_block_bwd
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = wrapper(x, g, *args, n_heads=h, causal=causal)
+    want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), got, want):
+        assert _within(a, w, GRAD_TOL[torch.bfloat16]), name
+    # fixed-order sums, no atomics: a second call gives the same bits
+    again = wrapper(x, g, *args, n_heads=h, causal=causal, with_h=True)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+    # the route hands back T(LN(x)) for W_qkv's gradient: one bf16 rounding of
+    # statistics summed in another order apart from layer_norm's
+    assert _within(again[5], fab.layer_norm(x, args[0], args[1]), 2 ** -7)
+
+
+@pytest.mark.cuda
+def test_attention_block_backward_tensor_core_entry_refuses_what_it_does_not_take(
+        gen, cuda_device):
+    """The tensor-core C entry refuses fp32 and other head widths with an
+    error; it never runs them on the SIMT chain."""
+    lib = _build.load_library()
+    for dtype, d, h in ((torch.float32, 128, 2), (torch.bfloat16, 128, 4)):   # dh 64, 32
+        x, g, args = _block_case(gen, cuda_device, dtype, 2, 8, d)
+        work_t = torch.empty(2 * 8 * 4 * d, dtype=dtype, device=cuda_device)
+        work_f = torch.empty(lib.cct_attention_block_bwd_work_floats(2, 8, d, h),
+                             dtype=torch.float32, device=cuda_device)
+        outs = [torch.empty_like(x), torch.empty(2, 8, 3 * d, dtype=dtype, device=cuda_device),
+                torch.empty_like(x), torch.empty(d, device=cuda_device),
+                torch.empty(d, device=cuda_device)]
+        err = lib.cct_attention_block_bwd_tc(
+            _build.dtype_code(dtype), x.data_ptr(), g.data_ptr(), *(a.data_ptr() for a in args),
+            work_t.data_ptr(), work_f.data_ptr(), *(o.data_ptr() for o in outs), 2, 8, d, h, 0,
+            1e-5, (d // h) ** -0.5, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(err, "fused_attention_block_bwd")
+
+
+# K2 at beam 3 of one image, one row, and 8 images x beam 3 (the chunk count
+# falls from several chunks a (row, head) to one); every cache length class:
+# the first position alone, about a 64-position boundary, the last position,
+# and past the cache (n_valid = t_max)
+K2_CARD_T_MAX = 150
+K2_CARD_CACHE_LENS = (0, 63, 64, 139, K2_CARD_T_MAX - 1, K2_CARD_T_MAX + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_ancestry", [False, True])
+@pytest.mark.parametrize("rows", [1, 3, 24])
+def test_decode_attention_cases_on_card(rows, with_ancestry, dtype, gen, cuda_device):
+    layers, heads, t_max, dh = 2, 12, K2_CARD_T_MAX, 64
+    ck, cv = (torch.from_numpy(gen.standard_normal((layers, rows, heads, t_max, dh))
+                               .astype(np.float32)).to(cuda_device, dtype) for _ in range(2))
+    q = torch.from_numpy(gen.standard_normal((rows, heads, dh)).astype(np.float32)).to(
+        cuda_device, dtype)
+    anc = (torch.from_numpy(gen.integers(0, rows, (rows, t_max), dtype=np.int32)).to(cuda_device)
+           if with_ancestry else None)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for cache_len in K2_CARD_CACHE_LENS:
+        got = dec.decode_step_attention(q, ck, cv, 1, cache_len, anc)
+        want = dec.decode_step_attention_plain(q, ck, cv, 1, min(cache_len, t_max - 1), anc)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   err_msg=f"cache_len {cache_len}", **tol)
+        # chunks merged in a fixed order, no float atomics: the same bits again
+        assert torch.equal(dec.decode_step_attention(q, ck, cv, 1, cache_len, anc), got)
+    # 16-byte loads: a head width that is no whole number of them is refused
+    with pytest.raises(ValueError, match="16 bytes"):
+        dec.decode_step_attention(q[..., :30].contiguous(), ck[..., :30].contiguous(),
+                                  cv[..., :30].contiguous(), 1, 5, anc)
+
+
 # bf16 at dh=64 takes the tensor-core route (fa.route): the edges of its 64-row
 # tiles (T=1, a lone key; 63, 64, 65 about one tile; 77, the text towers; 257,
 # ViT-L/14; 1024, the gate), causal and not. fp32, and bf16 at another head
