@@ -10,8 +10,15 @@ serve: phase 5 (ViT-B/32 + GPT-2 12x768 beam 3 in bf16 through
 TorchPredictService, 10 requests from 4 threads). train: phase 9 (ViT-B/32
 contrastive training, bf16, B=36, 10 steps; its median step). kernels: the
 device time (CUDA-graph replay, chip_smoke.graph_ms) and wrapper time of K2
-at R=24 and R=3 (H=12, Dh=64, cache_len 139, beam ancestry, bf16) and of K3
-at [36,50,768] H=12 bf16, on inputs drawn from one numpy seed in both trees.
+at R=24 and R=3 (H=12, Dh=64, cache_len 139, beam ancestry, bf16), of K3 at
+[36,50,768] H=12 bf16, and of K1 and K9 at [8,50,768] and [36,50,768] bf16
+(H=12; hidden 3072), each with its launches' device times (torch.profiler,
+chip_smoke.kernel_device_ms) and the composed library version's device time
+beside it (K1: chip_smoke.composed_block's forward; K9: the default MLP of
+models/blocks), on inputs drawn from one numpy seed in both trees; then a
+digest (sha256 of the bytes) of the outputs of K3 (bf16 and fp32), K1 and K9
+in fp32 and K7 (bf16 and fp32) on inputs of another seed, so that equal
+digests show the two trees' bits equal.
 
 Each checkout builds its own kernels. Prints each run's JSON lines with the
 checkout they came from, then the card's name and power limit.
@@ -48,7 +55,7 @@ cfg = cs.CLIPConfig.vit_b_32()
 batch = cs.class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
 cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
-    "kernels": (("ab_k2", "ab_k3"), r"""
+    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_bits"), r"""
 cs.phase_build()
 rng = np.random.default_rng(2)
 for rows in (24, 3):
@@ -70,6 +77,62 @@ def k3():
     return cs.fused_attention_block_bwd(x, g, *args, n_heads=12, causal=False)
 
 cs.say("ab_k3", shape=[36, 50, 768], device_ms=cs.graph_ms(k3), ms=cs.median_ms(k3, 11, 3))
+for b in (8, 36):
+    x, ln, attn = cs._block_inputs(rng, b, 50, 768, torch.bfloat16, "cuda")
+    args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], attn["b_out"])
+
+    def k1():
+        return cs.fused_attention_block(x, ln, attn, n_heads=12)
+
+    def composed():
+        return cs.composed_block(x, *args, n_heads=12, causal=False)
+
+    cs.say("ab_k1", shape=[b, 50, 768], device_ms=cs.graph_ms(k1), ms=cs.median_ms(k1),
+           composed_device_ms=cs.graph_ms(composed), launch_device_ms=cs.kernel_device_ms(k1))
+from construction_clip_tpu_torch.ops.activations import quick_gelu
+for b in (8, 36):
+    x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj = cs._mlp_inputs(rng, b, 50, 768, 3072,
+                                                               torch.bfloat16)
+    mlp_p = {"w_fc": w_fc, "b_fc": b_fc, "w_proj": w_proj, "b_proj": b_proj}
+    ln_p = {"scale": ln_s, "bias": ln_b}
+
+    def k9():
+        return cs.fused_mlp_residual(x, mlp_p, ln_p)
+
+    def composed():
+        return cs.blocks._mlp_residual(x, {"mlp": mlp_p, "ln_2": ln_p}, quick_gelu, 1e-5)
+
+    cs.say("ab_k9", shape=[b, 50, 768], hidden=3072, device_ms=cs.graph_ms(k9),
+           ms=cs.median_ms(k9), composed_device_ms=cs.graph_ms(composed),
+           launch_device_ms=cs.kernel_device_ms(k9))
+import hashlib
+
+
+def digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+rng = np.random.default_rng(3)
+for dtype in (torch.bfloat16, torch.float32):
+    x, ln, attn = cs._block_inputs(rng, 36, 50, 768, dtype, "cuda")
+    g = torch.from_numpy(rng.standard_normal((36, 50, 768)).astype(np.float32)).cuda().to(dtype)
+    cs.say("ab_bits", kernel="K3", dtype=str(dtype), digest=digest(*cs.fused_attention_block_bwd(
+        x, g, ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], n_heads=12)))
+for b, t, d, h, causal in ((8, 50, 768, 12, False), (9, 77, 512, 8, True)):
+    x, ln, attn = cs._block_inputs(rng, b, t, d, torch.float32, "cuda")
+    cs.say("ab_bits", kernel="K1", dtype="torch.float32", shape=[b, t, d], digest=digest(
+        cs.fused_attention_block(x, ln, attn, n_heads=h, causal=causal)))
+x, *rest = cs._mlp_inputs(rng, 8, 50, 768, 3072, torch.float32)
+cs.say("ab_bits", kernel="K9", dtype="torch.float32", digest=digest(cs.fused_mlp_residual(
+    x, dict(zip(("w_fc", "b_fc", "w_proj", "b_proj"), rest[2:])),
+    {"scale": rest[0], "bias": rest[1]})))
+for dtype in (torch.bfloat16, torch.float32):
+    x, ln, qattn, _ = cs._int8_block_inputs(rng, 8, 50, 768, dtype, "cuda")
+    cs.say("ab_bits", kernel="K7", dtype=str(dtype),
+           digest=digest(cs.fused_attention_block_int8(x, ln, qattn, n_heads=12)))
 """),
 }
 

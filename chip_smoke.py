@@ -7,8 +7,11 @@ Phases, each printing one line (the last line is the JSON verdict):
   1. device: the card's name and power limit; no CUDA device is an error.
   2. build: nvcc builds the port's CUDA kernels from csrc/ (timed).
   3. K1, the fused attention block, against its plain version at the serving
-     and training paths' shapes, bf16 and fp32, with times (bf16: also the
-     device time, the replay of a CUDA graph of 20 calls).
+     and training paths' shapes, bf16 (tensor-core route: its counter must
+     move) and fp32 (SIMT route), with times; for bf16 also the device time
+     (the replay of a CUDA graph of 20 calls), each of its launches' device
+     time under torch.profiler, and the device time of the composed block's
+     forward (layer_norm, addmm, SDPA, addmm, add: cuBLAS and SDPA).
   4. K2, decode-step attention with beam ancestry, against its plain version
      at 8 images x beam 3 (R=24) and 1 image x beam 3 (R=3), cache lengths 0
      to t_max - 1, bf16 and fp32, bit-equal on a second call; at cache_len
@@ -16,7 +19,8 @@ Phases, each printing one line (the last line is the JSON verdict):
      yardstick's.
   5. the serving path at full width (ViT-B/32, GPT-2 12x768, MLP mapper, random
      weights from a numpy seed, bf16): requests from 4 threads through
-     TorchPredictService; launch counts of both kernels in that run.
+     TorchPredictService; launch counts of both kernels in that run, every
+     K1 launch on the tensor-core route.
   6. kernel path against plain path at full width in fp32: image features,
      zero-shot classes and greedy tokens.
   7. K3, the fused block's backward, against its plain version at the training
@@ -30,18 +34,19 @@ Phases, each printing one line (the last line is the JSON verdict):
      versions at the ViT-L/14 image tower's shape, a causal text shape, T=1024
      causal and T=65, bf16 on the tensor-core route and fp32 on the SIMT
      route (each route's launch counter must move); the tensor-core
-     instructions (HGMMA/HMMA) and registers of each K3/K4/K5 kernel in the
-     built libraries (a tensor-core kernel without HGMMA fails the run); the
+     instructions (HGMMA/HMMA) and registers of each K1/K3/K4/K5/K9 kernel in
+     the built libraries (a tensor-core kernel without HGMMA fails the run); the
      wrapper times and, for bf16, the device times (CUDA-graph
      replays) of K4, K5 and scaled_dot_product_attention's forward and
      backward, and of each of K5's three launches (torch.profiler).
   9. ViT-B/32 contrastive training at full width and depth, bf16, B=36 (4
      class-balanced groups of 9): 10 make_train_step steps on one batch; the
-     loss must fall; launch counts of K1 and K3, every K3 launch on the
-     tensor-core route; the median step.
+     loss must fall; launch counts of K1 and K3, every K1 and K3 launch on
+     the tensor-core route; the median step, and a step's device time (its
+     kernels under torch.profiler; so in every training phase in one process).
  10. ViT-L/14 contrastive training at full width and depth, bf16, B=9, 3 steps;
      K4 and K5 launch from the image tower, K1 and K3 from the text tower,
-     every K3/K4/K5 launch on the tensor-core route; the median step time.
+     every K1/K3/K4/K5 launch on the tensor-core route; the median step time.
  11. the kernel path against the plain path in fp32: loss and every gradient
      leaf over 2 ViT-B/32 steps from the same params.
  12. K8, the vocab-head GEMV, against its plain version at mT5-small's head
@@ -72,17 +77,21 @@ Phases, each printing one line (the last line is the JSON verdict):
  19. K9, the fused MLP residual, against its plain version at the towers'
      shapes ([8,50,768]->3072 bf16 and fp32, [36,50,768] bf16, [9,77,512]->2048
      bf16), with times, the composed default MLP's time beside them, the
-     backward's time, and the device times from CUDA-graph replays.
+     backward's time, and the device times from CUDA-graph replays; bf16 on
+     the tensor-core route (its counter must move), with each launch's device
+     time under torch.profiler, fp32 on the SIMT route.
  20. the staged fused-MLP zero-shot path at full width (ViT-B/32, bf16,
      USE_FUSED_MLP on): 224-staged uint8 through preprocess_staged (K6) and
-     infer/zeroshot.classify_batch (K1 and K9 in every block of both towers),
+     infer/zeroshot.classify_batch (K1 and K9 in every block of both towers,
+     every launch on the tensor-core route),
      and the port's apps/predict_zeroshot.make_process on 256-staged arrays;
      held against the plain path (switch on, plain impl) in bf16 and fp32.
  21. infer/precompute.precompute_corpus at full width over 70 synthetic
      images (one unreadable) through a load_image hook, fused MLP on: the
      archive's keys and shapes.
  22. ViT-B/32 contrastive training with the fused MLP on (bf16, B=36, 5
-     steps): the loss falls, K1, K3 and K9 launch; its median step time beside
+     steps): the loss falls, K1, K3 and K9 launch, every launch on the
+     tensor-core route; its median step time and device time beside
      phase 9's; then phase 11's fp32 gradient parity with the switch on.
  23. K10, the data-parallel feature all-gather, with 4 ranks sharing the card
      (spawned processes, CUDA IPC between them): bit-equal to its plain
@@ -93,16 +102,16 @@ Phases, each printing one line (the last line is the JSON verdict):
  24. data-parallel ViT-B/32 training at full width and depth, bf16, 4 ranks on
      the card, global B=36 (phase 9's batch, 9 rows a rank), params from
      phase 9's seed on rank 0 broadcast to the others: 5 steps, the loss
-     falls; per rank K10 launches twice a step, K1 and K3 launch, every K3
-     launch on the tensor-core route. The ranks
+     falls; per rank K10 launches twice a step, K1 and K3 launch, every K1
+     and K3 launch on the tensor-core route. The ranks
      time-slice one card: the step times are no multi-GPU speed.
  25. the 4-rank step against the one-process step in fp32 on the same params
      and B=36 batch: the loss, the accuracy, every gradient leaf after the
      mean over ranks, and the global eval accuracy.
  26. data-parallel ViT-L/14 training (BASELINE config 5's model) at full width
      and depth, bf16, 2 ranks, global B=18, 2 steps: K4/K5 launch from the
-     image tower and K10 from the loss in every rank, every K3/K4/K5 launch on
-     the tensor-core route.
+     image tower and K10 from the loss in every rank, every K1/K3/K4/K5
+     launch on the tensor-core route.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -438,13 +447,23 @@ def phase_k1(results: dict) -> None:
             def plain():
                 return fused_attention_block_plain(x, *args, n_heads=h, causal=causal)
 
+            def composed():
+                return composed_block(x, *args, n_heads=h, causal=causal)
+
+            tc_before = fused_attention_block.tc_launches
             got = kernel()
             torch.cuda.synchronize()
-            stats = compare(got, plain(), *K1_TOL[dtype],
-                            what=f"K1 {[b, t, d]} h={h} causal={causal} {dtype}")
-            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
-            if dtype == torch.bfloat16:
-                stats["device_ms"] = graph_ms(kernel)
+            what = f"K1 {[b, t, d]} h={h} causal={causal} {dtype}"
+            on_tc = fused_attention_block.tc_launches != tc_before
+            if on_tc != (dtype == torch.bfloat16):
+                raise AssertionError(f"{what}: the tensor-core route's counter "
+                                     f"{'moved' if on_tc else 'did not move'}")
+            stats = compare(got, plain(), *K1_TOL[dtype], what=what)
+            stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
+                         route="tc" if on_tc else "simt")
+            if dtype == torch.bfloat16:   # device times, the host's launch costs left out
+                stats.update(device_ms=graph_ms(kernel), composed_device_ms=graph_ms(composed),
+                             launch_device_ms=kernel_device_ms(kernel))
             say("k1", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype), **stats)
             if (b, t, d) == (8, 50, 768) and dtype == torch.bfloat16:
                 m = b * t
@@ -564,7 +583,8 @@ def synthetic_images(rng, shapes):
 
 
 # the kernels with a tensor-core route, each counting its launches there
-TC_WRAPPERS = ("fused_attention_block_bwd", "flash_attention_fwd", "flash_attention_bwd")
+TC_WRAPPERS = ("fused_attention_block", "fused_attention_block_bwd", "flash_attention_fwd",
+               "flash_attention_bwd", "fused_mlp_residual")
 
 
 def reset_launches() -> None:
@@ -633,6 +653,7 @@ def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
         responses = list(pool.map(svc.predict, images))
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in launches().items() if k in SERVE_KERNELS}
+    check_tc_route("serving bf16", counts, tc_launches(), ("fused_attention_block",))
     for r in responses:
         if r["caption_type"] not in ("violation", "status") or \
                 r["violation_type"] not in VIOLATION_TYPES or not isinstance(r["caption"], str):
@@ -910,9 +931,12 @@ def phase_k3(results: dict) -> None:
 
 
 # the tensor-core routes' kernels by source: K4/K5's (forward; the backward's
-# statistics, dq and dk/dv passes) and K3's (its GEMMs and the same passes)
+# statistics, dq and dk/dv passes), K3's (its GEMMs and the same passes), K1's
+# (its GEMMs and its attention pass) and K9's (its GEMMs)
 TC_KERNELS = {"flash_attention.cu": ("tc_fwd", "tc_stats", "tc_dq", "tc_dkv"),
-              "attention_block_bwd.cu": ("gemm_tc", "tc_stats", "tc_dq", "tc_dkv")}
+              "attention_block_bwd.cu": ("gemm_tc", "tc_stats", "tc_dq", "tc_dkv"),
+              "attention_block.cu": ("gemm_tc", "tc_block_fwd"),
+              "mlp_residual.cu": ("gemm_tc",)}
 
 
 def tensor_core_counts(source: str) -> dict:
@@ -1057,13 +1081,16 @@ def phase_train(name: str, cfg, params_np, batch, steps: int, device) -> dict:
         times.append(time.perf_counter() - t0)
         say(f"train_{name}_step", step=i + 1, loss=losses[-1],
             accuracy=float(m["accuracy"]), ms=times[-1] * 1e3)
-    counts = launches()
+    counts, tc = launches(), tc_launches()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: loss not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the device's share of a step: its kernels' time under torch.profiler over
+    # two more steps, against the median step on the host's clock
+    step_device_ms = sum(kernel_device_ms(lambda: step(state, batch), reps=2).values())
     out = {"batch": int(batch["tokens"].shape[0]), "steps": steps, "losses": losses,
-           "median_step_ms": statistics.median(times) * 1e3,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": counts, "tc_launches": tc_launches()}
+           "median_step_ms": statistics.median(times) * 1e3, "step_device_ms": step_device_ms,
+           "peak_memory_gib": peak, "launches": counts, "tc_launches": tc}
     say(f"train_{name}", **out)
     return out
 
@@ -1637,11 +1664,19 @@ def phase_k9(results: dict) -> None:
         def composed():
             return blocks._mlp_residual(x, {"mlp": mlp_p, "ln_2": ln_p}, quick_gelu, 1e-5)
 
+        tc_before = fused_mlp_residual.tc_launches
         got = kernel()
         torch.cuda.synchronize()
         what = f"K9 {[b, t, d]}->{hidden} {dtype}"
+        on_tc = fused_mlp_residual.tc_launches != tc_before
+        if on_tc != (dtype == torch.bfloat16):
+            raise AssertionError(f"{what}: the tensor-core route's counter "
+                                 f"{'moved' if on_tc else 'did not move'}")
         stats = compare_scaled(got, plain(), K9_TOL[dtype], what)
-        stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain))
+        stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
+                     route="tc" if on_tc else "simt")
+        if dtype == torch.bfloat16:
+            stats["launch_device_ms"] = kernel_device_ms(kernel)
         leaves = [a.detach().requires_grad_() for a in args]
         out = fused_mlp_residual(leaves[0], dict(zip(mlp_p, leaves[3:])),
                                  {"scale": leaves[1], "bias": leaves[2]})
@@ -1704,6 +1739,8 @@ def phase_zeroshot_fused(clip_np, cfg, clip_tok, device, *, batch: int = 8) -> d
         pred = pred.cpu()
         wall = time.perf_counter() - t0
         counts = launches()
+        check_tc_route("staged zero-shot bf16", counts, tc_launches(),
+                       ("fused_attention_block", "fused_mlp_residual"))
         layers = cfg.vision.layers + cfg.text.layers
         if counts["normalize_u8"] != 1 or counts["fused_attention_block"] != layers or \
                 counts["fused_mlp_residual"] != layers:
@@ -2052,7 +2089,7 @@ def main() -> None:
         if out["launches"][name] <= 0:
             raise AssertionError(f"{name} never launched in ViT-B/32 training")
     check_tc_route("ViT-B/32 bf16", out["launches"], out["tc_launches"],
-                   ("fused_attention_block_bwd",))
+                   ("fused_attention_block", "fused_attention_block_bwd"))
     say("train_vit_b_32_tensor_cores", median_step_ms=out["median_step_ms"],
         tc_launches=out["tc_launches"], batch=out["batch"])
     counts["fused_attention_block_bwd"] = out["launches"]["fused_attention_block_bwd"]
@@ -2101,9 +2138,11 @@ def main() -> None:
         if out["launches"][name] <= 0:
             raise AssertionError(f"{name} never launched in fused-MLP ViT-B/32 training")
     check_tc_route("fused-MLP ViT-B/32 bf16", out["launches"], out["tc_launches"],
-                   ("fused_attention_block_bwd",))
+                   ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"))
     say("train_fused_mlp_vs_default", fused_median_step_ms=out["median_step_ms"],
-        default_median_step_ms=vit_b_32_default["median_step_ms"], batch=out["batch"])
+        default_median_step_ms=vit_b_32_default["median_step_ms"],
+        fused_step_device_ms=out["step_device_ms"],
+        default_step_device_ms=vit_b_32_default["step_device_ms"], batch=out["batch"])
     batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
     with fused_mlp():
         phase_train_parity(cfgs[0], clip_np, batch, "cuda",

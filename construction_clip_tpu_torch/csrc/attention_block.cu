@@ -9,25 +9,45 @@
 // of p; the output is T(x32 + y + b_out) rounded once.
 //
 // What bounds it on the H100: the two weight GEMMs hold ~99% of the FLOPs
-// (at [8,50,768]: 1.9 GFLOP against 4.7 MB of bf16 weights, i.e. far below
-// the ~295 FLOP/byte ridge, so a tensor-core GEMM would be bound by reading
-// the weights). This first version runs the products on the CUDA cores in fp32
-// FMA, so it is bound by the FMA rate, not by memory.
+// (at [8,50,768]: 1.9 GFLOP against 4.7 MB of bf16 weights and 1.2 MB of x
+// and out, ~320 operations a byte, just over the ~295 at which the tensor
+// cores and not HBM become the limit: 1.9 us at 989 TFLOP/s).
 //
 // Design: on the TPU both weight matrices sit in VMEM (5.3 MB for ViT-B). A
-// Hopper block has at most 227 KB of shared memory, so the block is three
+// Hopper block has at most 227 KB of shared memory, so the block is a chain of
 // launches from one C entry, with qkv and the merged heads in device scratch
-// the wrapper allocates:
+// the wrapper allocates. Two routes, chosen by ops/attention_block.py:route
+// (a launch on one never retries the other):
+//
+// SIMT (fp32, and bf16 at head widths other than 64; cct_attention_block_fwd),
+// the products in fp32 FMA on the CUDA cores (fp32 on the tensor cores would
+// be TF32, a different result), bound by the FMA rate:
 //   (a) block_gemm<kQkv> (gemm.cuh): a 64x64-tiled GEMM whose prologue computes
 //       each row's LN statistics and normalises the A tile as it is staged;
 //   (b) head_attention (head_attention.cuh): one block per (batch, head) with
 //       that head's K and V (T <= 256) staged in dynamic shared memory; one
 //       warp per query row;
 //   (c) block_gemm<kResidual>: merged . W_out with a bias + residual epilogue.
-// No library GEMM or attention is called.
+//
+// Tensor cores (bf16 at dh = 64, T <= 256; cct_attention_block_fwd_tc), every
+// product on wgmma with TMA-fed tiles, K3's tensor-core design:
+//   (1) ln_rows (ln_rows.cuh): h = T(LN(x)), into the merged scratch, once a
+//       row (the SIMT prologue normalises each A element again for each of the
+//       3D / 64 column tiles);
+//   (2) gemm_tc<kQkv> (gemm_tc.cuh): qkv = T(T(h W_qkv) + b_qkv), W_qkv read
+//       where it lies (MN-major);
+//   (3) tc_block_fwd (attention_tc.cuh): per (batch, head) and 64-row query
+//       tile, q, k and v read out of qkv at their column offsets through 3-D
+//       TMA maps, merged written at the head's columns;
+//   (4) gemm_tc<kResidual>: out = T((x + merged W_out) + b_out).
+// The rounding points are the SIMT chain's; bf16(p) is the operand wgmma takes
+// anyway. No library GEMM or attention is called.
+#include "attention_tc.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 #include "head_attention.cuh"
+#include "ln_rows.cuh"
 
 namespace cct {
 namespace {
@@ -62,11 +82,39 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
       static_cast<T*>(out), m, d, d, eps, stream);
 }
 
+#define CCT_TRY(expr)                      \
+  do {                                     \
+    const cudaError_t e_ = (expr);         \
+    if (e_ != cudaSuccess) return e_;      \
+  } while (0)
+
+// The tensor-core route: h = T(LN(x)) lives in `merged` until the qkv product
+// has read it, then the attention pass overwrites it with the merged heads.
+cudaError_t run_block_tc(const bf16* x, const bf16* ln_s, const bf16* ln_b, const bf16* w_qkv,
+                         const bf16* b_qkv, const bf16* w_out, const bf16* b_out, bf16* qkv,
+                         bf16* merged, bf16* out, int b, int t, int d, int h, int causal,
+                         float eps, float scale, cudaStream_t stream) {
+  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0 || d / h != kTcDh ||
+      n_tiles(t) > kBlockMaxTiles)
+    return cudaErrorInvalidValue;
+  const int rows = b * t;
+  CCT_TRY(launch_ln_rows(x, ln_s, ln_b, merged, rows, d, eps, stream));
+  CCT_TRY((launch_gemm_tc<kQkv, false>(merged, w_qkv, b_qkv, nullptr, qkv, rows, 3 * d, d,
+                                       stream)));
+  CUtensorMap mqkv;  // [B, T, 3D] in 64 x 64 boxes, zeros past T
+  CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
+  CCT_TRY(tc_launch(tc_block_fwd, tc_block_smem_bytes(t), b * h, t, stream, mqkv,
+                    TcGeom{h, {0, d, 2 * d, 0}}, TcOut{merged, (long long)t * d, d}, t, causal,
+                    scale));
+  return launch_gemm_tc<kResidual, false>(merged, w_out, b_out, x, out, rows, d, d, stream);
+}
+
 }  // namespace
 }  // namespace cct
 
 // Returns a cudaError_t; nonzero means a launch was refused. qkv [B*T, 3D] and
 // merged [B*T, D] are scratch of the input type; all arrays are contiguous.
+// The SIMT route.
 extern "C" int cct_attention_block_fwd(int dtype, const void* x, const void* ln_s,
                                        const void* ln_b, const void* w_qkv,
                                        const void* b_qkv, const void* w_out,
@@ -84,6 +132,24 @@ extern "C" int cct_attention_block_fwd(int dtype, const void* x, const void* ln_
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core route, same arguments: bf16 at dh = 64 and T <= 256 only
+// (anything else is refused, never run on the other route).
+extern "C" int cct_attention_block_fwd_tc(int dtype, const void* x, const void* ln_s,
+                                          const void* ln_b, const void* w_qkv,
+                                          const void* b_qkv, const void* w_out,
+                                          const void* b_out, void* qkv, void* merged,
+                                          void* out, int b, int t, int d, int h, int causal,
+                                          float eps, float scale, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (dtype != cct::kBFloat16) return cudaErrorInvalidValue;
+  return cct::run_block_tc(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s), static_cast<const bf16*>(ln_b),
+      static_cast<const bf16*>(w_qkv), static_cast<const bf16*>(b_qkv),
+      static_cast<const bf16*>(w_out), static_cast<const bf16*>(b_out), static_cast<bf16*>(qkv),
+      static_cast<bf16*>(merged), static_cast<bf16*>(out), b, t, d, h, causal, eps, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cct_error_string(int err) {

@@ -44,8 +44,9 @@
 // k, v out of qkv and dO out of dmg through column offsets, writing dq, dk and
 // dv into their column slices of dqkv, and the dq pass writing merged). The
 // products' A operands come from memory through TMA, so a row pass first
-// writes h = T(LN(x)) into a fifth D-wide slot of the T-typed scratch, where
-// the caller finds it for the weight gradient of W_qkv (10 launches in all).
+// writes h = T(LN(x)) (ln_rows.cuh, shared with K1 and K9) into a fifth
+// D-wide slot of the T-typed scratch, where the caller finds it for the
+// weight gradient of W_qkv (10 launches in all).
 // A row pass and not a producer that normalises into the swizzled tile: TMA
 // then stays a plain copy, and the pass moves 4 rows D bytes (5.5 MB at
 // [36, 50, 768], ~2 us at the HBM rate). The rounding points are the SIMT chain's; p_lo and
@@ -56,11 +57,12 @@
 #include "common.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
+#include "ln_rows.cuh"
 
 namespace cct {
 namespace {
 
-constexpr int kLnWarps = 8, kLnChunk = 64, kColThreads = 256;
+constexpr int kLnChunk = 64, kColThreads = 256;   // kLnWarps: ln_rows.cuh
 
 size_t ln_chunks(int rows) { return (rows + kLnChunk - 1) / kLnChunk; }
 
@@ -230,29 +232,6 @@ cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, con
 
 // ---- tensor-core route (bf16, dh = 64) --------------------------------------
 
-// h = T(LN(x)), one warp a row, with gemm.cuh's prologue arithmetic (two-pass
-// statistics, each affine step rounded): the A operand of the qkv product.
-__global__ void __launch_bounds__(32 * kLnWarps)
-ln_rows(const bf16* __restrict__ x, const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
-        bf16* __restrict__ h, int rows, int d, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kLnWarps + warp;
-  if (m >= rows) return;
-  const bf16* xr = x + (size_t)m * d;
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += to_f(xr[c]);
-  const float mean = warp_sum(s) / d;
-  float var = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float dv = to_f(xr[c]) - mean;
-    var += dv * dv;
-  }
-  const float rstd = rsqrtf(warp_sum(var) / d + eps);
-  for (int c = lane; c < d; c += 32)
-    h[(size_t)m * d + c] = from_f<bf16>(__fadd_rn(
-        __fmul_rn(__fmul_rn(to_f(xr[c]) - mean, rstd), to_f(ln_s[c])), to_f(ln_b[c])));
-}
-
 cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, const bf16* ln_b,
                              const bf16* w_qkv, const bf16* b_qkv, const bf16* w_out,
                              bf16* work_t, float* work_f, bf16* dx, bf16* dqkv, bf16* merged,
@@ -269,11 +248,9 @@ cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, con
   float* row_rstd = row_mean + rows;
   float* partial = row_rstd + rows;
 
-  ln_rows<<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0, stream>>>(x, ln_s, ln_b, hn,
-                                                                           rows, d, eps);
-  CCT_TRY(cudaGetLastError());
-  CCT_TRY((launch_gemm_tc<kQkv, false>(hn, w_qkv, b_qkv, qkv, rows, 3 * d, d, stream)));
-  CCT_TRY((launch_gemm_tc<kRound, true>(g, w_out, nullptr, dmg, rows, d, d, stream)));
+  CCT_TRY(launch_ln_rows(x, ln_s, ln_b, hn, rows, d, eps, stream));
+  CCT_TRY((launch_gemm_tc<kQkv, false>(hn, w_qkv, b_qkv, nullptr, qkv, rows, 3 * d, d, stream)));
+  CCT_TRY((launch_gemm_tc<kRound, true>(g, w_out, nullptr, nullptr, dmg, rows, d, d, stream)));
 
   CUtensorMap mqkv, mg;  // [B, T, 3D] and [B, T, D] in 64 x 64 boxes, zeros past T
   CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
@@ -286,7 +263,8 @@ cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, con
                                  TcOut{dqkv + 2 * d, z3, 3 * d}, heads, t, causal, scale,
                                  stream));
 
-  CCT_TRY((launch_gemm_tc<kFloat, true>(dqkv, w_qkv, nullptr, dh, rows, d, 3 * d, stream)));
+  CCT_TRY((launch_gemm_tc<kFloat, true>(dqkv, w_qkv, nullptr, nullptr, dh, rows, d, 3 * d,
+                                          stream)));
   return ln_backward<bf16>(x, g, dh, ln_s, dx, row_mean, row_rstd, partial, dln_s, dln_b, rows,
                            d, eps, stream);
 }

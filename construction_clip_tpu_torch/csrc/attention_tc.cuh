@@ -1,12 +1,15 @@
 // The tensor-core attention passes (bf16, dh = 64) shared by K4/K5
-// (csrc/flash_attention.cu, heads in [B*H, T, 64] arrays) and K3's tensor-core
-// route (csrc/attention_block_bwd.cu, heads at column offsets of the
-// [B, T, 3D] qkv and of the [B, T, D] output gradient):
+// (csrc/flash_attention.cu, heads in [B*H, T, 64] arrays) and the fused
+// block's tensor-core routes, K1 (csrc/attention_block.cu) and K3
+// (csrc/attention_block_bwd.cu), whose heads sit at column offsets of the
+// [B, T, 3D] qkv and of the [B, T, D] output gradient:
 //
-//   tc_stats  per query row m (base 2), l and D = rowsum(dp p);
-//   tc_dq     dq = sum over key tiles of bf16(ds) k, and with MERGED (K3) the
-//             merged heads bf16(sum bf16(p) v) from the same p;
-//   tc_dkv    dv = sum over query tiles of bf16(p^T) dO, dk = bf16(ds^T) q.
+//   tc_stats      per query row m (base 2), l and D = rowsum(dp p);
+//   tc_dq         dq = sum over key tiles of bf16(ds) k, and with MERGED (K3)
+//                 the merged heads bf16(sum bf16(p) v) from the same p;
+//   tc_dkv        dv = sum over query tiles of bf16(p^T) dO, dk = bf16(ds^T) q;
+//   tc_block_fwd  K1's attention: merged = bf16(sum bf16(p) v / l), p rounded
+//                 relative to the row's max (T <= 256).
 //
 // Every product is wgmma m64n64k16 (bf16 in, fp32 accumulators): one
 // warpgroup owns 64 rows; TMA streams 64 x 64 tiles (128-byte rows, 128-byte
@@ -488,6 +491,119 @@ cudaError_t tc_attention_bwd(const CUtensorMap& mq, const CUtensorMap& mk, const
   if (err != cudaSuccess) return err;
   return tc_launch(tc_dkv, tc_smem_bytes(2, true), heads, t, s, mq, mk, mv, mg, geo, mc, lc, dc,
                    dk, dv, t, causal, scale);
+}
+
+// ---- K1's forward attention (T <= 256) --------------------------------------
+
+constexpr int kBlockMaxTiles = 4;  // key tiles of a head at T <= 256
+
+// Shared memory of tc_block_fwd at T = t: the query tile, then n_tiles(t) key
+// and n_tiles(t) value tiles, then two mbarriers (query and keys; values).
+inline size_t tc_block_smem_bytes(int t) {
+  return 1024 + (1 + 2 * (size_t)n_tiles(t)) * kBoxBytes + 2 * sizeof(uint64_t);
+}
+
+// s = (q . k^T) c for the key tile at key0, -inf past T and (causal) above the
+// diagonal: the logits in base-2 units.
+__device__ __forceinline__ void tc_logits(float (&s)[32], const void* q_tile,
+                                          const void* k_tile, float c, int q0, int key0,
+                                          int t_len, int causal) {
+  zero(s);
+  fence_regs(s);
+  wgmma_fence();
+  mma_abt(s, q_tile, k_tile);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) s[k] *= c;
+  if (key_edge(key0, q0, t_len, causal)) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int row = q0 + acc_row(k), col = key0 + acc_col(k);
+      if (col >= t_len || (causal && col > row)) s[k] = -INFINITY;
+    }
+  }
+}
+
+// Grid (B*H, T/64 query tiles), one warpgroup. A head's key and value tiles
+// (at most kBlockMaxTiles each; causal: those up to the diagonal) are staged
+// whole, the values on a barrier of their own so that they land during sweep
+// 1. Sweep 1: s = q k^T per key tile, for the row's max m. Sweep 2: s again,
+// p = 2^(t - m) summed in fp32 into l, bf16(p) the register A operand of
+// o += p v. The store divides o by l and rounds once. The Pallas kernel's
+// rounding points: p rounded relative to the row's max (K4 rounds it relative
+// to the running max and rescales o, which differs from T = 65 on).
+__global__ void __launch_bounds__(kTcThreads)
+    tc_block_fwd(const __grid_constant__ CUtensorMap mqkv, TcGeom geo, TcOut merged, int t_len,
+                 int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  const int bh = blockIdx.x, qt = query_tile(causal), q0 = qt * kBoxRows;
+  const int nt = n_tiles(t_len), nk = causal ? qt + 1 : nt;
+  const int hc = (bh % geo.heads) * kTcDh, z = bh / geo.heads;
+  const uint8_t* q = base;
+  uint8_t* keys = base + kBoxBytes;
+  uint8_t* vals = keys + nt * kBoxBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vals + nt * kBoxBytes);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], (1 + nk) * kBoxBytes);
+    tma_load_3d(base, &mqkv, &bar[0], geo.col[kMapQ] + hc, q0, z);
+    for (int j = 0; j < nk; ++j)
+      tma_load_3d(keys + j * kBoxBytes, &mqkv, &bar[0], geo.col[kMapK] + hc, j * kBoxRows, z);
+    mbar_expect_tx(&bar[1], nk * kBoxBytes);
+    for (int j = 0; j < nk; ++j)
+      tma_load_3d(vals + j * kBoxBytes, &mqkv, &bar[1], geo.col[kMapV] + hc, j * kBoxRows, z);
+  }
+  const float c = scale * kLog2e;
+  mbar_wait(&bar[0], 0);
+
+  float m[2] = {-FLT_MAX, -FLT_MAX};
+  for (int j = 0; j < nk; ++j) {
+    float s[32];
+    tc_logits(s, q, keys + j * kBoxBytes, c, q0, j * kBoxRows, t_len, causal);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) m[(k >> 1) & 1] = fmaxf(m[(k >> 1) & 1], s[k]);
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  mbar_wait(&bar[1], 0);
+
+  float o[32], l[2] = {0.f, 0.f};
+  zero(o);
+  for (int j = 0; j < nk; ++j) {
+    float s[32];
+    tc_logits(s, q, keys + j * kBoxBytes, c, q0, j * kBoxRows, t_len, causal);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      s[k] = ex2(s[k] - m[(k >> 1) & 1]);
+      l[(k >> 1) & 1] += s[k];
+    }
+    uint32_t pa[16];
+    pack_a(s, pa);  // p rounded to bf16 relative to the row's max
+    fence_regs(o);
+    wgmma_fence();
+    mma_rb(o, pa, vals + j * kBoxBytes, live_ksteps(j * kBoxRows, t_len));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  bf16* out = merged.head(bh, geo.heads);
+#pragma unroll
+  for (int k = 0; k < 32; k += 2) {
+    const int row = q0 + acc_row(k), r = (k >> 1) & 1;
+    if (row < t_len)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * merged.row + acc_col(k)) =
+          pack_bf16(__fdiv_rn(o[k], l[r]), __fdiv_rn(o[k + 1], l[r]));
+  }
 }
 
 }  // namespace

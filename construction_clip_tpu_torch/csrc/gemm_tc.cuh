@@ -1,5 +1,5 @@
-// Tiled GEMM on the tensor cores for K3's weight products (bf16 operands,
-// fp32 sums):
+// Tiled GEMM on the tensor cores for the fused blocks' weight products (K1,
+// K3, K9; bf16 operands, fp32 sums):
 //
 //   out[M, N] = epilogue(A[M, K] . B[K, N])
 //
@@ -8,7 +8,8 @@
 // (h . W_qkv); W [N, K] row-major is B's transpose, K-major (g . W_out^T and
 // dqkv . W_qkv^T). No weight is copied.
 //
-// What bounds it: at K3's shapes (M = 693 .. 2772 rows, N and K = 512 .. 2304)
+// What bounds it: at the blocks' shapes (M = 400 .. 2772 rows, N and K = 512 ..
+// 3072)
 // 2 M N K operations against 2 (M K + K N + M N) bytes, hundreds of operations
 // a byte: the tensor cores, not HBM. The design: a block owns a BM x BN output
 // tile (64 or 128 each) as BM / 64 consumer warpgroups of 64 rows, each running
@@ -24,9 +25,11 @@
 // (launch_gemm_tc). Rows past M are masked at the store.
 //
 // Epilogues (gemm.cuh's rounding points, Epilogue):
-//   kQkv    out = T(T(acc) + bias)
-//   kRound  out = T(acc)
-//   kFloat  out = acc (fp32)
+//   kQkv      out = T(T(acc) + bias)
+//   kResidual out = T((resid + acc) + bias), resid [M, N] like out
+//   kRound    out = T(acc)
+//   kFloat    out = acc (fp32)
+//   kGelu     out = quick_gelu_t(T(T(acc) + bias))
 #pragma once
 
 #include "common.cuh"
@@ -77,7 +80,8 @@ __device__ __forceinline__ void gemm_tc_issue(uint8_t* base, uint64_t* full, con
 template <int EPI, bool B_KMAJOR, int BM, int BN>
 __global__ void __launch_bounds__(2 * BM + 32)
     gemm_tc(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
-            const __nv_bfloat16* __restrict__ bias, void* __restrict__ out, int M, int N, int K) {
+            const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ resid,
+            void* __restrict__ out, int M, int N, int K) {
   using namespace hopper;
   static_assert((BM == 64 || BM == 128) && (BN == 64 || BN == 128), "m64 / m128, n64 / n128");
   constexpr int kConsumers = BM / 64;
@@ -155,6 +159,13 @@ __global__ void __launch_bounds__(2 * BM + 32)
       if constexpr (EPI == kQkv) {
         v0 = round_to<__nv_bfloat16>(v0) + to_f(bias[col]);
         v1 = round_to<__nv_bfloat16>(v1) + to_f(bias[col + 1]);
+      } else if constexpr (EPI == kResidual) {  // scalar loads: resid may be 2-byte aligned
+        v0 = __fadd_rn(__fadd_rn(to_f(resid[o]), v0), to_f(bias[col]));
+        v1 = __fadd_rn(__fadd_rn(to_f(resid[o + 1]), v1), to_f(bias[col + 1]));
+      } else if constexpr (EPI == kGelu) {
+        using bf = __nv_bfloat16;
+        v0 = quick_gelu_t<bf>(round_to<bf>(__fadd_rn(round_to<bf>(v0), to_f(bias[col]))));
+        v1 = quick_gelu_t<bf>(round_to<bf>(__fadd_rn(round_to<bf>(v1), to_f(bias[col + 1]))));
       }
       *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + o) = pack_bf16(v0, v1);
     }
@@ -163,8 +174,8 @@ __global__ void __launch_bounds__(2 * BM + 32)
 
 template <int EPI, bool B_KMAJOR, int BM, int BN>
 cudaError_t launch_gemm_tc_tile(const __nv_bfloat16* a, const __nv_bfloat16* w,
-                                const __nv_bfloat16* bias, void* out, int M, int N, int K,
-                                cudaStream_t stream) {
+                                const __nv_bfloat16* bias, const __nv_bfloat16* resid, void* out,
+                                int M, int N, int K, cudaStream_t stream) {
   CUtensorMap ma, mb;
   cudaError_t err = hopper::tile_map(&ma, a, 0, M, K, BM);
   if (err == cudaSuccess)
@@ -175,12 +186,13 @@ cudaError_t launch_gemm_tc_tile(const __nv_bfloat16* a, const __nv_bfloat16* w,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, 2 * BM + 32, smem, stream>>>(ma, mb, bias, out, M, N, K);
+  kernel<<<grid, 2 * BM + 32, smem, stream>>>(ma, mb, bias, resid, out, M, N, K);
   return cudaGetLastError();
 }
 
 // out = epilogue(a [M, K] . B): B = w [K, N] (B_KMAJOR false) or w [N, K]
-// read transposed (true). K and N multiples of 8 (TMA's 16-byte row pitch).
+// read transposed (true); resid only for kResidual (else null). K and N
+// multiples of 8 (TMA's 16-byte row pitch).
 // The tile: of 128 x 128, 64 x 128 and 64 x 64, the first whose tiles cost the
 // fewest rounds over the SMs, a round costing a tile's area
 // (ceil(tiles / SMs) BM BN): at [1800, 2304] 64 x 128 (522 tiles, 3.95 an SM)
@@ -188,8 +200,8 @@ cudaError_t launch_gemm_tc_tile(const __nv_bfloat16* a, const __nv_bfloat16* w,
 // the N = D products.
 template <int EPI, bool B_KMAJOR>
 cudaError_t launch_gemm_tc(const __nv_bfloat16* a, const __nv_bfloat16* w,
-                           const __nv_bfloat16* bias, void* out, int M, int N, int K,
-                           cudaStream_t stream) {
+                           const __nv_bfloat16* bias, const __nv_bfloat16* resid, void* out,
+                           int M, int N, int K, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8) return cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -206,9 +218,13 @@ cudaError_t launch_gemm_tc(const __nv_bfloat16* a, const __nv_bfloat16* w,
     if (best_cost < 0 || cost < best_cost) best = i, best_cost = cost;
   }
   switch (best) {
-    case 0: return launch_gemm_tc_tile<EPI, B_KMAJOR, 128, 128>(a, w, bias, out, M, N, K, stream);
-    case 1: return launch_gemm_tc_tile<EPI, B_KMAJOR, 64, 128>(a, w, bias, out, M, N, K, stream);
-    default: return launch_gemm_tc_tile<EPI, B_KMAJOR, 64, 64>(a, w, bias, out, M, N, K, stream);
+    case 0:
+      return launch_gemm_tc_tile<EPI, B_KMAJOR, 128, 128>(a, w, bias, resid, out, M, N, K,
+                                                          stream);
+    case 1:
+      return launch_gemm_tc_tile<EPI, B_KMAJOR, 64, 128>(a, w, bias, resid, out, M, N, K, stream);
+    default:
+      return launch_gemm_tc_tile<EPI, B_KMAJOR, 64, 64>(a, w, bias, resid, out, M, N, K, stream);
   }
 }
 

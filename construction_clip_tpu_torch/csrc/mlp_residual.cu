@@ -7,18 +7,39 @@
 // operation rounded (gemm.cuh: quick_gelu_t); h . W_proj in fp32; the output
 // T((x32 + y) + b_proj) rounded once.
 //
+// What bounds it on the H100: 4 rows D H operations (3.8 GFLOP at
+// [8,50,768] -> 3072) against 9.4 MB of bf16 weights and 1.2 MB of x and out,
+// ~360 operations a byte: the tensor cores' 3.8 us, just over HBM's 3.2 us.
+//
 // Design: the Pallas kernel keeps both weight matrices (9.4 MB for ViT-B in
 // fp32) and the [rows, 4D] hidden in VMEM. A Hopper block has at most 227 KB
-// of shared memory, so K9 is two launches of gemm.cuh's tiled GEMM from one C
-// entry, with the hidden in device scratch the wrapper allocates:
+// of shared memory, so K9 is a chain of launches from one C entry, with the
+// hidden in device scratch the wrapper allocates. Two routes, chosen by
+// ops/mlp.py:route (a launch on one never retries the other):
+//
+// SIMT (fp32, and bf16 where D or H is no multiple of 8; cct_mlp_residual),
+// gemm.cuh's tiled GEMM in fp32 FMA on the CUDA cores:
 //   (a) block_gemm<kGelu>: K1's LN-prologue GEMM with a bias + QuickGELU
 //       epilogue, writing the hidden [rows, H] in T;
 //   (b) block_gemm<kResidual>: hidden . W_proj with the bias + residual
 //       epilogue.
-// The products run on the CUDA cores in fp32 FMA, as K1's do. No library GEMM
-// is called.
+//
+// Tensor cores (bf16 with D and H multiples of 8, TMA's 16-byte row pitch;
+// cct_mlp_residual_tc), both products on wgmma (gemm_tc.cuh):
+//   (1) ln_rows (ln_rows.cuh): h = T(LN(x)) once a row, into `out`, which
+//       nothing reads again before (3) writes it;
+//   (2) gemm_tc<kGelu>: hidden = quick_gelu_t(T(T(h W_fc) + b_fc));
+//   (3) gemm_tc<kResidual>: out = T((x + hidden W_proj) + b_proj).
+// The hidden goes through device memory, not through shared memory: 2.4 MB
+// at [8,50,768] and 11 MB at [36,50,768], both inside the 50 MB L2. Holding
+// it on chip would take a [64, D] fp32 accumulator a block (384 registers a
+// thread for one warpgroup at D = 768) or a split-K reduction over H / 256
+// blocks, for the bytes of one L2 round trip.
+// No library GEMM is called.
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
+#include "ln_rows.cuh"
 
 namespace cct {
 namespace {
@@ -39,12 +60,25 @@ cudaError_t run_mlp(const void* x, const void* ln_s, const void* ln_b, const voi
       static_cast<T*>(out), rows, d, h, eps, stream);
 }
 
+cudaError_t run_mlp_tc(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
+                       const __nv_bfloat16* ln_b, const __nv_bfloat16* w_fc,
+                       const __nv_bfloat16* b_fc, const __nv_bfloat16* w_proj,
+                       const __nv_bfloat16* b_proj, __nv_bfloat16* hidden, __nv_bfloat16* out,
+                       int rows, int d, int h, float eps, cudaStream_t stream) {
+  if (rows <= 0 || d <= 0 || h <= 0 || d % 8 || h % 8) return cudaErrorInvalidValue;
+  cudaError_t err = launch_ln_rows(x, ln_s, ln_b, out, rows, d, eps, stream);
+  if (err == cudaSuccess)
+    err = launch_gemm_tc<kGelu, false>(out, w_fc, b_fc, nullptr, hidden, rows, h, d, stream);
+  if (err != cudaSuccess) return err;
+  return launch_gemm_tc<kResidual, false>(hidden, w_proj, b_proj, x, out, rows, d, h, stream);
+}
+
 }  // namespace
 }  // namespace cct
 
 // Returns a cudaError_t; nonzero means a launch was refused. x and out are
 // [rows, d], w_fc [d, h], w_proj [h, d], hidden [rows, h] scratch, all of the
-// input type and contiguous.
+// input type and contiguous. The SIMT route.
 extern "C" int cct_mlp_residual(int dtype, const void* x, const void* ln_s, const void* ln_b,
                                 const void* w_fc, const void* b_fc, const void* w_proj,
                                 const void* b_proj, void* hidden, void* out, int rows, int d,
@@ -60,4 +94,20 @@ extern "C" int cct_mlp_residual(int dtype, const void* x, const void* ln_s, cons
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core route, same arguments: bf16 with d and h multiples of 8 only
+// (anything else is refused, never run on the other route).
+extern "C" int cct_mlp_residual_tc(int dtype, const void* x, const void* ln_s, const void* ln_b,
+                                   const void* w_fc, const void* b_fc, const void* w_proj,
+                                   const void* b_proj, void* hidden, void* out, int rows, int d,
+                                   int h, float eps, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (dtype != cct::kBFloat16) return cudaErrorInvalidValue;
+  return cct::run_mlp_tc(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s), static_cast<const bf16*>(ln_b),
+      static_cast<const bf16*>(w_fc), static_cast<const bf16*>(b_fc),
+      static_cast<const bf16*>(w_proj), static_cast<const bf16*>(b_proj),
+      static_cast<bf16*>(hidden), static_cast<bf16*>(out), rows, d, h, eps,
+      static_cast<cudaStream_t>(stream));
 }

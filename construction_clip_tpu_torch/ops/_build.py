@@ -33,8 +33,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry -> (argtypes, restype); every entry returning int returns a cudaError_t
 SIGNATURES = {
     # dtype, x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, qkv, merged, out,
-    # b, t, d, h, causal, eps, scale, stream
+    # b, t, d, h, causal, eps, scale, stream (SIMT and tensor-core routes)
     "cct_attention_block_fwd": ([_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P], _I),
+    "cct_attention_block_fwd_tc": ([_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P], _I),
     # dtype, x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, work_t, work_f, dx, dqkv, merged,
     # dln_s, dln_b, b, t, d, h, causal, eps, scale, stream
     # (SIMT and tensor-core routes)
@@ -56,8 +57,9 @@ SIGNATURES = {
     # table_dtype, x, table, scale, out, rows, d, v, stream
     "cct_vocab_head": ([_I] + [_P] * 4 + [_I] * 3 + [_P], _I),
     # dtype, x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, hidden, out, rows, d, h, eps,
-    # stream
+    # stream (SIMT and tensor-core routes)
     "cct_mlp_residual": ([_I] + [_P] * 9 + [_I] * 3 + [_F, _P], _I),
+    "cct_mlp_residual_tc": ([_I] + [_P] * 9 + [_I] * 3 + [_F, _P], _I),
     # out_dtype, in, out, n, scale, mean[3], inv_std[3], stream
     "cct_normalize_u8": ([_I, _P, _P, _L] + [_F] * 7 + [_P], _I),
     # K10's staging buffers: bytes, &ptr / ptr / ptr, handle[64] / handle[64], &ptr /

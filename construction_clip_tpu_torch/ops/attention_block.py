@@ -5,9 +5,9 @@ backward (counterpart of construction_clip_tpu/ops/pallas_attention_block.py).
 `fused_attention_block` is a `torch.autograd.Function` whose forward is K1
 (csrc/attention_block.cu) and whose backward is K3 (csrc/attention_block_bwd.cu)
 on CUDA tensors, and the plain versions on CPU tensors. On the card `route`
-picks K3's kernel: the tensor-core chain (wgmma, TMA) for bf16 at dh = 64, the
-SIMT chain for fp32 and other widths; a launch that fails raises and never
-retries on the other route. K3 recomputes LN, qkv and the probabilities from x,
+picks the chain of both kernels: the tensor-core chain (wgmma, TMA) for bf16 at
+dh = 64, the SIMT chain for fp32 and other widths; a launch that fails raises
+and never retries on the other route. K3 recomputes LN, qkv and the probabilities from x,
 as the Pallas backward does, so the Function saves only its inputs; its
 tensor-core route also hands back h = T(LN(x)), the operand of W_qkv's
 gradient, which the Function recomputes otherwise. Where autograd records no
@@ -27,7 +27,7 @@ from construction_clip_tpu_torch.ops.norms import layer_norm
 
 MAX_T = 256
 MAX_DH = 128             # K3's per-lane register tiles (csrc/attention_tiles.cuh)
-TC_DH = (64,)            # head widths of K3's tensor-core route (64 x 64 tiles)
+TC_DH = (64,)            # head widths of K1/K3's tensor-core routes (64 x 64 tiles)
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
 _ATTN_WARPS = 4
 
@@ -40,9 +40,9 @@ def attention_smem_bytes(t: int, dh: int) -> int:
 
 
 def route(dtype, dh: int) -> str:
-    """The chain K3 launches on the card: "tc" (bf16 products on the tensor
-    cores) for bf16 at a head width of TC_DH, else "simt" (fp32 FMA; fp32 on
-    the tensor cores would be TF32)."""
+    """The chain K1 and K3 launch on the card: "tc" (bf16 products on the
+    tensor cores) for bf16 at a head width of TC_DH, else "simt" (fp32 FMA;
+    fp32 on the tensor cores would be TF32)."""
     return "tc" if dtype == torch.bfloat16 and dh in TC_DH else "simt"
 
 
@@ -140,17 +140,20 @@ def fused_attention_block_fwd(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_he
     _check_kernel_args("fused_attention_block", x, (x,) + args,
                        ((b, t, d), (d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,)), n_heads)
     lib = _build.load_library()
+    tc = route(x.dtype, d // n_heads) == "tc"
+    entry = lib.cct_attention_block_fwd_tc if tc else lib.cct_attention_block_fwd
     qkv = torch.empty((b * t, 3 * d), dtype=x.dtype, device=x.device)
     merged = torch.empty((b * t, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.cct_attention_block_fwd(
+        err = entry(
             _build.dtype_code(x.dtype), x.data_ptr(), *(a.data_ptr() for a in args),
             qkv.data_ptr(), merged.data_ptr(), out.data_ptr(), b, t, d, n_heads,
             int(causal), float(eps), float((d // n_heads) ** -0.5),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_attention_block")
     fused_attention_block.launches += 1
+    fused_attention_block.tc_launches += tc
     return out
 
 
@@ -239,6 +242,7 @@ def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
     return _FusedBlock.apply(x, *args, n_heads, bool(causal), float(eps))
 
 
-fused_attention_block.launches = 0      # K1
+fused_attention_block.launches = 0      # K1, and those of its tensor-core route
+fused_attention_block.tc_launches = 0
 fused_attention_block_bwd.launches = 0  # K3, and those of its tensor-core route
 fused_attention_block_bwd.tc_launches = 0

@@ -4,7 +4,9 @@ construction_clip_tpu/ops/pallas_mlp.py).
 
 `fused_mlp_residual` is a `torch.autograd.Function` whose forward is K9
 (csrc/mlp_residual.cu) on CUDA tensors and `fused_mlp_residual_plain` on CPU
-tensors. Its backward recomputes `_ref_math`, the composable math, and takes
+tensors. On the card `route` picks K9's chain: the tensor-core chain (wgmma,
+TMA) for bf16 where D and the hidden width are multiples of 8, the SIMT chain
+otherwise; a launch that fails raises and never retries on the other route. Its backward recomputes `_ref_math`, the composable math, and takes
 its gradient, as the Pallas kernel's custom_vjp does: the JAX package has no
 backward kernel for this function, so neither has the port (the backward's
 GEMMs are cuBLAS's).
@@ -30,6 +32,14 @@ def supported(x, w_fc) -> bool:
     Pallas kernel holds both weight matrices in VMEM, hence its 12 MiB limit;
     K9 streams its weights from HBM, so it takes any width."""
     return x.dim() == 3 and x.dtype in (torch.float32, torch.bfloat16)
+
+
+def route(dtype, d: int, hidden: int) -> str:
+    """The chain K9 launches on the card: "tc" (bf16 products on the tensor
+    cores) for bf16 where D and the hidden width are multiples of 8 (TMA's
+    16-byte row pitch), else "simt" (fp32 FMA; fp32 on the tensor cores would
+    be TF32)."""
+    return "tc" if dtype == torch.bfloat16 and d % 8 == 0 and hidden % 8 == 0 else "simt"
 
 
 def fused_mlp_residual_plain(x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, *, eps: float = 1e-5):
@@ -66,15 +76,18 @@ def fused_mlp_residual_fwd(x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, *, eps: fl
             raise ValueError(f"fused_mlp_residual wants {name} contiguous {x.dtype} {shape} "
                              f"on {x.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
     lib = _build.load_library()
+    tc = route(x.dtype, d, hidden) == "tc"
+    entry = lib.cct_mlp_residual_tc if tc else lib.cct_mlp_residual
     h = torch.empty((b * t, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.cct_mlp_residual(
+        err = entry(
             _build.dtype_code(x.dtype), x.data_ptr(), *(a.data_ptr() for a in args),
             h.data_ptr(), out.data_ptr(), b * t, d, hidden, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_mlp_residual")
     fused_mlp_residual.launches += 1
+    fused_mlp_residual.tc_launches += tc
     return out
 
 
@@ -107,4 +120,5 @@ def fused_mlp_residual(x, mlp_params, ln_params, *, eps: float = 1e-5):
                            float(eps))
 
 
-fused_mlp_residual.launches = 0   # K9
+fused_mlp_residual.launches = 0   # K9, and those of its tensor-core route
+fused_mlp_residual.tc_launches = 0

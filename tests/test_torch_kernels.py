@@ -277,6 +277,92 @@ def test_attention_block_backward_tensor_core_entry_refuses_what_it_does_not_tak
             _build.check(err, "fused_attention_block_bwd")
 
 
+# K1's tensor-core route (fab.route: bf16 at dh=64): every shape of
+# chip_smoke.K1_SHAPES, and the edges of the 64-row tiles (T = 1, a lone key;
+# 64, one whole tile; 65, one row in the last; 256, the gate) at 3 rows a batch
+K1_TC_CASES = ([(8, 50, 768, 12, False), (9, 77, 512, 8, True), (2, 77, 512, 8, True),
+                (36, 50, 768, 12, False), (36, 77, 512, 8, True), (9, 77, 768, 12, True)] +
+               [(3, t, 128, 2, causal) for t in (1, 64, 65, 256) for causal in (False, True)])
+
+
+def _b_out(gen, dev, dtype, d):
+    return torch.from_numpy(gen.standard_normal(d).astype(np.float32) * 0.1).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K1_TC_CASES)
+def test_attention_block_tensor_cores_on_card(shape, gen, cuda_device):
+    b, t, d, h, causal = shape
+    x, _, args = _block_case(gen, cuda_device, torch.bfloat16, b, t, d)
+    args = (*args, _b_out(gen, cuda_device, torch.bfloat16, d))
+    wrapper = fab.fused_attention_block
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = fab.fused_attention_block_fwd(x, *args, n_heads=h, causal=causal)
+    want = fab.fused_attention_block_plain(x, *args, n_heads=h, causal=causal)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **CARD_TOL[torch.bfloat16])
+    # no atomics: a second call gives the same bits
+    assert torch.equal(fab.fused_attention_block_fwd(x, *args, n_heads=h, causal=causal), got)
+
+
+@pytest.mark.cuda
+def test_attention_block_tensor_core_entry_refuses_what_it_does_not_take(gen, cuda_device):
+    """K1's tensor-core C entry refuses fp32, other head widths and T > 256
+    with an error; it never runs them on the SIMT chain. The wrapper raises on
+    T > 256 before any launch."""
+    lib = _build.load_library()
+    for dtype, t, d, h in ((torch.float32, 8, 128, 2), (torch.bfloat16, 8, 128, 4),
+                           (torch.bfloat16, 257, 128, 2)):   # dh 64, 32; T past the gate
+        x, _, args = _block_case(gen, cuda_device, dtype, 2, t, d)
+        args = (*args, _b_out(gen, cuda_device, dtype, d))
+        qkv = torch.empty(2 * t, 3 * d, dtype=dtype, device=cuda_device)
+        merged = torch.empty(2 * t, d, dtype=dtype, device=cuda_device)
+        out = torch.empty_like(x)
+        err = lib.cct_attention_block_fwd_tc(
+            _build.dtype_code(dtype), x.data_ptr(), *(a.data_ptr() for a in args),
+            qkv.data_ptr(), merged.data_ptr(), out.data_ptr(), 2, t, d, h, 0, 1e-5,
+            (d // h) ** -0.5, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(err, "fused_attention_block")
+    before = (fab.fused_attention_block.launches, fab.fused_attention_block.tc_launches)
+    with pytest.raises(ValueError, match="does not take"):
+        fab.fused_attention_block_fwd(x, *args, n_heads=2)
+    assert (fab.fused_attention_block.launches, fab.fused_attention_block.tc_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 50, 768, 12, False), (4, 77, 512, 8, True)])
+def test_attention_block_autograd_on_tensor_cores_on_card(shape, gen, cuda_device):
+    """K1 forward and K3 backward through autograd, both on the tensor-core
+    route: the output and every gradient of the Function within GRAD_TOL of
+    the same Function on CPU copies, where it runs the plain versions."""
+    b, t, d, h, causal = shape
+    x, g, args = _block_case(gen, cuda_device, torch.bfloat16, b, t, d)
+    inputs = (x, *args, _b_out(gen, cuda_device, torch.bfloat16, d))
+
+    def run(tensors, grad):
+        leaves = [a.detach().clone().requires_grad_() for a in tensors]
+        out = fab.fused_attention_block(
+            leaves[0], {"scale": leaves[1], "bias": leaves[2]},
+            dict(zip(("w_qkv", "b_qkv", "w_out", "b_out"), leaves[3:])), n_heads=h,
+            causal=causal)
+        return out, torch.autograd.grad(out, leaves, grad)
+
+    counters = (fab.fused_attention_block, fab.fused_attention_block_bwd)
+    before = [w.tc_launches for w in counters]
+    out, got = run(inputs, g)
+    torch.cuda.synchronize()
+    assert [w.tc_launches for w in counters] == [n + 1 for n in before]
+    want_out, want = run([a.cpu() for a in inputs], g.cpu())
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(),
+                               want_out.detach().float().numpy(), **CARD_TOL[torch.bfloat16])
+    names = ("x", "ln_scale", "ln_bias", "w_qkv", "b_qkv", "w_out", "b_out")
+    for name, a, w in zip(names, got, want):
+        assert _within(a.cpu(), w, GRAD_TOL[torch.bfloat16]), name
+
+
 # K2 at beam 3 of one image, one row, and 8 images x beam 3 (the chunk count
 # falls from several chunks a (row, head) to one); every cache length class:
 # the first position alone, about a 64-position boundary, the last position,
@@ -548,6 +634,43 @@ def test_mlp_residual_kernel_on_card(shape, dtype, gen, cuda_device):
     assert mlp.fused_mlp_residual.launches == before + 1
     assert got.dtype == dtype and got.shape == args[0].shape
     assert _scaled_err(got, want) <= MLP_TOL[dtype]
+
+
+# K9's tensor-core route (mlp.route: bf16 with D and the hidden multiples of
+# 8): every bf16 shape of chip_smoke.K9_RUNS, and rows that fill no 64-row tile
+K9_TC_CASES = [(8, 50, 768, 3072), (36, 50, 768, 3072), (9, 77, 512, 2048), (3, 7, 40, 104)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K9_TC_CASES)
+def test_mlp_residual_tensor_cores_on_card(shape, gen, cuda_device):
+    args = _mlp_case(gen, cuda_device, torch.bfloat16, *shape)
+    wrapper = mlp.fused_mlp_residual
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = _mlp_call(wrapper, args)
+    want = mlp.fused_mlp_residual_plain(*args)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert _scaled_err(got, want) <= MLP_TOL[torch.bfloat16]
+    assert torch.equal(_mlp_call(wrapper, args), got)   # no atomics: the same bits again
+
+
+@pytest.mark.cuda
+def test_mlp_residual_tensor_core_entry_refuses_what_it_does_not_take(gen, cuda_device):
+    """K9's tensor-core C entry refuses fp32 and widths that are no multiple of
+    8 with an error; it never runs them on the SIMT chain."""
+    lib = _build.load_library()
+    for dtype, d, hidden in ((torch.float32, 64, 256), (torch.bfloat16, 44, 176),
+                             (torch.bfloat16, 40, 100)):
+        args = _mlp_case(gen, cuda_device, dtype, 2, 5, d, hidden)
+        h = torch.empty(10, hidden, dtype=dtype, device=cuda_device)
+        out = torch.empty_like(args[0])
+        err = lib.cct_mlp_residual_tc(
+            _build.dtype_code(dtype), *(a.data_ptr() for a in args), h.data_ptr(),
+            out.data_ptr(), 10, d, hidden, 1e-5, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(err, "fused_mlp_residual")
 
 
 @pytest.mark.cuda
