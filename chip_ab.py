@@ -3,11 +3,13 @@
 A, each run in a process of its own, so that both meet the same card and host.
 
     python3 chip_ab.py serve   path/to/checkout_a path/to/checkout_b
+    python3 chip_ab.py serve_int8 path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py train   path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py kernels path/to/checkout_a path/to/checkout_b
 
 serve: phase 5 (ViT-B/32 + GPT-2 12x768 beam 3 in bf16 through
-TorchPredictService, 10 requests from 4 threads). train: phase 9 (ViT-B/32
+TorchPredictService, 10 requests from 4 threads). serve_int8: phase 16 (the
+same requests through apps/serve.build_service with --int8). train: phase 9 (ViT-B/32
 contrastive training, bf16, B=36, 10 steps; its median step). kernels: the
 device time (CUDA-graph replay, chip_smoke.graph_ms) and wrapper time of K2
 at R=24 and R=3 (H=12, Dh=64, cache_len 139, beam ancestry, bf16), of K3 at
@@ -15,7 +17,11 @@ at R=24 and R=3 (H=12, Dh=64, cache_len 139, beam ancestry, bf16), of K3 at
 (H=12; hidden 3072), each with its launches' device times (torch.profiler,
 chip_smoke.kernel_device_ms) and the composed library version's device time
 beside it (K1: chip_smoke.composed_block's forward; K9: the default MLP of
-models/blocks), on inputs drawn from one numpy seed in both trees; then a
+models/blocks), and of K7 at [8,50,768] bf16 and fp32 (H=12) with the
+composed int8 block's device time beside it (models/clip/quant._attn_residual_q off the
+kernel impl: cuBLASLt's int8 GEMM and torch ops), and of the int8 ViT-B/32
+image tower (models/clip/quant.encode_image_int8, 12 K7 launches) at B=8, on
+inputs drawn from one numpy seed in both trees; then a
 digest (sha256 of the bytes) of the outputs of K3 (bf16 and fp32), K1 and K9
 in fp32 and K7 (bf16 and fp32) on inputs of another seed, so that equal
 digests show the two trees' bits equal.
@@ -48,6 +54,14 @@ cfgs = (cs.CLIPConfig.vit_b_32(), cs.GPT2Config(), cs.ClipCapConfig())
 cs.phase_serve(cs.convert.init_clip(0, cfgs[0]), cs.convert.init_clipcap(1, cfgs[2], cfgs[1]),
                cfgs, clip_tok, lm_tok, "cuda")
 """),
+    "serve_int8": (("int8_serve",), r"""
+with tempfile.TemporaryDirectory() as tmp:
+    clip_tok, lm_tok = cs.tokenizers(tmp)
+cfgs = (cs.CLIPConfig.vit_b_32(), cs.GPT2Config(), cs.ClipCapConfig())
+cs.phase_build()
+cs.phase_int8_serve(cs.convert.init_clip(0, cfgs[0]), cs.convert.init_clipcap(1, cfgs[2], cfgs[1]),
+                    clip_tok, lm_tok)
+"""),
     "train": (("train_vit_b_32",), r"""
 with tempfile.TemporaryDirectory() as tmp:
     clip_tok, _ = cs.tokenizers(tmp)
@@ -55,7 +69,7 @@ cfg = cs.CLIPConfig.vit_b_32()
 batch = cs.class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
 cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
-    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_bits"), r"""
+    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits"), r"""
 cs.phase_build()
 rng = np.random.default_rng(2)
 for rows in (24, 3):
@@ -105,6 +119,34 @@ for b in (8, 36):
     cs.say("ab_k9", shape=[b, 50, 768], hidden=3072, device_ms=cs.graph_ms(k9),
            ms=cs.median_ms(k9), composed_device_ms=cs.graph_ms(composed),
            launch_device_ms=cs.kernel_device_ms(k9))
+from construction_clip_tpu_torch.models.clip.quant import _attn_residual_q
+from construction_clip_tpu_torch.ops.attention import use_impl
+for dtype in (torch.bfloat16, torch.float32):
+    x, ln, qattn, _ = cs._int8_block_inputs(rng, 8, 50, 768, dtype, "cuda")
+
+    def k7():
+        return cs.fused_attention_block_int8(x, ln, qattn, n_heads=12)
+
+    def composed():
+        with use_impl("plain"):
+            return _attn_residual_q(x, ln, qattn, 12)
+
+    cs.say("ab_k7", shape=[8, 50, 768], dtype=str(dtype), device_ms=cs.graph_ms(k7),
+           ms=cs.median_ms(k7), composed_device_ms=cs.graph_ms(composed),
+           launch_device_ms=cs.kernel_device_ms(k7))
+from construction_clip_tpu_torch.models.clip.quant import encode_image_int8, quantize_clip
+cfg = cs.CLIPConfig.vit_b_32()
+qp = quantize_clip(cs.convert.to_params(cs.convert.init_clip(0, cfg), device="cuda"))
+images = torch.from_numpy(rng.standard_normal((8, 224, 224, 3)).astype(np.float32)).cuda()
+
+
+def tower():
+    with torch.inference_mode():
+        return encode_image_int8(qp, cfg, images)
+
+
+cs.say("ab_int8_tower", batch=8, device_ms=cs.graph_ms(tower), ms=cs.median_ms(tower, 11, 3))
+del qp
 import hashlib
 
 
@@ -129,10 +171,15 @@ x, *rest = cs._mlp_inputs(rng, 8, 50, 768, 3072, torch.float32)
 cs.say("ab_bits", kernel="K9", dtype="torch.float32", digest=digest(cs.fused_mlp_residual(
     x, dict(zip(("w_fc", "b_fc", "w_proj", "b_proj"), rest[2:])),
     {"scale": rest[0], "bias": rest[1]})))
+# K7's attention route beside its digest: the tensor-core pass (bf16) sums
+# p . v in another order than the SIMT pass, so the two routes' bits differ
+k7 = cs.fused_attention_block_int8
 for dtype in (torch.bfloat16, torch.float32):
     x, ln, qattn, _ = cs._int8_block_inputs(rng, 8, 50, 768, dtype, "cuda")
-    cs.say("ab_bits", kernel="K7", dtype=str(dtype),
-           digest=digest(cs.fused_attention_block_int8(x, ln, qattn, n_heads=12)))
+    before = getattr(k7, "tc_launches", 0)
+    out = k7(x, ln, qattn, n_heads=12)
+    cs.say("ab_bits", kernel="K7", dtype=str(dtype), digest=digest(out),
+           attention_route="tc" if getattr(k7, "tc_launches", 0) != before else "simt")
 """),
 }
 

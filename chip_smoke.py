@@ -34,8 +34,9 @@ Phases, each printing one line (the last line is the JSON verdict):
      versions at the ViT-L/14 image tower's shape, a causal text shape, T=1024
      causal and T=65, bf16 on the tensor-core route and fp32 on the SIMT
      route (each route's launch counter must move); the tensor-core
-     instructions (HGMMA/HMMA) and registers of each K1/K3/K4/K5/K9 kernel in
-     the built libraries (a tensor-core kernel without HGMMA fails the run); the
+     instructions (HGMMA/IGMMA/HMMA) and registers of each K1/K3/K4/K5/K7/K9
+     kernel in the built libraries (a tensor-core kernel without HGMMA, or
+     K7's int8 GEMM without IGMMA, fails the run); the
      wrapper times and, for bf16, the device times (CUDA-graph
      replays) of K4, K5 and scaled_dot_product_attention's forward and
      backward, and of each of K5's three launches (torch.profiler).
@@ -62,13 +63,19 @@ Phases, each printing one line (the last line is the JSON verdict):
  14. the kernel path against the plain path in bf16 for mT5: every step's
      logits over one token stream, and greedy tokens.
  15. K7, the int8 fused attention block, against its plain version at the
-     int8 image tower's shapes ([8,50,768] and [1,50,768], H=12), bf16 and
-     fp32, with device times and K1's time at the same bf16 shapes; and the
-     int8 GEMM of int8_linear with the weight K-contiguous against row-major.
+     int8 image tower's shapes ([8,50,768] and [1,50,768], H=12), bf16 on the
+     tensor-core route (its counter must move) and fp32 on the SIMT route,
+     the int8 products on wgmma s8 at these widths; with the route, device
+     times and K1's time at the same bf16 shapes; for bf16 also each of its
+     launches' device time under torch.profiler and the device time of the
+     composed int8 block (models/clip/quant._attn_residual_q off the kernel
+     impl: cuBLASLt's int8 GEMM and torch ops); and the int8 GEMM of
+     int8_linear with the weight K-contiguous against row-major.
  16. int8 serving at full width (ViT-B/32 and GPT-2 quantized in the port from
      phase 5's numpy seeds) through the port's apps/serve.build_service
      (--int8, beam 3, 100 steps): requests from 4 threads; K7 launches 12
-     times per image-tower call, K1 never after setup, K2 12 times a step.
+     times per image-tower call, every launch on the tensor-core route, K1
+     never after setup, K2 12 times a step.
  17. the int8 kernel path against the int8 plain path: image features,
      zero-shot classes and greedy tokens.
  18. K6, the uint8 normalize, against its plain version at [8,224,224,3] into
@@ -169,7 +176,7 @@ from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
 from construction_clip_tpu_torch.ops.collectives import (  # noqa: E402
     PeerBuffers, all_gather, all_gather_plain)
 from construction_clip_tpu_torch.ops.attention_block_int8 import (  # noqa: E402
-    fused_attention_block_int8, fused_attention_block_int8_plain)
+    fused_attention_block_int8, fused_attention_block_int8_plain, gemm_route)
 from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
     chunk_count, decode_step_attention, decode_step_attention_plain)
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -584,7 +591,7 @@ def synthetic_images(rng, shapes):
 
 # the kernels with a tensor-core route, each counting its launches there
 TC_WRAPPERS = ("fused_attention_block", "fused_attention_block_bwd", "flash_attention_fwd",
-               "flash_attention_bwd", "fused_mlp_residual")
+               "flash_attention_bwd", "fused_mlp_residual", "fused_attention_block_int8")
 
 
 def reset_launches() -> None:
@@ -932,16 +939,20 @@ def phase_k3(results: dict) -> None:
 
 # the tensor-core routes' kernels by source: K4/K5's (forward; the backward's
 # statistics, dq and dk/dv passes), K3's (its GEMMs and the same passes), K1's
-# (its GEMMs and its attention pass) and K9's (its GEMMs)
+# (its GEMMs and its attention pass), K9's (its GEMMs) and K7's (its int8
+# GEMMs, IGMMA, and its attention pass)
 TC_KERNELS = {"flash_attention.cu": ("tc_fwd", "tc_stats", "tc_dq", "tc_dkv"),
               "attention_block_bwd.cu": ("gemm_tc", "tc_stats", "tc_dq", "tc_dkv"),
               "attention_block.cu": ("gemm_tc", "tc_block_fwd"),
-              "mlp_residual.cu": ("gemm_tc",)}
+              "mlp_residual.cu": ("gemm_tc",),
+              "attention_block_int8.cu": ("gemm_s8", "tc_block_fwd")}
+INT_KERNELS = ("gemm_s8",)   # integer wgmma: IGMMA in the SASS, not HGMMA
 
 
 def tensor_core_counts(source: str) -> dict:
-    """{kernel: {"HGMMA": n, "HMMA": n, "registers": n}}: the tensor-core
-    instructions (wgmma, mma.sync) of each kernel in the built library of
+    """{kernel: {"HGMMA": n, "IGMMA": n, "HMMA": n, "registers": n}}: the
+    tensor-core instructions (wgmma in floats and integers, mma.sync) of each
+    kernel in the built library of
     `source`, from `cuobjdump -sass`, and its registers a thread, from
     `cuobjdump -res-usage` (None where that output does not say)."""
     src = next(p for p in _build.sources() if p.name == source)
@@ -956,9 +967,9 @@ def tensor_core_counts(source: str) -> dict:
         found = re.search(r"Function : (\S+)", line)
         if found:
             kernel = found.group(1)
-            counts[kernel] = {"HGMMA": 0, "HMMA": 0, "registers": None}
+            counts[kernel] = {"HGMMA": 0, "IGMMA": 0, "HMMA": 0, "registers": None}
         elif kernel:
-            for name in ("HGMMA", "HMMA"):
+            for name in ("HGMMA", "IGMMA", "HMMA"):
                 counts[kernel][name] += name in line
     kernel = None
     for line in dump("-res-usage").splitlines():
@@ -981,14 +992,16 @@ def k5_pass_device_ms(bwd) -> dict:
 
 
 def phase_tensor_cores() -> None:
-    """Every kernel of a tensor-core route runs wgmma (HGMMA in its SASS)."""
+    """Every kernel of a tensor-core route runs wgmma (HGMMA in its SASS;
+    IGMMA for K7's int8 GEMMs)."""
     for source, names in TC_KERNELS.items():
         counts = tensor_core_counts(source)
         say("tensor_core_instructions", source=source, counts=counts)
         for name in names:
-            got = [c["HGMMA"] for k, c in counts.items() if name in k]
+            op = "IGMMA" if name in INT_KERNELS else "HGMMA"
+            got = [c[op] for k, c in counts.items() if name in k]
             if not got or min(got) <= 0:
-                raise AssertionError(f"{source} {name}: a kernel without HGMMA in the build: "
+                raise AssertionError(f"{source} {name}: a kernel without {op} in the build: "
                                      f"{counts}")
 
 
@@ -1367,9 +1380,20 @@ def _int8_block_inputs(rng, b, t, d, dtype, dev):
         {k: v.to(dtype) for k, v in attn.items()}
 
 
+def composed_int8_block(x, ln, qattn, *, n_heads):
+    """The int8 block composed of library calls: models/clip/quant's
+    composable math (int8_linear: cuBLASLt's int8 GEMM; layer_norm, softmax,
+    einsum) off the kernel impl; K7's yardstick, used nowhere on the kernel
+    path."""
+    from construction_clip_tpu_torch.models.clip.quant import _attn_residual_q
+
+    with use_impl("plain"):
+        return _attn_residual_q(x, ln, qattn, n_heads)
+
+
 def phase_k7(results: dict) -> None:
     """K7 against its plain version, with K1's time on the same float weights
-    in bf16 beside it."""
+    in bf16 and the composed int8 block's device time beside it."""
     rng = np.random.default_rng(15)
     for dtype in (torch.bfloat16, torch.float32):
         for b, t, d, h in K7_SHAPES:
@@ -1383,17 +1407,27 @@ def phase_k7(results: dict) -> None:
             def plain():
                 return fused_attention_block_int8_plain(x, *args, n_heads=h)
 
+            tc_before = fused_attention_block_int8.tc_launches
             got = kernel()
             torch.cuda.synchronize()
-            stats = compare_scaled(got, plain(), K7_TOL[dtype], f"K7 {[b, t, d]} h={h} {dtype}")
+            what = f"K7 {[b, t, d]} h={h} {dtype}"
+            on_tc = fused_attention_block_int8.tc_launches != tc_before
+            if on_tc != (dtype == torch.bfloat16):
+                raise AssertionError(f"{what}: the tensor-core route's counter "
+                                     f"{'moved' if on_tc else 'did not move'}")
+            stats = compare_scaled(got, plain(), K7_TOL[dtype], what)
             stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
-                         device_ms=graph_ms(kernel))
+                         device_ms=graph_ms(kernel), route="tc" if on_tc else "simt",
+                         gemm=gemm_route(d))
             m = b * t
             ops = {torch.int8: 2 * m * d * 4 * d, dtype: attention_ops(b, h, t, d // h, 2)}
             stats.update(bound(nbytes(x, *args, x), ops), library_ms=None)   # no single call
             if dtype == torch.bfloat16:
-                stats["k1_ms"] = median_ms(
-                    lambda: fused_attention_block(x, ln, attn, n_heads=h))
+                stats.update(k1_ms=median_ms(lambda: fused_attention_block(x, ln, attn,
+                                                                           n_heads=h)),
+                             launch_device_ms=kernel_device_ms(kernel),
+                             composed_device_ms=graph_ms(
+                                 lambda: composed_int8_block(x, ln, qattn, n_heads=h)))
             say("k7", shape=[b, t, d], heads=h, dtype=str(dtype), **stats)
             if (b, dtype) == (8, torch.bfloat16):
                 results["fused_attention_block_int8"] = stats
@@ -1472,12 +1506,15 @@ def phase_int8_serve(clip_np, cap_np, clip_tok, lm_tok) -> dict:
     k7, k2 = counts["fused_attention_block_int8"], counts["decode_step_attention"]
     if k7 != layers * len(batch_sizes) or counts["fused_attention_block"] != 0:
         raise AssertionError(f"image tower not on K7 alone: {counts}, {len(batch_sizes)} calls")
+    check_tc_route("int8 serving bf16", counts, tc_launches(), ("fused_attention_block_int8",))
     if k2 <= 0 or k2 % GPT2Config().n_layer:
         raise AssertionError(f"K2 launched {k2} times, not 12 per decode step")
     say("int8_serve", requests=len(images), threads=4, wall_s=wall,
         req_per_s=len(images) / wall, warm_single_request_s=statistics.median(single),
         runs_single_request_s=single, batch_sizes=batch_sizes, image_tower_calls=len(batch_sizes),
-        k7_per_image_tower_call=k7 / len(batch_sizes), decode_steps=k2 // GPT2Config().n_layer,
+        k7_per_image_tower_call=k7 / len(batch_sizes),
+        k7_tc_launches=tc_launches()["fused_attention_block_int8"],
+        decode_steps=k2 // GPT2Config().n_layer,
         launches=counts, served_tree_bytes=int8_bytes, bf16_tree_bytes=bf16_bytes,
         captions=[r["caption"][:24] for r in responses[:3]])
     return counts

@@ -103,7 +103,7 @@ cudaError_t run_block_tc(const bf16* x, const bf16* ln_s, const bf16* ln_b, cons
                                        stream)));
   CUtensorMap mqkv;  // [B, T, 3D] in 64 x 64 boxes, zeros past T
   CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
-  CCT_TRY(tc_launch(tc_block_fwd, tc_block_smem_bytes(t), b * h, t, stream, mqkv,
+  CCT_TRY(tc_launch(tc_block_fwd<bf16>, tc_block_smem_bytes(t), b * h, t, stream, mqkv,
                     TcGeom{h, {0, d, 2 * d, 0}}, TcOut{merged, (long long)t * d, d}, t, causal,
                     scale));
   return launch_gemm_tc<kResidual, false>(merged, w_out, b_out, x, out, rows, d, d, stream);

@@ -12,7 +12,8 @@
 //   hs = amax(|h32| over the row) / 127 (1 for a zero row),
 //   hq = clip(round_half_even(h32 / hs), +-127);
 //   qkv = T(float(hq . W_qkv) * hs * s_qkv + b_qkv), the product in int32;
-//   merged32 = per-head attention (head_attention.cuh) written in fp32;
+//   merged32 = per-head attention (head_attention.cuh, or tc_block_fwd of
+//   attention_tc.cuh on the tensor-core route) written in fp32;
 //   ms, mq from merged32 as hs, hq from h32 (the row spans every head);
 //   out = T((x32 + float(mq . W_out) * ms * s_out) + b_out).
 // The scale epilogues and LN's affine step use __fmul_rn/__fadd_rn, so nvcc
@@ -21,10 +22,9 @@
 // (half to even, as jnp.round).
 //
 // What bounds it on the H100: at [8,50,768] the two products are 1.9 G int8
-// operations against ~2.4 MB of int8 weights, a few microseconds of HBM
-// traffic at 3.35 TB/s; it is bound by memory. This first version computes the
-// products with __dp4a (4 int8 products summed into int32, exact) on the CUDA
-// cores, not the tensor cores, so it is bound by issue rate far above that.
+// operations against ~2.4 MB of int8 weights, under a microsecond at the
+// tensor cores' 1,979 TOP/s and ~1 us of HBM traffic at 3.35 TB/s; it is bound
+// by memory, and in practice by its five dependent launches.
 //
 // Design: five launches from one C entry, with the quantized rows, their
 // scales, qkv and the fp32 merged heads in device scratch the wrapper
@@ -32,17 +32,30 @@
 // that holds both weight matrices):
 //   (a) quantize_rows<LN>: one block per row: LN in fp32, then the row's int8
 //       values and scale;
-//   (b) int8_gemm<kInt8Qkv>: 64x64 tiles, 32 bytes of K per stage; both
-//       operands are K-contiguous (the weights as ops/quant.py lays them
-//       out), so each shared-memory word holds 4 consecutive k of one row or
-//       column and feeds __dp4a; the qkv epilogue;
-//   (c) head_attention<T, float>: one block per (batch, head);
+//   (b) the qkv product with the qkv epilogue: gemm_s8 (gemm_s8.cuh: wgmma
+//       s8 -> s32 on the tensor cores, TMA-fed int8 tiles, the weight read
+//       K-major where it lies) where D % 16 == 0 (TMA's row pitch), else
+//       int8_gemm below (64x64 tiles, 32 bytes of K per stage, __dp4a on the
+//       CUDA cores); the int32 sums are exact, so both give the same bits;
+//   (c) per-head attention into fp32 merged rows;
 //   (d) quantize_rows<no LN> over the fp32 merged rows;
-//   (e) int8_gemm<kInt8Residual>: merged . W_out with the residual epilogue.
-// No library GEMM or attention is called.
+//   (e) the out product with the residual epilogue, as (b).
+// Two routes, chosen by ops/attention_block_int8.py:route (a launch on one
+// never retries the other):
+//   cct_attention_block_int8 (fp32, and bf16 at head widths other than 64):
+//     (c) is head_attention<T, float> (head_attention.cuh, one block per
+//     (batch, head), fp32 FMA on the CUDA cores: fp32 on the tensor cores
+//     would be TF32);
+//   cct_attention_block_int8_tc (bf16 at dh = 64, T <= 256): (c) is
+//     tc_block_fwd<float> (attention_tc.cuh, K1's wgmma pass, q, k and v read
+//     at column offsets of qkv through a 3-D TMA map), stored in fp32.
+// The rounding points are the same on both routes; bf16(p) is the operand
+// wgmma takes anyway. No library GEMM or attention is called.
 #include <cstdint>
 
+#include "attention_tc.cuh"
 #include "common.cuh"
+#include "gemm_s8.cuh"
 #include "head_attention.cuh"
 
 namespace cct {
@@ -51,8 +64,6 @@ namespace {
 constexpr int kRowThreads = 256, kRowWarps = kRowThreads / 32;
 constexpr int kQBM = 64, kQBN = kQBM, kQBK = 32, kQWords = kQBK / 4, kQThreads = 256;
 constexpr size_t kRowSmemLimit = 48 * 1024;  // the row buffer, without an opt-in
-
-enum Int8Epilogue : int { kInt8Qkv = 0, kInt8Residual = 1 };
 
 // Sum (or max) over the block of one value per thread, in a fixed order.
 template <bool kMax>
@@ -182,7 +193,33 @@ int8_gemm(const int8_t* __restrict__ a, const float* __restrict__ a_scale,
   }
 }
 
-template <typename T>
+// out = epilogue(a . w_t^T) (w_t [N, K] row-major) on the tensor cores where
+// TMA takes the rows (K % 16 == 0), else on the __dp4a GEMM: chosen by shape,
+// never after a failure.
+template <int EPI, typename T>
+cudaError_t int8_product(const int8_t* a, const float* a_scale, const void* w_t,
+                         const void* w_scale, const void* bias, const void* resid, void* out,
+                         int M, int N, int K, cudaStream_t stream) {
+  const int8_t* w = static_cast<const int8_t*>(w_t);
+  const float* ws = static_cast<const float*>(w_scale);
+  const T* b = static_cast<const T*>(bias);
+  const T* r = static_cast<const T*>(resid);
+  T* o = static_cast<T*>(out);
+  if (K % 16 == 0) return launch_gemm_s8<EPI, T>(a, a_scale, w, ws, b, r, o, M, N, K, stream);
+  int8_gemm<EPI, T><<<dim3((N + kQBN - 1) / kQBN, (M + kQBM - 1) / kQBM), kQThreads, 0,
+                      stream>>>(a, a_scale, w, ws, b, r, o, M, N, K);
+  return cudaGetLastError();
+}
+
+#define CCT_TRY(expr)                      \
+  do {                                     \
+    const cudaError_t e_ = (expr);         \
+    if (e_ != cudaSuccess) return e_;      \
+  } while (0)
+
+// The five launches; TC picks the attention pass (c): tc_block_fwd<float>
+// (bf16, dh = 64) or head_attention<T, float>.
+template <typename T, bool TC>
 cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
                            const void* w_qkv, const void* s_qkv, const void* b_qkv,
                            const void* w_out, const void* s_out, const void* b_out,
@@ -190,6 +227,7 @@ cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
                            int t, int d, int h, int causal, float eps, float scale,
                            cudaStream_t stream) {
   if (b <= 0 || t <= 0 || h <= 0 || d % h != 0) return cudaErrorInvalidValue;
+  if (TC && (d / h != kTcDh || n_tiles(t) > kBlockMaxTiles)) return cudaErrorInvalidValue;
   const int m = b * t;
   const size_t row_smem = sizeof(float) * (size_t)d;
   const size_t attn_smem = attn_smem_bytes(t, d / h);
@@ -200,34 +238,27 @@ cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
   quantize_rows<T, T, true><<<m, kRowThreads, row_smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), q,
       r, d, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  int8_gemm<kInt8Qkv, T><<<dim3((3 * d + kQBN - 1) / kQBN, (m + kQBM - 1) / kQBM),
-                           kQThreads, 0, stream>>>(
-      q, r, static_cast<const int8_t*>(w_qkv), static_cast<const float*>(s_qkv),
-      static_cast<const T*>(b_qkv), nullptr, static_cast<T*>(qkv), m, 3 * d, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = cudaFuncSetAttribute(head_attention<T, float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attn_smem);
-  if (err != cudaSuccess) return err;
-  head_attention<T, float><<<dim3(b, h), kAttnThreads, attn_smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<float*>(merged), t, d, h, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
+  CCT_TRY(cudaGetLastError());
+  CCT_TRY((int8_product<kInt8Qkv, T>(q, r, w_qkv, s_qkv, b_qkv, nullptr, qkv, m, 3 * d, d,
+                                     stream)));
+  if constexpr (TC) {
+    CUtensorMap mqkv;  // [B, T, 3D] in 64 x 64 boxes, zeros past T
+    CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
+    CCT_TRY(tc_launch(tc_block_fwd<float>, tc_block_smem_bytes(t), b * h, t, stream, mqkv,
+                      TcGeom{h, {0, d, 2 * d, 0}},
+                      TcOutOf<float>{static_cast<float*>(merged), (long long)t * d, d}, t,
+                      causal, scale));
+  } else {
+    CCT_TRY(cudaFuncSetAttribute(head_attention<T, float>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attn_smem));
+    head_attention<T, float><<<dim3(b, h), kAttnThreads, attn_smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<float*>(merged), t, d, h, causal, scale);
+    CCT_TRY(cudaGetLastError());
+  }
   quantize_rows<float, T, false><<<m, kRowThreads, row_smem, stream>>>(
       static_cast<const float*>(merged), nullptr, nullptr, q, r, d, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  int8_gemm<kInt8Residual, T><<<dim3((d + kQBN - 1) / kQBN, (m + kQBM - 1) / kQBM),
-                                kQThreads, 0, stream>>>(
-      q, r, static_cast<const int8_t*>(w_out), static_cast<const float*>(s_out),
-      static_cast<const T*>(b_out), static_cast<const T*>(x), static_cast<T*>(out), m, d, d);
-  return cudaGetLastError();
+  CCT_TRY(cudaGetLastError());
+  return int8_product<kInt8Residual, T>(q, r, w_out, s_out, b_out, x, out, m, d, d, stream);
 }
 
 }  // namespace
@@ -239,6 +270,9 @@ cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
 // [B*T, D]. x, ln_s, ln_b, b_qkv, b_out and out have the input type and are
 // contiguous; w_qkv [D, 3D] and w_out [D, D] are int8 stored K-contiguous
 // (their transposes are contiguous); s_qkv and s_out are contiguous fp32.
+// The tensor-core route reads q8, the weights and qkv through TMA maps: their
+// bases 16-byte aligned.
+// The SIMT attention route.
 extern "C" int cct_attention_block_int8(int dtype, const void* x, const void* ln_s,
                                         const void* ln_b, const void* w_qkv,
                                         const void* s_qkv, const void* b_qkv,
@@ -249,14 +283,30 @@ extern "C" int cct_attention_block_int8(int dtype, const void* x, const void* ln
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case cct::kFloat32:
-      return cct::run_block_int8<float>(x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out, s_out,
-                                        b_out, q8, rs, qkv, merged, out, b, t, d, h, causal,
-                                        eps, scale, s);
+      return cct::run_block_int8<float, false>(x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out,
+                                               s_out, b_out, q8, rs, qkv, merged, out, b, t, d,
+                                               h, causal, eps, scale, s);
     case cct::kBFloat16:
-      return cct::run_block_int8<__nv_bfloat16>(x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out,
-                                                s_out, b_out, q8, rs, qkv, merged, out, b, t,
-                                                d, h, causal, eps, scale, s);
+      return cct::run_block_int8<__nv_bfloat16, false>(x, ln_s, ln_b, w_qkv, s_qkv, b_qkv,
+                                                       w_out, s_out, b_out, q8, rs, qkv, merged,
+                                                       out, b, t, d, h, causal, eps, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core attention route, same arguments: bf16 at dh = 64 and
+// T <= 256 only (anything else is refused, never run on the other route).
+extern "C" int cct_attention_block_int8_tc(int dtype, const void* x, const void* ln_s,
+                                           const void* ln_b, const void* w_qkv,
+                                           const void* s_qkv, const void* b_qkv,
+                                           const void* w_out, const void* s_out,
+                                           const void* b_out, void* q8, void* rs, void* qkv,
+                                           void* merged, void* out, int b, int t, int d, int h,
+                                           int causal, float eps, float scale, void* stream) {
+  if (dtype != cct::kBFloat16) return cudaErrorInvalidValue;
+  return cct::run_block_int8<__nv_bfloat16, true>(x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out,
+                                                  s_out, b_out, q8, rs, qkv, merged, out, b, t,
+                                                  d, h, causal, eps, scale,
+                                                  static_cast<cudaStream_t>(stream));
 }

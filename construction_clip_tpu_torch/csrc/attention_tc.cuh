@@ -8,8 +8,9 @@
 //   tc_dq         dq = sum over key tiles of bf16(ds) k, and with MERGED (K3)
 //                 the merged heads bf16(sum bf16(p) v) from the same p;
 //   tc_dkv        dv = sum over query tiles of bf16(p^T) dO, dk = bf16(ds^T) q;
-//   tc_block_fwd  K1's attention: merged = bf16(sum bf16(p) v / l), p rounded
-//                 relative to the row's max (T <= 256).
+//   tc_block_fwd  K1's and K7's attention: merged = sum bf16(p) v / l, stored
+//                 as bf16 (K1) or fp32 (K7), p rounded relative to the row's
+//                 max (T <= 256).
 //
 // Every product is wgmma m64n64k16 (bf16 in, fp32 accumulators): one
 // warpgroup owns 64 rows; TMA streams 64 x 64 tiles (128-byte rows, 128-byte
@@ -25,6 +26,7 @@
 #pragma once
 
 #include <cfloat>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -47,15 +49,18 @@ struct TcGeom {
   int col[4];  // column of head 0 in the q, k, v and dO maps
 };
 
-// A bf16 output: row r of head bh at p + (bh / heads) z + 64 (bh % heads) + r row.
-struct TcOut {
-  bf16* p;
+// An output of type O (bf16; K7's merged heads fp32): row r of head bh at
+// p + (bh / heads) z + 64 (bh % heads) + r row.
+template <typename O>
+struct TcOutOf {
+  O* p;
   long long z;
   int row;
-  __device__ __forceinline__ bf16* head(int bh, int heads) const {
+  __device__ __forceinline__ O* head(int bh, int heads) const {
     return p + (long long)(bh / heads) * z + (long long)(bh % heads) * kTcDh;
   }
 };
+using TcOut = TcOutOf<bf16>;
 
 // Shared memory of a block: `fixed` tiles loaded once (a; b when fixed is 2),
 // a ring of kStages stages of two streamed tiles (x, y), for the dk/dv pass
@@ -493,7 +498,7 @@ cudaError_t tc_attention_bwd(const CUtensorMap& mq, const CUtensorMap& mk, const
                    dk, dv, t, causal, scale);
 }
 
-// ---- K1's forward attention (T <= 256) --------------------------------------
+// ---- K1's and K7's forward attention (T <= 256) ----------------------------
 
 constexpr int kBlockMaxTiles = 4;  // key tiles of a head at T <= 256
 
@@ -533,10 +538,13 @@ __device__ __forceinline__ void tc_logits(float (&s)[32], const void* q_tile,
 // p = 2^(t - m) summed in fp32 into l, bf16(p) the register A operand of
 // o += p v. The store divides o by l and rounds once. The Pallas kernel's
 // rounding points: p rounded relative to the row's max (K4 rounds it relative
-// to the running max and rescales o, which differs from T = 65 on).
+// to the running max and rescales o, which differs from T = 65 on). O is the
+// output's type: bf16 for K1, fp32 for K7 (whose out-projection quantizes the
+// merged rows unrounded), the same quotient either way.
+template <typename O>
 __global__ void __launch_bounds__(kTcThreads)
-    tc_block_fwd(const __grid_constant__ CUtensorMap mqkv, TcGeom geo, TcOut merged, int t_len,
-                 int causal, float scale) {
+    tc_block_fwd(const __grid_constant__ CUtensorMap mqkv, TcGeom geo, TcOutOf<O> merged,
+                 int t_len, int causal, float scale) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align_1024(smem_raw);
   const int bh = blockIdx.x, qt = query_tile(causal), q0 = qt * kBoxRows;
@@ -596,13 +604,17 @@ __global__ void __launch_bounds__(kTcThreads)
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
-  bf16* out = merged.head(bh, geo.heads);
+  O* out = merged.head(bh, geo.heads);
 #pragma unroll
   for (int k = 0; k < 32; k += 2) {
     const int row = q0 + acc_row(k), r = (k >> 1) & 1;
-    if (row < t_len)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * merged.row + acc_col(k)) =
-          pack_bf16(__fdiv_rn(o[k], l[r]), __fdiv_rn(o[k + 1], l[r]));
+    if (row >= t_len) continue;
+    O* dst = out + (size_t)row * merged.row + acc_col(k);
+    const float v0 = __fdiv_rn(o[k], l[r]), v1 = __fdiv_rn(o[k + 1], l[r]);
+    if constexpr (std::is_same_v<O, float>)
+      *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);  // acc_col is even
+    else
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
   }
 }
 

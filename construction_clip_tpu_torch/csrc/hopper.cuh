@@ -7,13 +7,15 @@
 //              that completes on an mbarrier (rows past the tensor's end are
 //              zero);
 //   wgmma      m64n64k16 and m64n128k16 bf16 -> fp32 with both operands in
-//              shared memory (ss), m64n64k16 with A in registers (rs), its
-//              fence / commit / wait, and the shared-memory descriptors of
-//              128-byte-swizzled tiles.
+//              shared memory (ss), m64n64k16 with A in registers (rs),
+//              m64n64k32 and m64n128k32 s8 -> s32 (ss, both operands
+//              K-major: 8-bit wgmma has no transpose), its fence / commit /
+//              wait, and the shared-memory descriptors of 128-byte-swizzled
+//              tiles.
 //
-// A tile here is 64 rows of 64 bf16 (128 bytes a row), written by a TMA load
-// with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned slot: the layout
-// wgmma reads through a descriptor with the 128-byte swizzle.
+// A tile here is rows of 128 bytes (64 bf16 or 128 int8), written by a TMA
+// load with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned slot: the
+// layout wgmma reads through a descriptor with the 128-byte swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums (types only: no -lcuda)
@@ -126,6 +128,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Descriptor of a 128-byte-swizzled tile in shared memory (start address,
 // leading and stride byte offsets in 16-byte units, layout 1 = 128B swizzle).
@@ -134,9 +141,9 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo, u
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (1ull << 62);
 }
-// A tile whose rows run along the product's M or N and whose 64 columns are
-// the reduction index (K-major): 8-row groups 1024 bytes apart; a k-step of
-// 16 columns is 32 bytes further (+2 in the descriptor).
+// A tile whose rows run along the product's M or N and whose 128 bytes a row
+// are the reduction index (K-major): 8-row groups 1024 bytes apart; a k-step
+// of 32 bytes (16 bf16, or 32 int8) is +2 in the descriptor.
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
   return desc_sw128(tile, 0, 1024);
 }
@@ -212,7 +219,37 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
 }
 
+#define CCT_I8(i)                                                                  \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),      \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (+)= A . B over k = 32, A [64 x 32] and B^T [64 x 32] int8 K-major tiles in
+// shared memory, exact int32 sums. d's elements lie where m64n64k16 puts its
+// fp32 ones (acc_row / acc_col hold).
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " CCT_WGMMA_D32
+      ", %32, %33, p;\n}\n"
+      : CCT_I8(0), CCT_I8(8), CCT_I8(16), CCT_I8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The same with B^T [128 x 32].
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " CCT_WGMMA_D64
+      ", %64, %65, p;\n}\n"
+      : CCT_I8(0), CCT_I8(8), CCT_I8(16), CCT_I8(24), CCT_I8(32), CCT_I8(40), CCT_I8(48),
+        CCT_I8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 #undef CCT_D8
+#undef CCT_I8
 #undef CCT_WGMMA_D32
 #undef CCT_WGMMA_D64
 
@@ -297,22 +334,26 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a bf16 array [depth, rows, cols] (cols contiguous, a row
-// `cols` elements long) in boxes of 64 columns x box_rows rows x 1 with the
-// 128-byte swizzle; a box reaching past `rows` or `cols` reads zeros. depth 0
-// gives a 2-D map of [rows, cols] (coordinates column, row), depth >= 1 a 3-D
-// map (column, row, depth index).
+// The map of an array [depth, rows, cols] of bf16 (or, with
+// CU_TENSOR_MAP_DATA_TYPE_UINT8, of bytes: int8) (cols contiguous, a row
+// `cols` elements long) in boxes of 128 bytes of columns (64 bf16, 128 int8) x
+// box_rows rows x 1 with the 128-byte swizzle; a box reaching past `rows` or
+// `cols` reads zeros. depth 0 gives a 2-D map of [rows, cols] (coordinates
+// column, row), depth >= 1 a 3-D map (column, row, depth index). TMA wants the
+// base and the row pitch in multiples of 16 bytes.
 inline cudaError_t tile_map(CUtensorMap* map, const void* base, int depth, int rows, int cols,
-                            int box_rows) {
+                            int box_rows,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * sizeof(__nv_bfloat16);
+  const cuuint32_t elem = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : sizeof(__nv_bfloat16);
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * elem;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(depth > 0 ? depth : 1)};
   const cuuint64_t strides[2] = {row_bytes, row_bytes * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {128 / elem, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2,
+  const CUresult r = encode(map, type, depth > 0 ? 3 : 2,
                             const_cast<void*>(base), dims, strides, box, step,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -43,8 +43,10 @@ SIGNATURES = {
     "cct_attention_block_bwd_tc": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
     "cct_attention_block_bwd_work_floats": ([_I] * 4, _L),
     # dtype, x, ln_s, ln_b, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, q8, rs, qkv,
-    # merged, out, b, t, d, h, causal, eps, scale, stream
+    # merged, out, b, t, d, h, causal, eps, scale, stream (SIMT and tensor-core
+    # attention routes)
     "cct_attention_block_int8": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
+    "cct_attention_block_int8_tc": ([_I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
     # dtype, q, ck, cv, ancestry, out, rows, heads, t_max, dh, layer, cache_len, chunks,
     # scale, stream
     "cct_decode_attention": ([_I] + [_P] * 5 + [_I] * 7 + [_F, _P], _I),

@@ -8,7 +8,12 @@ W_qkv and W_out arrive quantized ({"q": int8 [D, 3D] / [D, D] stored
 K-contiguous, "s": fp32 scales [3D] / [D]}, ops/quant.quantize_tree); the
 biases stay float.
 `fused_attention_block_int8` launches K7 (csrc/attention_block_int8.cu) on CUDA
-tensors and runs `fused_attention_block_int8_plain` on CPU tensors. The plain
+tensors and runs `fused_attention_block_int8_plain` on CPU tensors. On the card
+`route` picks the C entry: the tensor-core attention pass for bf16 at dh = 64,
+the SIMT one otherwise; a launch that fails raises and never retries on the
+other entry. On both, the two int8 products run on the tensor cores (wgmma
+s8) where the width is a multiple of 16 (`gemm_route`), else on `__dp4a`; their
+int32 sums are exact, so the two give the same bits. The plain
 version keeps the Pallas kernel's rounding points: LN in fp32 (not rounded),
 per-row quantization, int32 products, qkv rounded once to x's dtype, p rounded
 to v's dtype for p . v, the merged heads kept in fp32 for the second
@@ -22,10 +27,25 @@ import torch
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.attention import NEG_INF, merge_heads, split_heads
 from construction_clip_tpu_torch.ops.attention_block import (
-    MAX_SMEM_BYTES, MAX_T, attention_smem_bytes)
+    MAX_SMEM_BYTES, MAX_T, TC_DH, attention_smem_bytes)
 from construction_clip_tpu_torch.ops.quant import int8_matmul, quantize_rows
 
 MAX_ROW_BYTES = 48 * 1024   # the row-quantization launch keeps one fp32 row in shared memory
+TMA_ROW_BYTES = 16          # TMA reads rows whose pitch is a multiple of 16 bytes
+
+
+def route(dtype, dh: int) -> str:
+    """The C entry K7 launches on the card: "tc" (the attention pass on the
+    tensor cores) for bf16 at a head width of TC_DH, else "simt" (fp32 FMA;
+    fp32 on the tensor cores would be TF32)."""
+    return "tc" if dtype == torch.bfloat16 and dh in TC_DH else "simt"
+
+
+def gemm_route(d: int) -> str:
+    """What K7's two int8 products run on, on either route: "wgmma" (s8 on the
+    tensor cores, int8 rows of d bytes read by TMA) where d is a multiple of
+    16, else "dp4a" (the CUDA cores); the C entries choose by the same rule."""
+    return "wgmma" if d % TMA_ROW_BYTES == 0 else "dp4a"
 
 
 def supported(x, n_heads: int) -> bool:
@@ -100,15 +120,19 @@ def fused_attention_block_int8(x, ln_params, qattn, *, n_heads: int, causal: boo
     qkv = torch.empty((b * t, 3 * d), dtype=x.dtype, device=dev)
     merged = torch.empty((b * t, d), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
+    on_tc = route(x.dtype, d // n_heads) == "tc"
+    entry = lib.cct_attention_block_int8_tc if on_tc else lib.cct_attention_block_int8
     with torch.cuda.device(dev):
-        err = lib.cct_attention_block_int8(
+        err = entry(
             _build.dtype_code(x.dtype), x.data_ptr(), *(a.data_ptr() for a in args),
             q8.data_ptr(), rs.data_ptr(), qkv.data_ptr(), merged.data_ptr(), out.data_ptr(),
             b, t, d, n_heads, int(causal), float(eps), float((d // n_heads) ** -0.5),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_attention_block_int8")
     fused_attention_block_int8.launches += 1
+    fused_attention_block_int8.tc_launches += on_tc
     return out
 
 
-fused_attention_block_int8.launches = 0   # K7
+fused_attention_block_int8.launches = 0      # K7
+fused_attention_block_int8.tc_launches = 0   # of them on the tensor-core route

@@ -571,6 +571,97 @@ def test_attention_block_int8_kernel_raises_on_what_it_does_not_take(gen, cuda_d
     assert fab8.fused_attention_block_int8.launches == before
 
 
+# K7's tensor-core route (fab8.route: bf16 at dh=64): every shape of
+# chip_smoke.K7_SHAPES, and the edges of the 64-row tiles (T = 1, a lone key;
+# 64, one whole tile; 65, one row in the last; 197, ViT-B/16's image tower;
+# 256, the gate) at 3 rows a batch
+K7_TC_CASES = ([(8, 50, 768, 12, False), (1, 50, 768, 12, False)] +
+               [(3, t, 128, 2, causal) for t in (1, 64, 65, 197, 256)
+                for causal in (False, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K7_TC_CASES)
+def test_attention_block_int8_tensor_cores_on_card(shape, gen, cuda_device):
+    b, t, d, h, causal = shape
+    x, ln, qattn = _int8_block_case(gen, cuda_device, torch.bfloat16, b, t, d)
+    wrapper = fab8.fused_attention_block_int8
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = wrapper(x, ln, qattn, n_heads=h, causal=causal)
+    want = _int8_plain(x, ln, qattn, h, causal)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _scaled_err(got, want) <= INT8_TOL[torch.bfloat16]
+    # no atomics: a second call gives the same bits
+    assert torch.equal(wrapper(x, ln, qattn, n_heads=h, causal=causal), got)
+
+
+def _int8_entry(entry, x, ln, qattn, h, causal):
+    """Calls a K7 C entry with scratch the test keeps: -> out, and the int8
+    rows and scales of the merged heads that the out product read."""
+    b, t, d = x.shape
+    dev = x.device
+    args = (ln["scale"], ln["bias"], qattn["w_qkv"]["q"], qattn["w_qkv"]["s"], qattn["b_qkv"],
+            qattn["w_out"]["q"], qattn["w_out"]["s"], qattn["b_out"])
+    q8 = torch.empty((b * t, d), dtype=torch.int8, device=dev)
+    rs = torch.empty(b * t, dtype=torch.float32, device=dev)
+    qkv = torch.empty((b * t, 3 * d), dtype=x.dtype, device=dev)
+    merged = torch.empty((b * t, d), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    err = entry(_build.dtype_code(x.dtype), x.data_ptr(), *(a.data_ptr() for a in args),
+                q8.data_ptr(), rs.data_ptr(), qkv.data_ptr(), merged.data_ptr(), out.data_ptr(),
+                b, t, d, h, int(causal), 1e-5, (d // h) ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "fused_attention_block_int8")
+    return out, q8, rs
+
+
+# (entry, dtype, shape): both entries at the tower shapes, and D = 72 (not a
+# multiple of 16) on the SIMT entry, where the products run on __dp4a
+K7_EXACT_CASES = ([("simt", dtype, shape) for dtype in (torch.float32, torch.bfloat16)
+                   for shape in ((8, 50, 768, 12, False), (3, 77, 512, 8, True),
+                                 (2, 9, 72, 2, False))] +
+                  [("tc", torch.bfloat16, shape) for shape in ((8, 50, 768, 12, False),
+                                                               (3, 77, 512, 8, True))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route, dtype, shape", K7_EXACT_CASES)
+def test_attention_block_int8_products_are_exact_on_card(route, dtype, shape, gen,
+                                                         cuda_device):
+    """The out product, on the tensor cores (wgmma s8) where D % 16 == 0 and on
+    __dp4a elsewhere, gives the bits of the exact int32 product (torch._int_mm)
+    under the same epilogue, T((x + float(mq W_out) ms s_out) + b_out): so the
+    two GEMMs give the same bits (the qkv product runs the same GEMM with its
+    own epilogue)."""
+    from construction_clip_tpu_torch.ops.quant import int8_matmul
+
+    b, t, d, h, causal = shape
+    lib = _build.load_library()
+    entry = lib.cct_attention_block_int8_tc if route == "tc" else lib.cct_attention_block_int8
+    x, ln, qattn = _int8_block_case(gen, cuda_device, dtype, b, t, d)
+    out, mq, ms = _int8_entry(entry, x, ln, qattn, h, causal)
+    acc = int8_matmul(mq, qattn["w_out"]["q"]).float()
+    y = (acc * ms[:, None]) * qattn["w_out"]["s"]
+    want = ((x.float().reshape(b * t, d) + y) + qattn["b_out"].float()).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out.reshape(b * t, d), want)
+    assert fab8.gemm_route(d) == ("wgmma" if d % 16 == 0 else "dp4a")
+
+
+@pytest.mark.cuda
+def test_attention_block_int8_tensor_core_entry_refuses_what_it_does_not_take(gen, cuda_device):
+    """K7's tensor-core C entry refuses fp32, other head widths and T > 256
+    with an error; it never runs them on the SIMT entry."""
+    lib = _build.load_library()
+    for dtype, t, d, h in ((torch.float32, 8, 128, 2), (torch.bfloat16, 8, 128, 4),
+                           (torch.bfloat16, 257, 128, 2)):   # dh 64, 32; T past the gate
+        x, ln, qattn = _int8_block_case(gen, cuda_device, dtype, 2, t, d)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _int8_entry(lib.cct_attention_block_int8_tc, x, ln, qattn, h, False)
+
+
 @pytest.mark.cuda
 def test_failed_build_raises_instead_of_falling_back(gen, cuda_device, tmp_path, monkeypatch):
     """No nvcc and no built library: the wrapper raises; it never takes the
