@@ -6,6 +6,7 @@ A, each run in a process of its own, so that both meet the same card and host.
     python3 chip_ab.py serve_int8 path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py train   path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py kernels path/to/checkout_a path/to/checkout_b
+    python3 chip_ab.py k10     path/to/checkout_a path/to/checkout_b
 
 serve: phase 5 (ViT-B/32 + GPT-2 12x768 beam 3 in bf16 through
 TorchPredictService, 10 requests from 4 threads). serve_int8: phase 16 (the
@@ -24,7 +25,10 @@ image tower (models/clip/quant.encode_image_int8, 12 K7 launches) at B=8, on
 inputs drawn from one numpy seed in both trees; then a
 digest (sha256 of the bytes) of the outputs of K3 (bf16 and fp32), K1 and K9
 in fp32 and K7 (bf16 and fp32) on inputs of another seed, so that equal
-digests show the two trees' bits equal.
+digests show the two trees' bits equal; last, K6's device and wrapper time at
+[8,224,224,3] and [256,224,224,3] into bf16 and fp32, each with the digest of
+its output. k10: phase 23 (K10 with 4 ranks time-slicing the card: each case's
+wrapper time a call, the kernel alone, the plain version's time).
 
 Each checkout builds its own kernels. Prints each run's JSON lines with the
 checkout they came from, then the card's name and power limit.
@@ -69,7 +73,8 @@ cfg = cs.CLIPConfig.vit_b_32()
 batch = cs.class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
 cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
-    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits"), r"""
+    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits", "ab_k6"),
+                r"""
 cs.phase_build()
 rng = np.random.default_rng(2)
 for rows in (24, 3):
@@ -180,6 +185,23 @@ for dtype in (torch.bfloat16, torch.float32):
     out = k7(x, ln, qattn, n_heads=12)
     cs.say("ab_bits", kernel="K7", dtype=str(dtype), digest=digest(out),
            attention_route="tc" if getattr(k7, "tc_launches", 0) != before else "simt")
+from construction_clip_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
+rng = np.random.default_rng(4)
+for shape in ((8, 224, 224, 3), (256, 224, 224, 3)):
+    u8 = torch.from_numpy((rng.random(shape) * 256).astype(np.uint8)).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        def k6():
+            return cs.normalize_u8(u8, mean=CLIP_MEAN, std=CLIP_STD, out_dtype=dtype)
+
+        device_ms = cs.graph_ms(k6)
+        cs.say("ab_k6", shape=list(shape), dtype=str(dtype), device_ms=device_ms,
+               ms=cs.median_ms(k6), share_of_bound=cs.bound(cs.nbytes(u8, k6()), {})["bound_ms"]
+               / device_ms, digest=digest(k6()))
+    del u8
+"""),
+    "k10": (("k10",), r"""
+cs.phase_build()
+cs.phase_k10({})
 """),
 }
 
@@ -189,9 +211,11 @@ def main() -> None:
     keep, body = RUNS[phase]
     a, b = (os.path.abspath(p) for p in sys.argv[2:4])
     for root in (a, b, b, a):
-        out = subprocess.run([sys.executable, "-c", PRELUDE + body, root], cwd=root,
-                             capture_output=True, text=True, check=True, timeout=900).stdout
-        for line in out.splitlines():
+        run = subprocess.run([sys.executable, "-c", PRELUDE + body, root], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            sys.exit(f"{root}: exit {run.returncode}\n{run.stdout[-4000:]}\n{run.stderr[-12000:]}")
+        for line in run.stdout.splitlines():
             if line.startswith("{") and json.loads(line).get("phase") in keep:
                 print(json.dumps({"checkout": root, **json.loads(line)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

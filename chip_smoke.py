@@ -78,9 +78,11 @@ Phases, each printing one line (the last line is the JSON verdict):
      never after setup, K2 12 times a step.
  17. the int8 kernel path against the int8 plain path: image features,
      zero-shot classes and greedy tokens.
- 18. K6, the uint8 normalize, against its plain version at [8,224,224,3] into
-     fp32 and bf16 (bit-equal), with times; beside them K6's device time,
-     from the replay of a CUDA graph of 20 calls.
+ 18. K6, the uint8 normalize, against its plain version into fp32 and bf16
+     (bit-equal) at [8,224,224,3], [256,224,224,3] (larger than the L2), a
+     tail shape [1,7,5,3] and a view one byte into its storage, with times;
+     beside them K6's device time, from the replay of a CUDA graph of 20
+     calls, and its share of the bytes bound.
  19. K9, the fused MLP residual, against its plain version at the towers'
      shapes ([8,50,768]->3072 bf16 and fp32, [36,50,768] bf16, [9,77,512]->2048
      bf16), with times, the composed default MLP's time beside them, the
@@ -101,11 +103,15 @@ Phases, each printing one line (the last line is the JSON verdict):
      tensor-core route; its median step time and device time beside
      phase 9's; then phase 11's fp32 gradient parity with the switch on.
  23. K10, the data-parallel feature all-gather, with 4 ranks sharing the card
-     (spawned processes, CUDA IPC between them): bit-equal to its plain
-     version (gloo through the host) at [9,512] fp32 and bf16, [9,768], a
-     chunk that is no multiple of 16 bytes and [4096,1024] bf16; the
-     wrapper's time a call (with its barrier) on all ranks, the kernel's
-     alone by CUDA events one rank at a time, the plain version's, the bound.
+     (spawned processes, CUDA IPC between them, flags on the device): bit-equal
+     to its plain version (gloo through the host) at [9,512] fp32 and bf16,
+     [9,768], a chunk that is no multiple of 16 bytes and [4096,1024] bf16;
+     the wrapper's time a call in a back-to-back run on all ranks, the
+     kernel's alone by CUDA events one rank at a time with every flag
+     already at its generation (and rank 0's two launches under
+     torch.profiler), the plain version's, the bound; then 50
+     back-to-back calls with other rows each in which one rank in turn comes
+     20 ms late, bit-equal.
  24. data-parallel ViT-B/32 training at full width and depth, bf16, 4 ranks on
      the card, global B=36 (phase 9's batch, 9 rows a rank), params from
      phase 9's seed on rank 0 broadcast to the others: 5 steps, the loss
@@ -125,8 +131,8 @@ paths, its error and time against its plain version, its bound (the least
 time the card could take for the same work: the bytes it must move at 3.35
 TB/s or its operations at the card's peak for their type, whichever is
 larger), where one PyTorch call computes the same function that call's time,
-and its device time (CUDA-graph replay; K10: none, its kernel alone is phase
-23's kernel_ms). The script imports nothing of JAX, tokenizers, transformers or PIL.
+and its device time (CUDA-graph replay; K10: its two launches under
+torch.profiler, phase 23). The script imports nothing of JAX, tokenizers, transformers or PIL.
 """
 
 from __future__ import annotations
@@ -306,7 +312,13 @@ K9_RUNS = (((8, 50, 768, 3072), torch.bfloat16),   # ViT-B/32 image tower, batch
            ((8, 50, 768, 3072), torch.float32),
            ((36, 50, 768, 3072), torch.bfloat16),  # training: 4 groups of 9
            ((9, 77, 512, 2048), torch.bfloat16))   # text tower, 9 violation-type prompts
-K6_SHAPE = (8, 224, 224, 3)
+K6_SHAPE = (8, 224, 224, 3)   # the staged zero-shot path, batch 8
+# K6 cases (shape, misaligned): the staged path; a bandwidth shape whose 38.5 MB
+# in and 77 MB of bf16 out exceed the 50 MB L2; 105 elements (13 of a thread's
+# 16-byte stores of 8 bf16, or 26 of 4 fp32, and a scalar tail of 1); a view one
+# byte past an allocation's start (the scalar path)
+K6_CASES = ((K6_SHAPE, False), ((256, 224, 224, 3), False), ((1, 7, 5, 3), False),
+            (K6_SHAPE, True))
 # fused-MLP kernel path against plain path, tower features relative to the
 # largest feature: bf16 as the int8 phase's bound; fp32 by summation order
 # through 12 layers
@@ -319,6 +331,8 @@ K10_CASES = (((9, 512), torch.float32), ((9, 512), torch.bfloat16),
              ((9, 768), torch.float32), ((9, 515), torch.float32),
              ((4096, 1024), torch.bfloat16))
 K10_LIBRARY = "not measurable on one card (NCCL refuses two ranks on one device)"
+# the delayed-rank case: rank i % world sleeps this long on the host before call i
+K10_DELAYED_CALLS, K10_DELAY_S = 50, 0.02
 # the 4-rank fp32 step against the one-process step: every gradient leaf within
 # DP_GRAD_TOL of that leaf's largest element. The ranks' gradients are four
 # partial sums over 9 rows each, added in another order than the 36 rows of the
@@ -1636,36 +1650,53 @@ def fused_mlp():
         blocks.USE_FUSED_MLP = previous
 
 
+def _k6_input(rng, shape, misaligned: bool):
+    """uint8 images of `shape` on the card; `misaligned` gives a view that
+    starts one byte past an allocation's start (the kernel's scalar path)."""
+    u8 = torch.from_numpy((rng.random(shape) * 256).astype(np.uint8)).cuda()
+    if not misaligned:
+        return u8
+    flat = torch.empty(u8.numel() + 1, dtype=torch.uint8, device="cuda")
+    flat[1:] = u8.flatten()
+    return flat[1:].view(shape)
+
+
 def phase_k6(results: dict) -> None:
-    """K6 against its plain version: the same fp32 operations, so bit-equal."""
+    """K6 against its plain version at every K6_CASES case: the same fp32
+    operations, so bit-equal; device time as a share of the bytes bound."""
     from construction_clip_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
 
     rng = np.random.default_rng(16)
-    u8 = torch.from_numpy((rng.random(K6_SHAPE) * 256).astype(np.uint8)).cuda()
-    for dtype in (torch.bfloat16, torch.float32):
-        kw = dict(mean=CLIP_MEAN, std=CLIP_STD, out_dtype=dtype)
+    for shape, misaligned in K6_CASES:
+        u8 = _k6_input(rng, shape, misaligned)
+        for dtype in (torch.bfloat16, torch.float32):
+            kw = dict(mean=CLIP_MEAN, std=CLIP_STD, out_dtype=dtype)
 
-        def kernel():
-            return normalize_u8(u8, **kw)
+            def kernel():
+                return normalize_u8(u8, **kw)
 
-        def plain():
-            return normalize_u8_plain(u8, **kw)
+            def plain():
+                return normalize_u8_plain(u8, **kw)
 
-        got, want = kernel(), plain()
-        err = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"K6 {dtype}: not bit-equal to its plain version, largest "
-                                 f"difference {err}")
-        stats = {"max_abs_err": err, "ms": median_ms(kernel), "plain_ms": median_ms(plain)}
-        # three fp32 operations an element: multiply, subtract, multiply
-        stats.update(bound(nbytes(u8, got), {torch.float32: 3 * u8.numel()}),
-                     library_ms=None)   # no single PyTorch call
-        # (the plain version copies its constants in: no graph)
-        stats["device_ms"] = device_ms = graph_ms(kernel)
-        say("k6", shape=list(K6_SHAPE), out_dtype=str(dtype), bit_equal=True,
-            device_gb_per_s=nbytes(u8, got) / (device_ms * 1e-3) / 1e9, **stats)
-        if dtype == torch.bfloat16:
-            results["normalize_u8"] = stats
+            got, want = kernel(), plain()
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 {shape} misaligned={misaligned} {dtype}: not "
+                                     f"bit-equal to its plain version, largest difference {err}")
+            stats = {"max_abs_err": err, "ms": median_ms(kernel), "plain_ms": median_ms(plain)}
+            # three fp32 operations an element: multiply, subtract, multiply
+            stats.update(bound(nbytes(u8, got), {torch.float32: 3 * u8.numel()}),
+                         library_ms=None)   # no single PyTorch call
+            # (the plain version copies its constants in: no graph)
+            stats["device_ms"] = device_ms = graph_ms(kernel)
+            say("k6", shape=list(shape), misaligned=misaligned, out_dtype=str(dtype),
+                bit_equal=True, device_gb_per_s=nbytes(u8, got) / (device_ms * 1e-3) / 1e9,
+                share_of_bound=stats["bound_ms"] / device_ms, **stats)
+            if (shape, misaligned, dtype) == (K6_SHAPE, False, torch.bfloat16):
+                results["normalize_u8"] = stats
+            del got, want
+        del u8
+    torch.cuda.empty_cache()
 
 
 def _mlp_inputs(rng, b, t, d, hidden, dtype):
@@ -1885,14 +1916,39 @@ def _k10_rows(shape, rank, dtype, device):
     return torch.randn(shape, generator=gen).to(device, dtype)
 
 
+def _k10_call_rows(shape, rank, call, device):
+    """Rank `rank`'s rows at call `call`: integers, exact in fp32, that differ
+    from every other rank's and call's (a stale slot would show)."""
+    n = shape[0] * shape[1]
+    first = n * (rank + K10_WORLD * call)
+    return torch.arange(first, first + n, device=device, dtype=torch.float32).view(shape)
+
+
+def k10_delayed(dp, peers, calls: int, shape=(9, 512)) -> bool:
+    """`calls` back-to-back calls in which rank `i % world` sleeps
+    K10_DELAY_S on the host before call i, so that the others' gathers wait
+    on the device; True if every call's output is the concatenation of that
+    call's rows."""
+    outs = []
+    for i in range(calls):
+        if i % dp.world == dp.rank:
+            time.sleep(K10_DELAY_S)
+        outs.append(all_gather(_k10_call_rows(shape, dp.rank, i, dp.device), dp, peers))
+    torch.cuda.synchronize()
+    return all(torch.equal(out, torch.cat([_k10_call_rows(shape, r, i, dp.device)
+                                           for r in range(dp.world)]))
+               for i, out in enumerate(outs))
+
+
 def k10_rank(dp, cases, reps):
     """One rank of phase 23: each case against the plain version, then its
     times; the kernel alone is timed by one rank at a time while the others
-    wait at a barrier (the ranks' contexts time-slice the card)."""
+    wait at a barrier (the ranks' contexts time-slice the card), with every
+    flag already at the generation it is called with, so its waits pass at
+    once; then the delayed-rank case."""
     lib = _build.load_library()
     peers = PeerBuffers(dp, max(h * w * torch.empty((), dtype=t).element_size()
                                 for (h, w), t in cases))
-    stream = torch.cuda.current_stream().cuda_stream
     out = []
     for (shape, dtype), n in zip(cases, reps):
         x = _k10_rows(shape, dp.rank, dtype, dp.device)
@@ -1909,31 +1965,42 @@ def k10_rank(dp, cases, reps):
                 fn()
             torch.cuda.synchronize()
             case[name] = (time.perf_counter() - t0) / calls * 1e3
-        # the last wrapper call's slots hold every rank's chunk; nobody writes them now
-        offset = ((peers.calls - 1) % 2) * peers.capacity
-        chunk_bytes = x.numel() * x.element_size()
+        dp.barrier()   # every rank's flag is at the last call's generation
+        g, stream = peers.calls, torch.cuda.current_stream().cuda_stream
+        slot, chunk_bytes = (g % 2) * peers.capacity, x.numel() * x.element_size()
 
-        def kernel():
-            _build.check(lib.cct_all_gather(peers.slots.data_ptr(), offset, got.data_ptr(),
-                                            chunk_bytes, dp.world, stream), "all_gather")
+        def kernel():   # the C entries alone, as the wrapper calls them
+            _build.check(lib.cct_all_gather_put(peers.bases.data_ptr(), slot, peers.pad_offset,
+                                                x.data_ptr(), chunk_bytes, dp.world, dp.rank,
+                                                g, stream), "all_gather")
+            _build.check(lib.cct_all_gather_gather(
+                peers.bases.data_ptr(), peers.host_bases, slot, peers.pad_offset, x.data_ptr(),
+                got.data_ptr(), chunk_bytes, dp.world, dp.rank, g, stream), "all_gather")
 
         for r in range(dp.world):
             dp.barrier()
             if r == dp.rank:
                 case["kernel_ms"] = median_ms(kernel, 11, 20)
+                if r == 0:   # torch.profiler in one rank: in several, it may see no device time
+                    case["launch_device_ms"] = kernel_device_ms(kernel)
         dp.barrier()
         out.append(case)
+    delayed = k10_delayed(dp, peers, K10_DELAYED_CALLS)
     peers.close()
-    return out
+    return out, delayed
 
 
 def phase_k10(results: dict) -> None:
-    """K10 with K10_WORLD ranks on the card, against its plain version."""
+    """K10 with K10_WORLD ranks on the card, against its plain version, then
+    the delayed-rank case."""
     reps = [200 if h * w < 1 << 20 else 50 for (h, w), _ in K10_CASES]
     per_rank = spawn_ranks(k10_rank, K10_WORLD, (K10_CASES, reps), device="cuda:0",
                            timeout=RANKS_TIMEOUT_S)
+    if not all(delayed for _, delayed in per_rank):
+        raise AssertionError(f"K10 with a delayed rank: outputs differ from the rows of their "
+                             f"calls: {[delayed for _, delayed in per_rank]}")
     for i, (shape, dtype) in enumerate(K10_CASES):
-        cases = [rank[i] for rank in per_rank]
+        cases = [rank[i] for rank, _ in per_rank]
         if not all(c["bit_equal"] for c in cases):
             raise AssertionError(f"K10 {shape} {dtype}: not bit-equal to its plain version: "
                                  f"{[c['max_abs_err'] for c in cases]}")
@@ -1944,13 +2011,19 @@ def phase_k10(results: dict) -> None:
                  "plain_ms": statistics.median(c["plain_ms"] for c in cases),
                  **bound(2 * K10_WORLD * chunk_bytes, {}), "library_ms": None}
         kernel_ms = [c["kernel_ms"] for c in cases]
+        # the put and the gather on rank 0's device (torch.profiler; not the front
+        # end's waits)
+        stats["device_ms"] = sum(cases[0]["launch_device_ms"].values())
         say("k10", world=K10_WORLD, shape=list(shape), dtype=str(dtype), bit_equal=True,
+            launch_device_ms_rank0=cases[0]["launch_device_ms"],
             chunk_bytes=chunk_bytes, kernel_ms_by_rank=kernel_ms,
             kernel_gb_per_s=2 * K10_WORLD * chunk_bytes / (statistics.median(kernel_ms) * 1e-3)
             / 1e9, ms_by_rank=[c["ms"] for c in cases],
             plain="gloo all_gather through the host", library=K10_LIBRARY, **stats)
         if i == 0:
             results["all_gather"] = stats
+    say("k10_delayed", world=K10_WORLD, calls=K10_DELAYED_CALLS, delay_s=K10_DELAY_S,
+        shape=[9, 512], bit_equal=True)
 
 
 def _replicated_params(dp, cfg, seed):
@@ -2208,7 +2281,7 @@ def main() -> None:
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},
-                "device_ms": results[name].get("device_ms")}   # K10: its kernel_ms alone
+                "device_ms": results[name]["device_ms"]}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

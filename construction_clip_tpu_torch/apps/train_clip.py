@@ -85,8 +85,10 @@ def join_world(device_flag: str, world: int):
     cuda:LOCAL_RANK (--device cuda) or the CPU (--device cpu)."""
     import torch
 
-    from construction_clip_tpu_torch.core.mesh import init_data_parallel
+    from construction_clip_tpu_torch.core.mesh import eager_module_loading, init_data_parallel
 
+    if torch.device(device_flag).type == "cuda":
+        eager_module_loading()   # before resolve_device's first CUDA call
     device = resolve_device(device_flag)
     if device.type == "cuda":
         if world > torch.cuda.device_count():

@@ -49,12 +49,28 @@ class DataParallel:
         dist.barrier(group=self.cpu_group)
 
     def close(self) -> None:
-        """Closes the gather's buffers (behind a barrier) and the process group."""
+        """Closes the gather's buffers (behind a barrier), then meets every
+        rank at a barrier and closes the process group. Collective. Without
+        the barrier a rank that finished first would tear its connections
+        down while a peer may still be inside gloo's full-mesh handshake of
+        the group's construction, and that peer fails with "connection closed
+        by peer"."""
         if self.peers is not None:
             self.peers.close()
             self.peers = None
         if dist.is_initialized():
+            self.barrier()
             dist.destroy_process_group()
+
+
+def eager_module_loading() -> None:
+    """Has CUDA load every module when it starts (CUDA_MODULE_LOADING=EAGER),
+    as K10's deadline needs: a kernel loaded lazily at its first launch, behind
+    a gather whose stream waits for a peer, blocks the host until the wait
+    clears, and with it the watchdog that fails a lost peer's call
+    (ops/collectives.py). Takes effect only before the process's first CUDA
+    call; `PeerBuffers` checks the mode CUDA started in."""
+    os.environ["CUDA_MODULE_LOADING"] = "EAGER"
 
 
 def init_data_parallel(*, rank: int | None = None, world: int | None = None, device=None,
@@ -70,6 +86,7 @@ def init_data_parallel(*, rank: int | None = None, world: int | None = None, dev
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     device = torch.device(device)
     if device.type == "cuda":
+        eager_module_loading()
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)

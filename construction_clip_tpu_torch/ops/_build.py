@@ -65,15 +65,21 @@ SIGNATURES = {
     # out_dtype, in, out, n, scale, mean[3], inv_std[3], stream
     "cct_normalize_u8": ([_I, _P, _P, _L] + [_F] * 7 + [_P], _I),
     # K10's staging buffers: bytes, &ptr / ptr / ptr, handle[64] / handle[64], &ptr /
-    # ptr / slot, src, bytes, stream
+    # ptr
     "cct_peer_alloc": ([_L, ctypes.POINTER(_P)], _I),
     "cct_peer_free": ([_P], _I),
     "cct_peer_handle": ([_P, _P], _I),
     "cct_peer_open": ([_P, ctypes.POINTER(_P)], _I),
     "cct_peer_close": ([_P], _I),
-    "cct_peer_put": ([_P, _P, _L, _P], _I),
-    # slots, slot_offset, out, chunk_bytes, ranks, stream
-    "cct_all_gather": ([_P, _L, _P, _L, _I, _P], _I),
+    # bases, slot_offset, pad_offset, x, chunk_bytes, ranks, me, generation, stream
+    "cct_all_gather_put": ([_P, _L, _L, _P, _L, _I, _I, ctypes.c_ulonglong, _P], _I),
+    # bases, host_bases, slot_offset, pad_offset, x, out, chunk_bytes, ranks, me,
+    # generation, stream
+    "cct_all_gather_gather": ([_P, _P, _L, _L, _P, _P, _L, _I, _I, ctypes.c_ulonglong, _P], _I),
+    # pad, ranks, me, stream
+    "cct_all_gather_poison": ([_P, _I, _I, _P], _I),
+    # &eager
+    "cct_all_gather_load": ([ctypes.POINTER(_I)], _I),
     "cct_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -15,6 +15,8 @@ workaround and is not carried over.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,6 +32,14 @@ def _constants(mean, std) -> tuple[np.ndarray, np.ndarray]:
     if mean32.shape != (3,) or inv_std.shape != (3,):
         raise ValueError(f"normalize_u8 takes 3 channel means and stds, got {mean}, {std}")
     return mean32, inv_std
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_constants(mean: tuple, std: tuple) -> tuple[float, ...]:
+    """`_constants` as the kernel's six float arguments (fp32 values), kept
+    per (mean, std): the wrapper computes them once, not on every call."""
+    mean32, inv_std = _constants(mean, std)
+    return tuple(float(v) for v in (*mean32, *inv_std))
 
 
 def _check(images_u8, out_dtype) -> None:
@@ -54,15 +64,13 @@ def normalize_u8(images_u8, *, mean, std, out_dtype=torch.float32):
     if _build.on_cpu(images_u8, "normalize_u8"):
         return normalize_u8_plain(images_u8, mean=mean, std=std, out_dtype=out_dtype)
     _check(images_u8, out_dtype)
-    mean32, inv_std = _constants(mean, std)
+    constants = _kernel_constants(tuple(mean), tuple(std))
     x = images_u8.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    lib = _build.load_library()
     with torch.cuda.device(x.device):
-        err = lib.cct_normalize_u8(
+        err = _build.load_library().cct_normalize_u8(
             _build.dtype_code(out_dtype), x.data_ptr(), out.data_ptr(), x.numel(), INV_255,
-            *(float(v) for v in mean32), *(float(v) for v in inv_std),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            *constants, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "normalize_u8")
     normalize_u8.launches += 1
     return out

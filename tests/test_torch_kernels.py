@@ -7,8 +7,11 @@ The tests marked `cuda` hold each kernel against its plain version on the card
 and skip where there is none (a CUDA kernel has no CPU mode); the others check
 the build module and the wrappers' dispatch on the CPU."""
 
+import contextlib
 import os
 import shutil
+import threading
+import time
 import types
 
 import numpy as np
@@ -797,10 +800,13 @@ def test_mlp_residual_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 224, 224, 3), (1, 7, 5, 3), (2, 3, 1, 3)])
+@pytest.mark.parametrize("shape", [(8, 224, 224, 3), (256, 224, 224, 3), (1, 7, 5, 3),
+                                   (2, 3, 1, 3)])
 def test_normalize_u8_kernel_on_card(shape, out_dtype, gen, cuda_device):
     """Bit-equal to its plain version: the same fp32 operations, each rounded
-    (a tail of fewer than 4 bytes at (1, 7, 5, 3) and (2, 3, 1, 3))."""
+    (a thread's 16-byte store of 8 bf16 or 4 fp32 elements; no grid-stride
+    loop runs at these shapes, only past 2^31 blocks; a scalar tail of 1
+    element at (1, 7, 5, 3), 105 elements, and of 2 at (2, 3, 1, 3), 18)."""
     u8 = torch.from_numpy((gen.random(shape) * 256).astype(np.uint8)).to(cuda_device)
     kw = dict(mean=(0.48145466, 0.4578275, 0.40821073),
               std=(0.26862954, 0.26130258, 0.27577711), out_dtype=out_dtype)
@@ -810,7 +816,7 @@ def test_normalize_u8_kernel_on_card(shape, out_dtype, gen, cuda_device):
     assert norm.normalize_u8.launches == before + 1
     assert got.dtype == out_dtype and got.shape == u8.shape
     assert torch.equal(got, norm.normalize_u8_plain(u8, **kw))
-    # an input that starts off a 4-byte boundary takes the byte loads
+    # an input one byte into its storage takes the scalar path
     flat = torch.zeros(u8.numel() + 1, dtype=torch.uint8, device=cuda_device)
     flat[1:] = u8.flatten()
     assert torch.equal(norm.normalize_u8(flat[1:].view(shape), **kw), got)
@@ -893,6 +899,103 @@ def test_all_gather_kernel_on_card(cuda_device):
         assert refused and grad_ok
 
 
+def _k10_call_rows(rank, call, device, shape=(9, 512)):
+    """Rank `rank`'s rows at call `call`: integers exact in fp32, different for
+    every rank and call, so that a stale slot shows."""
+    n = shape[0] * shape[1]
+    first = n * (rank + 2 * call)
+    return torch.arange(first, first + n, device=device, dtype=torch.float32).view(shape)
+
+
+def _k10_calls_rank(dp, calls, delay_s):
+    """`calls` back-to-back calls (rank i % world sleeps `delay_s` before call
+    i), with no synchronisation between them; then each output against the
+    plain version of the same call's rows."""
+    import time
+
+    outs = []
+    for i in range(calls):
+        if delay_s and i % dp.world == dp.rank:
+            time.sleep(delay_s)
+        outs.append(coll.all_gather(_k10_call_rows(dp.rank, i, dp.device), dp))
+    torch.cuda.synchronize()
+    return [bool(torch.equal(out, coll.all_gather_plain(_k10_call_rows(dp.rank, i, dp.device),
+                                                         dp)))
+            for i, out in enumerate(outs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calls, delay_s", [(200, 0.0), (50, 0.02)])
+def test_all_gather_back_to_back_calls_on_card(calls, delay_s, cuda_device):
+    """2 ranks on the card make `calls` calls without a host synchronisation,
+    each with other rows; with a delay, one rank in turn reaches each call
+    20 ms late, so that its peer's gather waits on the device: every output is
+    bit-equal to the plain version of its own call (no stale slot)."""
+    from construction_clip_tpu_torch.core.mesh import spawn_ranks
+
+    _build.load_library()
+    results = spawn_ranks(_k10_calls_rank, 2, (calls, delay_s), device="cuda:0", timeout=120)
+    assert results == [[True] * calls] * 2
+
+
+def _k10_lost_peer_rank(dp, then_softmax):
+    """Rank 0 calls, with `then_softmax` launches log_softmax on the output (a
+    kernel this process has not launched yet, as the InfoNCE loss does after
+    its gathers), and synchronises; rank 1 never calls."""
+    if dp.rank == 0:
+        out = coll.all_gather(torch.ones((9, 512), device=dp.device), dp)
+        if then_softmax:
+            torch.log_softmax(out, dim=-1)
+        torch.cuda.synchronize()
+    return dp.rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("then_softmax", [False, True])
+def test_all_gather_fails_at_the_deadline_when_a_peer_never_calls(then_softmax, cuda_device):
+    """The wait for a peer's flag has a deadline (10 s): rank 0's gather traps,
+    its synchronise raises, and spawn_ranks raises that rank's error well
+    before its own timeout; nothing hangs, also where the host launches a
+    kernel of a module it has not used yet behind the waiting gather (the
+    ranks load every module when CUDA starts)."""
+    import time
+
+    from construction_clip_tpu_torch.core.mesh import spawn_ranks
+
+    _build.load_library()
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 0 failed"):
+        spawn_ranks(_k10_lost_peer_rank, 2, (then_softmax,), device="cuda:0", timeout=60)
+    assert time.monotonic() - t0 < 45
+
+
+_LAZY_PEERS = """
+import types, torch
+from construction_clip_tpu_torch.ops import collectives
+dp = types.SimpleNamespace(world=1, rank=0, device=torch.device("cuda:0"))
+try:
+    collectives.PeerBuffers(dp, 1024)
+except RuntimeError as e:
+    print(e)
+"""
+
+
+@pytest.mark.cuda
+def test_peer_buffers_refuse_lazy_module_loading(cuda_device):
+    """A process whose CUDA started with lazy module loading gets no
+    PeerBuffers: its gather's deadline could not hold."""
+    import subprocess
+    import sys
+
+    _build.load_library()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_MODULE_LOADING="LAZY")
+    run = subprocess.run([sys.executable, "-c", _LAZY_PEERS], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "CUDA_MODULE_LOADING=EAGER" in run.stdout
+
+
 def test_all_gather_needs_peer_buffers_on_card():
     """On a CUDA tensor the wrapper launches K10 or raises: without the
     ranks' PeerBuffers it raises (checked with a stand-in whose device is
@@ -906,3 +1009,139 @@ def test_all_gather_needs_peer_buffers_on_card():
     dp = types.SimpleNamespace(peers=None, world=2, rank=0)
     with pytest.raises(RuntimeError, match="PeerBuffers"):
         coll.all_gather(FakeCuda(), dp)
+
+
+class _FakeCudaRows:
+    """A [chunk, D] fp32 stand-in whose device is cuda, so that the wrapper's
+    card path runs without a card."""
+    device = torch.device("cuda")
+    dtype = torch.float32
+    shape = (9, 512)
+
+    def dim(self):
+        return 2
+
+    def detach(self):
+        return self
+
+    def contiguous(self):
+        return self
+
+    def numel(self):
+        return 9 * 512
+
+    def element_size(self):
+        return 4
+
+    def data_ptr(self):
+        return 4096
+
+
+def test_all_gather_on_card_neither_synchronises_nor_meets_a_barrier(monkeypatch):
+    """The card path of `all_gather` only queues K10: with stand-ins for the
+    card (torch.cuda's device, stream and synchronise, a library that records
+    its calls) two calls each launch the put and then the gather once, with
+    generations 1 and 2 on slots 1 and 0, an event recorded after each, and
+    hand both events to the watchdog; neither calls torch.cuda.synchronize
+    nor dp.barrier."""
+    calls = []
+
+    class Lib:
+        def cct_all_gather_put(self, *args):
+            calls.append(("put",) + args)
+            return 0
+
+        def cct_all_gather_gather(self, *args):
+            calls.append(("gather",) + args)
+            return 0
+
+    class Stream:
+        cuda_stream = 77
+
+        def record_event(self):
+            calls.append("event")
+            return f"event {len(calls)}"
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a call of all_gather synchronised or met a barrier")
+
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
+    monkeypatch.setattr(torch, "empty", lambda shape, **kw: types.SimpleNamespace(
+        shape=shape, data_ptr=lambda: 8192))
+    dp = types.SimpleNamespace(world=2, rank=1, barrier=forbidden, peers=None)
+    watched = []
+    peers = types.SimpleNamespace(
+        dp=dp, capacity=1 << 16, pad_offset=2 << 16, calls=0, host_bases="bases",
+        bases=types.SimpleNamespace(data_ptr=lambda: 1024),
+        watchdog=types.SimpleNamespace(watch=lambda *events: watched.append(events)))
+    dp.peers = peers
+    before = coll.all_gather.launches
+    for _ in range(2):
+        out = coll.all_gather(_FakeCudaRows(), dp)
+        assert out.shape == (18, 512)
+    assert coll.all_gather.launches == before + 2 and peers.calls == 2
+    assert watched == [("event 2", "event 4"), ("event 6", "event 8")]
+    chunk = 9 * 512 * 4
+    expected = []
+    for g, slot in ((1, 1 << 16), (2, 0)):
+        # put: bases, slot_offset, pad_offset, x, chunk_bytes, ranks, me, generation,
+        # stream; gather: bases, host_bases, slot_offset, pad_offset, x, out,
+        # chunk_bytes, ranks, me, generation, stream
+        expected += [("put", 1024, slot, 2 << 16, 4096, chunk, 2, 1, g, 77), "event",
+                     ("gather", 1024, "bases", slot, 2 << 16, 4096, 8192, chunk, 2, 1, g, 77),
+                     "event"]
+    assert calls == expected
+
+
+def test_peer_buffers_refuse_more_ranks_than_the_pad_holds():
+    """The signal pad holds the flags of 31 ranks: a larger world is refused
+    before anything touches a card."""
+    with pytest.raises(ValueError, match="31 ranks"):
+        coll.PeerBuffers(types.SimpleNamespace(world=coll.MAX_RANKS + 1), 1024)
+
+
+class _Event:
+    """An event that reports done from `done_at` (monotonic s) on."""
+
+    def __init__(self, done_at):
+        self.done_at = done_at
+
+    def query(self):
+        return time.monotonic() >= self.done_at
+
+
+def _watch(calls, deadline_s):
+    """A watchdog over `calls`, (put done at, gather done at) in monotonic s."""
+    fired = threading.Event()
+    dog = coll.WaitWatchdog(fired.set, deadline_s=deadline_s, poll_s=0.01)
+    for put_at, done_at in calls:
+        dog.watch(_Event(put_at), _Event(done_at))
+    return dog, fired
+
+
+def test_watchdog_fails_a_call_that_waits_past_its_deadline():
+    """A call whose gather never completes fails once, a deadline after its
+    put completed and not before it."""
+    t0 = time.monotonic()
+    dog, fired = _watch([(t0, t0), (t0 + 0.2, float("inf"))], deadline_s=0.3)
+    assert fired.wait(5.0)
+    assert time.monotonic() - t0 >= 0.5 and dog.fired
+    dog.stop()
+
+
+def test_watchdog_measures_each_call_from_its_put():
+    """Calls whose gathers each complete within the deadline of their put do
+    not fire it, though together they take longer than the deadline, and
+    though the first put completes only after more than a deadline of work
+    queued ahead of it; nor do calls that complete at once."""
+    t0 = time.monotonic()
+    calls = [(t0 + 0.4, t0 + 0.5)]
+    calls += [(t0 + 0.5 + 0.15 * i, t0 + 0.5 + 0.15 * (i + 1)) for i in range(4)]
+    dog, fired = _watch(calls + [(t0, t0)], deadline_s=0.3)
+    time.sleep(1.4)
+    assert not fired.is_set() and not dog.pending
+    dog.stop()
+    assert not dog.fired

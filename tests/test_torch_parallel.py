@@ -12,6 +12,7 @@ no JAX at its top: the tests import it where they need it."""
 import json
 import os
 import sys
+import time
 import types
 
 import numpy as np
@@ -107,12 +108,87 @@ def _dp_rank(dp, case):
     return out
 
 
+def _close_rank(dp, marker):
+    """Rank 1 lingers after its work, then leaves `marker`; rank 0 records, at
+    the moment it destroys its process group, whether the marker is there,
+    that is whether rank 1 had finished its work and reached `close`."""
+    seen = {}
+    if dp.rank == 0:
+        destroy = torch.distributed.destroy_process_group
+
+        def recording_destroy(*args, **kwargs):
+            seen["peer_reached_close"] = os.path.exists(marker)
+            return destroy(*args, **kwargs)
+
+        torch.distributed.destroy_process_group = recording_destroy
+    else:
+        time.sleep(1.0)
+        with open(marker, "w"):
+            pass
+    return seen   # filled in by close, before the result is sent
+
+
 def _app_rank(dp, argv):
     for mod in ("torch.utils.tensorboard", "tensorboardX"):
         sys.modules[mod] = None   # the metric logger writes its JSONL only
     from construction_clip_tpu_torch.apps import train_clip
 
     train_clip.train(train_clip.parse_args(argv), dp)
+
+
+# ---- the process group ------------------------------------------------------------------
+
+def test_close_waits_for_every_rank_before_destroying_the_group(tmp_path):
+    """DataParallel.close meets every rank before it destroys the group: a
+    rank that finished first would otherwise tear its gloo connections down
+    while a peer is still working, or still inside gloo's full-mesh
+    handshake, which fails that peer with "connection closed by peer"."""
+    results = spawn_ranks(_close_rank, 2, (str(tmp_path / "rank1_done"),), device="cpu",
+                          timeout=60)
+    assert results == [{"peer_reached_close": True}, {}]
+
+
+class _CudaStarted(Exception):
+    pass
+
+
+def test_init_data_parallel_loads_modules_eagerly_before_cuda_starts(monkeypatch):
+    """On a CUDA device, init_data_parallel asks for eager module loading
+    before its first CUDA call, as K10's deadline needs (checked with a
+    stand-in for torch.cuda.set_device, so no card is needed)."""
+    from construction_clip_tpu_torch.core import mesh
+
+    seen = []
+
+    def set_device(device):
+        seen.append(os.environ.get("CUDA_MODULE_LOADING"))
+        raise _CudaStarted
+
+    monkeypatch.delenv("CUDA_MODULE_LOADING", raising=False)
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    with pytest.raises(_CudaStarted):
+        mesh.init_data_parallel(rank=0, world=1, device="cuda:0")
+    assert seen == ["EAGER"]
+
+
+def test_training_app_loads_modules_eagerly_before_cuda_starts(monkeypatch):
+    """The training app's ranks (--device cuda) ask for eager module loading
+    before resolve_device's first CUDA call; on the CPU they leave it alone."""
+    from construction_clip_tpu_torch.apps import train_clip
+    from construction_clip_tpu_torch.core import mesh
+
+    seen = []
+
+    def resolve(flag):
+        seen.append(os.environ.get("CUDA_MODULE_LOADING"))
+        return torch.device("cpu")
+
+    monkeypatch.delenv("CUDA_MODULE_LOADING", raising=False)
+    monkeypatch.setattr(train_clip, "resolve_device", resolve)
+    monkeypatch.setattr(mesh, "init_data_parallel", lambda device: device)
+    assert train_clip.join_world("cpu", 2) == torch.device("cpu")
+    assert train_clip.join_world("cuda", 2) == torch.device("cpu")
+    assert seen == [None, "EAGER"]
 
 
 # ---- the gather --------------------------------------------------------------------------

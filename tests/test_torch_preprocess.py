@@ -91,6 +91,59 @@ def test_normalize_u8_plain_matches_pallas_interpret(shape, out_dtype, rng, inte
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=0)
 
 
+@pytest.mark.parametrize("view", ["strided", "offset"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_normalize_u8_plain_on_views_matches_pallas_interpret(view, out_dtype, rng,
+                                                              interpret_mode):
+    """K6's plain version on inputs the kernel's vector path does not take,
+    against the Pallas kernel in interpret mode: every other pixel of a row
+    (a non-contiguous view) and a view one byte into its storage (the
+    misaligned case), each at a shape of 105 bytes, no multiple of 8 or 48
+    (tolerances as above)."""
+    from construction_clip_tpu.ops import pallas_preprocess
+
+    from construction_clip_tpu_torch.ops.preprocess import normalize_u8_plain
+
+    shape = (1, 7, 5, 3)
+    if view == "strided":
+        x = torch.from_numpy(_u8(rng, (1, 7, 10, 3)))[:, :, ::2]
+        assert not x.is_contiguous()
+    else:
+        flat = torch.from_numpy(_u8(rng, (106,)))
+        x = flat[1:].view(shape)
+        assert x.storage_offset() == 1
+    want = np.asarray(pallas_preprocess.normalize_u8.__wrapped__(
+        jnp.asarray(x.contiguous().numpy()), mean=jpre.CLIP_MEAN, std=jpre.CLIP_STD,
+        out_dtype=getattr(jnp, out_dtype)).astype(jnp.float32))
+    got = normalize_u8_plain(x, mean=pre.CLIP_MEAN, std=pre.CLIP_STD,
+                             out_dtype=getattr(torch, out_dtype))
+    assert got.dtype == getattr(torch, out_dtype) and tuple(got.shape) == shape
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=0)
+
+
+def test_normalize_u8_kernel_constants_are_cached_and_equal_constants():
+    """The wrapper's cached kernel arguments: `_constants`' fp32 means and
+    reciprocal stds, computed once per (mean, std)."""
+    from construction_clip_tpu_torch.ops import preprocess as ops_pre
+
+    ops_pre._kernel_constants.cache_clear()
+    for mean, std in ((pre.CLIP_MEAN, pre.CLIP_STD), ((0.5, 0.4, 0.3), (0.2, 0.25, 0.3))):
+        got = ops_pre._kernel_constants(tuple(mean), tuple(std))
+        mean32, inv_std = ops_pre._constants(mean, std)
+        assert all(isinstance(v, float) for v in got)
+        np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                      np.concatenate([mean32, inv_std]))
+        assert np.array_equal(np.asarray(got, np.float64), np.asarray(got, np.float32))
+        assert ops_pre._kernel_constants(tuple(mean), tuple(std)) is got
+    info = ops_pre._kernel_constants.cache_info()
+    assert (info.misses, info.hits) == (2, 2)
+    with pytest.raises(ValueError, match="3 channel"):
+        ops_pre._kernel_constants((0.5, 0.5), tuple(pre.CLIP_STD))
+
+
 @pytest.mark.parametrize("mean_std", ["clip", "imagenet"])
 def test_preprocess_staged_matches_jax(mean_std, rng):
     """preprocess_staged on the CPU runs K6's plain version; the JAX package's
