@@ -13,8 +13,8 @@ Phases, each printing one line (the last line is the JSON verdict):
      time under torch.profiler, and the device time of the composed block's
      forward (layer_norm, addmm, SDPA, addmm, add: cuBLAS and SDPA).
   4. K2, decode-step attention with beam ancestry, against its plain version
-     at 8 images x beam 3 (R=24) and 1 image x beam 3 (R=3), cache lengths 0
-     to t_max - 1, bf16 and fp32, bit-equal on a second call; at cache_len
+     at 8 images x beam 3 (R=24), 1 image x beam 3 (R=3) and predict's 16
+     images x beam 3 (R=48) and 16 greedy (R=16), cache lengths 0 to t_max - 1, bf16 and fp32, bit-equal on a second call; at cache_len
      139 with ancestry in bf16 its device time beside a torch.gather + SDPA
      yardstick's.
   5. the serving path at full width (ViT-B/32, GPT-2 12x768, MLP mapper, random
@@ -125,6 +125,30 @@ Phases, each printing one line (the last line is the JSON verdict):
      and depth, bf16, 2 ranks, global B=18, 2 steps: K4/K5 launch from the
      image tower and K10 from the loss in every rank, every K1/K3/K4/K5
      launch on the tensor-core route.
+ 27. ClipCap caption training at full width (GPT-2 21128x12x768, MLP mapper,
+     prefix 20, attribute 20), bf16: train/caption.make_caption_train_step on
+     data/loader.TorchArrayLoader batches of a synthetic archive (prefix
+     [N,512], captions of 10-40 ids, attributes padded to 20), 10 steps of B=16
+     in each mode, only-prefix (the frozen GPT-2 cast once) and full
+     fine-tune; the first batch's loss after the steps must be below its loss
+     before them; the median step, a step's device time (its kernels under
+     torch.profiler), the peak memory above what was allocated before the
+     first step (the params and AdamW moments, and earlier phases' tensors,
+     are below that line); none of K1-K10 may launch (ClipCap
+     training runs no hand kernel, as the JAX step runs no Pallas kernel).
+     The full fine-tune's params are saved with save_params_npz for phase 29.
+ 28. one full fine-tune caption step in fp32 at full width, B=4, on the card
+     against the CPU on the same params and batch: the loss and every
+     gradient leaf (the tied wte on its own line); then the card's step
+     again with TF32 GEMMs, a control that must read above the bound.
+ 29. the port's apps/predict.make_process at full width on phase 27's npz
+     (load_params_npz), bf16, beam 3, 100 steps: 32 synthetic images of mixed
+     sizes staged by host_shape_unify, in batches of 16; the records carry the
+     JAX app's keys and valid classes; K1 and K2 launch, every K1 launch on
+     the tensor-core route; s per batch and images/s. Then the same images
+     in fp32, greedy, on the kernel and the plain path: the classes equal,
+     and greedy captions equal or, where not, parted at a step whose plain
+     top-2 logit gap is below 1e-3 (as phase 6).
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -199,6 +223,7 @@ from construction_clip_tpu_torch.train import contrastive  # noqa: E402
 from construction_clip_tpu_torch.train.state import TrainState, make_adamw  # noqa: E402
 
 K1_SHAPES = ((8, 50, 768, 12, False),   # ViT-B/32 image tower, batch 8
+             (16, 50, 768, 12, False),  # predict's image tower, --batch_size 16
              (9, 77, 512, 8, True),     # text tower, 9 violation-type prompts
              (2, 77, 512, 8, True),     # text tower, 2 caption-type prompts
              (36, 50, 768, 12, False),  # training: ViT-B/32 image tower, 4 groups of 9
@@ -211,7 +236,9 @@ K1_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-4, 2e-4)}   # (atol, 
 # K2 rounds once, at the output: at most one bf16 step apart; fp32 order only.
 K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 K2_SHAPES = (dict(layers=12, rows=24, heads=12, t_max=140, dh=64),   # 8 images x beam 3
-             dict(layers=12, rows=3, heads=12, t_max=140, dh=64))    # 1 image x beam 3
+             dict(layers=12, rows=3, heads=12, t_max=140, dh=64),    # 1 image x beam 3
+             dict(layers=12, rows=48, heads=12, t_max=140, dh=64),   # predict: 16 x beam 3
+             dict(layers=12, rows=16, heads=12, t_max=140, dh=64))   # predict: 16, greedy
 K2_CACHE_LENS = (0, 39, 90, 139)   # the first step alone ... t_max - 1
 
 K3_SHAPES = ((36, 50, 768, 12, False),   # ViT-B/32 image tower, 4 groups of 9
@@ -2174,6 +2201,297 @@ def phase_dp_parity(cfg, seed: int, batch, world: int, device="cuda") -> None:
         setup_s_by_rank=[o["setup_s"] for o in per_rank],
         step_and_eval_s_by_rank=[o["step_and_eval_s"] for o in per_rank], **report)
 
+# ---- ClipCap: caption training, and the predict app ----------------------------------
+
+CAPTION_BATCH, CAPTION_STEPS = 16, 10
+# the full fine-tune's fp32 gradients on the card against the CPU's, each leaf's
+# largest difference over its largest element plus 1e-6 of the largest element
+# of any leaf (the key bias's gradient is rounding noise on both sides). Sums in
+# another order through 12 layers and a 21,128-way softmax; the mapper's w1
+# gradient sums 15,360 products of either sign (w2's backward) before its 4-row
+# outer product, so the order alone moved it by 1.9e-6 and 6.4e-5 of its
+# largest element in two sound runs whose CPUs summed in other orders. The
+# same step with the card's GEMMs in TF32 (10-bit mantissa), which the phase
+# runs as its control, read 1.2e-3 on w1 on an H100. The bound sits between,
+# about 4.7x above the larger sound reading and 4x below the control.
+CAPTION_GRAD_TOL = 3e-4
+PREDICT_KEYS = ["id", "file_name", "ground_truth_caption", "ground_truth_attribute",
+                "caption", "attribute", "caption_type", "violation_type", "decode_suspect"]
+
+
+def caption_archive(rng, n: int, ccfg, gcfg) -> dict:
+    """A tokenised prefix archive as apps/train_clipcap.py trains on: prefix
+    [n, clip_dim] fp32 embeddings, captions of 10-40 ids ([CLS] ... [SEP], the
+    characters drawn Zipf-like from 2,000 of the vocabulary, as a caption
+    corpus's are) zero-padded to 40, attributes of 4-6 ids padded to 20."""
+    chars = rng.choice(np.arange(104, gcfg.vocab_size), size=2000, replace=False)
+    weights = 1.0 / np.arange(1, 2001)
+    weights /= weights.sum()
+
+    def rows(lengths, width):
+        out = np.zeros((n, width), np.int32)
+        for i, length in enumerate(lengths):
+            out[i, :length] = [101, *rng.choice(chars, size=length - 2, p=weights), 102]
+        return out
+
+    return {"prefix": rng.standard_normal((n, ccfg.clip_dim)).astype(np.float32),
+            "tokens": rows(rng.integers(10, 41, n), 40),
+            "attribute": rows(rng.integers(4, 7, n), ccfg.attribute_length)}
+
+
+def caption_batch_loss(state, frozen, ccfg, gcfg, batch) -> float:
+    """The bf16 caption loss of `batch` at the state's params."""
+    from construction_clip_tpu_torch.models.clipcap.model import caption_loss, clipcap_forward
+
+    params = as_tree(state.params)
+    params = {"mapper": params, "gpt": frozen} if ccfg.only_prefix else params
+    with torch.inference_mode():
+        logits = clipcap_forward(params, ccfg, gcfg, tokens=batch["tokens"],
+                                 clip_embed=batch["prefix"], attribute_tokens=batch["attribute"],
+                                 policy=BF16_POLICY)
+        return float(caption_loss(logits, batch["tokens"], ccfg))
+
+
+def phase_clipcap_train(cfgs, out_npz: str, device="cuda") -> dict:
+    """Phase 27: make_caption_train_step in bf16 on TorchArrayLoader batches
+    of a synthetic archive, CAPTION_STEPS steps of CAPTION_BATCH rows in each
+    mode; the full fine-tune's params are saved to `out_npz`."""
+    import dataclasses
+
+    from construction_clip_tpu_torch.data.loader import TorchArrayLoader
+    from construction_clip_tpu_torch.train.caption import make_caption_train_step
+    from construction_clip_tpu_torch.train.checkpoint import save_params_npz
+
+    _, gcfg, ccfg = cfgs
+    arrays = caption_archive(np.random.default_rng(27), CAPTION_BATCH * CAPTION_STEPS, ccfg,
+                             gcfg)
+    out = {}
+    for mode in ("only_prefix", "full"):
+        mcfg = dataclasses.replace(ccfg, only_prefix=mode == "only_prefix")
+        tree = convert.init_clipcap(4, mcfg, gcfg)
+        if mcfg.only_prefix:   # the frozen GPT-2 cast to bf16 once, before the steps
+            params = convert.to_params(tree["mapper"], device=device, trainable=True)
+            frozen = BF16_POLICY.cast_to_compute(convert.to_params(tree["gpt"],
+                                                                   device=device).tree())
+        else:
+            params, frozen = convert.to_params(tree, device=device, trainable=True), None
+        del tree
+        tx = make_adamw(1e-4, warmup_steps=1, total_steps=100)
+        state = TrainState.create(params, tx)
+        step = make_caption_train_step(mcfg, gcfg, tx, policy=BF16_POLICY, device=device)
+        loader = TorchArrayLoader(arrays, batch_size=CAPTION_BATCH, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()   # params, moments, earlier phases' tensors
+        reset_launches()
+        losses, times = [], []
+        t0 = time.perf_counter()
+        for batch in loader:
+            if not losses:
+                first = batch
+            state, m = step(state, frozen, batch)
+            losses.append(float(m["loss"]))   # waits for the step
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        counts = launches()
+        peak = (torch.cuda.max_memory_allocated() - at_start) / 2 ** 30
+        # the loss falls: the first batch's, before the steps and after them
+        first_after = caption_batch_loss(state, frozen, mcfg, gcfg, first)
+        if len(losses) != CAPTION_STEPS or not all(np.isfinite(losses)) or \
+                not first_after < losses[0]:
+            raise AssertionError(f"caption training {mode}: losses {losses}, the first "
+                                 f"batch's after the steps {first_after}")
+        if any(counts.values()):
+            raise AssertionError(f"caption training {mode} launched a kernel: {counts}")
+        per_kernel = kernel_device_ms(lambda: step(state, frozen, batch), reps=2)
+        step_device_ms = sum(per_kernel.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        out[mode] = {"batch": CAPTION_BATCH, "steps": CAPTION_STEPS, "losses": losses,
+                     "first_batch_loss_after": first_after,
+                     "median_step_ms": statistics.median(times) * 1e3,
+                     "step_device_ms": step_device_ms, "kernels_by_device_ms": top,
+                     "peak_memory_above_start_gib": peak,
+                     "trainable_params": sum(p.numel() for p in tree_leaves(as_tree(params))),
+                     "launches": counts}
+        say(f"clipcap_train_{mode}", **out[mode])
+        if mode == "full":
+            save_params_npz(out_npz, state.params)
+        del params, frozen, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_clipcap_parity(cfgs, device="cuda") -> None:
+    """Phase 28: one full fine-tune step's fp32 loss and gradients at full
+    width, B=4, on the card against the CPU on the same params and batch."""
+    import dataclasses
+
+    from construction_clip_tpu_torch.train.caption import loss_and_grads
+
+    _, gcfg, ccfg = cfgs
+    ccfg = dataclasses.replace(ccfg, only_prefix=False)
+    batch = caption_archive(np.random.default_rng(28), 4, ccfg, gcfg)
+    tree = convert.init_clipcap(5, ccfg, gcfg)
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for run, dev in (("card", device), ("cpu", "cpu"), ("card_tf32", device)):
+        params = convert.to_params(tree, device=dev, trainable=True)
+        names = list(_paths(as_tree(params)))
+        torch.backends.cuda.matmul.allow_tf32 = run == "card_tf32"
+        try:
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(
+                params, None, ccfg, gcfg,
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            runs[run] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                         time.perf_counter() - t0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del params, grads
+    l_cpu, g_cpu, s_cpu = runs["cpu"]
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu)
+
+    def errors(run):
+        return {n: float((a - b).abs().max()) / (float(b.abs().max()) + floor)
+                for n, a, b in zip(names, runs[run][1], g_cpu)}
+
+    errs, control = errors("card"), errors("card_tf32")
+    worst, control_worst = max(errs, key=errs.get), max(control, key=control.get)
+    l_card, s_card = runs["card"][0], runs["card"][2]
+    report = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": abs(l_card - l_cpu) / l_cpu,
+              "leaves": len(names), "worst_leaf": worst, "worst_leaf_err": errs[worst],
+              "wte_err": errs["gpt/wte"], "tol": CAPTION_GRAD_TOL,
+              "tf32_worst_leaf": control_worst, "tf32_worst_leaf_err": control[control_worst],
+              "tf32_loss_rel_err": abs(runs["card_tf32"][0] - l_cpu) / l_cpu,
+              "card_s": s_card, "cpu_s": s_cpu}
+    say("clipcap_parity", batch=4, **report)
+    if report["loss_rel_err"] > 1e-5 or errs[worst] > CAPTION_GRAD_TOL:
+        raise AssertionError(f"caption step, card against CPU: {report}")
+    if control[control_worst] <= CAPTION_GRAD_TOL:
+        raise AssertionError(f"caption step: the TF32 control is within the bound: {report}")
+
+
+def _record_checks(records, n: int) -> None:
+    if len(records) != n:
+        raise AssertionError(f"predict: {len(records)} records for {n} images")
+    for r in records:
+        if list(r) != PREDICT_KEYS or r["caption_type"] not in ("violation", "status") or \
+                r["violation_type"] not in VIOLATION_TYPES or not isinstance(r["caption"], str):
+            raise AssertionError(f"predict: bad record {r}")
+
+
+def _predict_gaps(pipe: CaptionPipeline, staged, rows) -> list:
+    """Phase 6's check for greedy captions that differ between the kernel and
+    the plain path of an fp32 pipeline: at each such row's first differing
+    token, the plain path's top-2 logit gap."""
+    gpt = as_tree(pipe.cap_params)["gpt"]
+    with torch.inference_mode():
+        images = preprocess_batch(staged, pipe.clip_cfg.vision.image_size, device=pipe.device)
+        emb, attrs = pipe.classify_and_embed(images)
+        embeds = pipe.prompt_embeds(emb, pipe.attribute_tokens(attrs))
+        toks = {}
+        for impl in ("kernel", "plain"):
+            with use_impl(impl):
+                toks[impl] = greedy_decode(gpt, pipe.gcfg, embeds, max_steps=pipe.max_steps,
+                                           stop_token=pipe.stop_token).tokens
+    gaps = plain_top2_gaps(gpt, pipe.gcfg, embeds, toks["plain"])
+    out = []
+    for row in rows:
+        diff = (toks["kernel"][row] != toks["plain"][row]).nonzero()
+        step = int(diff[0]) if len(diff) else None
+        out.append({"row": row, "step": step,
+                    "plain_top2_gap": None if step is None else float(gaps[row, step])})
+    return out
+
+
+def phase_predict(clip_np, cap_npz: str, cfgs, clip_tok, lm_tok, device="cuda",
+                  n_images: int = 32, batch: int = 16) -> dict:
+    """Phase 29: the port's apps/predict.make_process at full width on the
+    caption params of `cap_npz` (phase 27's full fine-tune), bf16, beam 3,
+    100 steps, `n_images` synthetic images of mixed sizes staged by
+    host_shape_unify in batches of `batch`; then the same images in fp32,
+    greedy, on the kernel and the plain path."""
+    from construction_clip_tpu_torch.apps.predict import make_process
+    from construction_clip_tpu_torch.data.pipeline import host_shape_unify
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+
+    clip_cfg, gcfg, ccfg = cfgs
+    cap_tree = load_params_npz(cap_npz, convert.init_clipcap(convert.SHAPES, ccfg, gcfg))
+    rng = np.random.default_rng(29)
+    shapes = [(480, 640), (768, 1024), (256, 256), (600, 400), (1080, 1920), (300, 500)]
+    images = synthetic_images(rng, [shapes[i % len(shapes)] for i in range(n_images)])
+    staged = np.stack([host_shape_unify(im, 256) for im in images])
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", caption=f"gt {i}",
+                       caption_type="violation", violation_type=VIOLATION_TYPES[i % 9])
+            for i in range(n_images)]
+    batches = [(anns[i:i + batch], staged[i:i + batch]) for i in range(0, n_images, batch)]
+
+    def run(process):
+        with contextlib.redirect_stdout(io.StringIO()):   # the app prints each record
+            return [r for b_anns, b_staged in batches for r in process(b_anns, b_staged)]
+
+    process = make_process(convert.to_params(clip_np, dtype=torch.bfloat16, device=device),
+                           clip_cfg,
+                           convert.to_params(cap_tree, dtype=torch.bfloat16, device=device),
+                           ccfg, gcfg, clip_tok, lm_tok, use_beam=True, policy=BF16_POLICY,
+                           device=device)
+    with contextlib.redirect_stdout(io.StringIO()):
+        process(*batches[0])   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    records = run(process)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launches().items() if k in SERVE_KERNELS}
+    tc_k1 = tc_launches()["fused_attention_block"]
+    _record_checks(records, n_images)
+    check_tc_route("predict bf16", counts, {"fused_attention_block": tc_k1},
+                   ("fused_attention_block",))
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of predict's path never launched: {counts}")
+    del process
+
+    fp32 = {}
+    clip_p, cap_p = (convert.to_params(clip_np, device=device),
+                     convert.to_params(cap_tree, device=device))
+    for impl in ("kernel", "plain"):
+        proc = make_process(clip_p, clip_cfg, cap_p, ccfg, gcfg, clip_tok, lm_tok,
+                            use_beam=False, policy=DEFAULT_POLICY, device=device)
+        reset_launches()
+        with use_impl(impl):
+            fp32[impl] = run(proc)
+        fp32[impl + "_launches"] = {k: v for k, v in launches().items() if k in SERVE_KERNELS}
+    if min(fp32["kernel_launches"].values()) <= 0 or any(fp32["plain_launches"].values()):
+        raise AssertionError(f"fp32 paths not as asked: kernel {fp32['kernel_launches']}, "
+                             f"plain {fp32['plain_launches']}")
+    _record_checks(fp32["kernel"], n_images)
+    for key in ("caption_type", "violation_type"):
+        if [r[key] for r in fp32["kernel"]] != [r[key] for r in fp32["plain"]]:
+            raise AssertionError(f"predict fp32: {key} differs between kernel and plain")
+    differ = [i for i, (a, b) in enumerate(zip(fp32["kernel"], fp32["plain"]))
+              if a["caption"] != b["caption"]]
+    mismatches = []
+    pipe = CaptionPipeline(clip_params=clip_p, clip_cfg=clip_cfg, cap_params=cap_p, ccfg=ccfg,
+                           gcfg=gcfg, clip_tokenizer=clip_tok, lm_tokenizer=lm_tok)
+    for start in range(0, n_images, batch):
+        rows = [i - start for i in differ if start <= i < start + batch]
+        if rows:
+            for m in _predict_gaps(pipe, staged[start:start + batch], rows):
+                mismatches.append(dict(m, row=m["row"] + start))
+    for m in mismatches:
+        if m["plain_top2_gap"] is None or m["plain_top2_gap"] >= 1e-3:
+            raise AssertionError(f"predict fp32: greedy captions differ: {m}")
+    out = {"images": n_images, "batch": batch, "batches": len(batches), "wall_s": wall,
+           "s_per_batch": wall / len(batches), "images_per_s": n_images / wall,
+           "launches": counts, "tc_launches": tc_k1,
+           "decode_suspect": sum(r["decode_suspect"] for r in records),
+           "fp32_classes_equal": True, "fp32_greedy_captions_equal": n_images - len(mismatches),
+           "fp32_mismatches": mismatches, "fp32_kernel_launches": fp32["kernel_launches"],
+           "captions": [r["caption"][:24] for r in records[:2]]}
+    say("predict", **out)
+    return out
+
 
 def main() -> None:
     info = phase_device()
@@ -2278,6 +2596,14 @@ def main() -> None:
                    need=("flash_attention_fwd", "flash_attention_bwd",
                          "fused_attention_block", "fused_attention_block_bwd"),
                    one_process_losses=one_process["losses"], must_fall=False)
+    del one_process, batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_npz = os.path.join(tmp, "clipcap.npz")
+        phase_clipcap_train(cfgs, cap_npz)
+        phase_clipcap_parity(cfgs)
+        phase_predict(convert.init_clip(0, cfgs[0]), cap_npz, cfgs, clip_tok, lm_tok)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

@@ -86,9 +86,12 @@ def stream_corpus(annotations, image_root: str, batch_size: int, *, stage_size: 
 
 class TokenizerFile:
     """encode/decode over a local tokenizer file: a `tokenizers` JSON, or a
-    BERT vocab.txt (the captioner's bert-base-chinese vocabulary)."""
+    BERT vocab.txt (the captioner's bert-base-chinese vocabulary) or a
+    directory that holds one, as the JAX apps' load_hf_tokenizer reads them."""
 
     def __init__(self, path: str):
+        if os.path.isdir(path):
+            path = os.path.join(path, "vocab.txt")
         if path.endswith(".json"):
             from tokenizers import Tokenizer
 

@@ -1,6 +1,7 @@
 """Host -> device input pipeline for the port: data/pipeline.py's ImageTextLoader
-(threaded decode, host shape unification, tokenisation, prefetch queue) with a
-torch copy to an explicit device.
+(threaded decode, host shape unification, tokenisation, prefetch queue) and
+ArrayLoader (shuffled rows of in-memory arrays, the ClipCap training's input)
+with a torch copy to an explicit device.
 
 Data-parallel (`dp`, core/mesh.py), it takes the place of the JAX loader's
 `shard_batch` of each global batch over the mesh (data/pipeline.py's
@@ -16,7 +17,7 @@ import concurrent.futures as cf
 import numpy as np
 import torch
 
-from construction_clip_tpu_torch.data.pipeline import ImageTextLoader, host_shape_unify
+from construction_clip_tpu_torch.data.pipeline import ArrayLoader, ImageTextLoader, host_shape_unify
 
 
 class TorchImageTextLoader(ImageTextLoader):
@@ -64,10 +65,43 @@ class TorchImageTextLoader(ImageTextLoader):
                        "tokens": self.tokenize([text for _, text in mine])}
 
     def _device_put(self, batch):
-        out = {}
-        for key, value in batch.items():
-            t = torch.from_numpy(value)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            out[key] = t.to(self.device, non_blocking=True)
-        return out
+        return to_device(batch, self.device)
+
+
+class TorchArrayLoader(ArrayLoader):
+    """ArrayLoader's batches on `device` (`dp.device` with `dp`), pinned and
+    copied without blocking towards a CUDA device. `batch_size` is the global
+    batch; with `dp`, each rank yields its rows of it, the rank-th of `world`
+    equal blocks, which takes the place of the JAX loader's `shard_batch`."""
+
+    def __init__(self, arrays: dict, *, batch_size: int, device="cpu", dp=None, **kwargs):
+        super().__init__(arrays, batch_size=batch_size, **kwargs)
+        self.rank, self.world = (dp.rank, dp.world) if dp is not None else (0, 1)
+        self.device = torch.device(dp.device if dp is not None else device)
+        if batch_size % self.world:
+            raise ValueError(f"a batch of {batch_size} rows does not split over "
+                             f"{self.world} ranks")
+
+    def _host_batches(self):
+        for batch in super()._host_batches():
+            rows = len(next(iter(batch.values())))
+            if rows % self.world:   # the last batch without drop_last
+                raise ValueError(f"a batch of {rows} rows does not split over "
+                                 f"{self.world} ranks")
+            n = rows // self.world
+            yield {k: v[self.rank * n:(self.rank + 1) * n] for k, v in batch.items()}
+
+    def _device_put(self, batch):
+        return to_device(batch, self.device)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """{key: numpy array} as tensors on `device`; towards a CUDA device each is
+    pinned and copied without blocking."""
+    out = {}
+    for key, value in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(value))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[key] = t.to(device, non_blocking=True)
+    return out

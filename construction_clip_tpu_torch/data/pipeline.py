@@ -1,7 +1,9 @@
 """Host side of the input pipeline (the port's copy of default_load_image,
-host_shape_unify and ImageTextLoader from construction_clip_tpu/data/pipeline.py):
-threaded image decode, host shape unification, tokenisation and a prefetch
-queue. The copy to a device is data/loader.py's TorchImageTextLoader.
+host_shape_unify, ImageTextLoader and ArrayLoader from
+construction_clip_tpu/data/pipeline.py): threaded image decode, host shape
+unification, tokenisation, shuffled batches of in-memory arrays and a prefetch
+queue. The copy to a device is data/loader.py's TorchImageTextLoader and
+TorchArrayLoader.
 """
 
 from __future__ import annotations
@@ -88,14 +90,60 @@ class ImageTextLoader:
         return batch
 
     def __iter__(self):
-        queue = collections.deque()
-        for host_batch in self._host_batches():
-            queue.append(self._device_put(host_batch))  # the copy starts now
-            if len(queue) > self.prefetch_depth:
-                yield queue.popleft()
-        while queue:
-            yield queue.popleft()
+        return prefetch(self._host_batches(), self._device_put, self.prefetch_depth)
 
     def __len__(self):
         n = len(self.dataset) // self.batch_size
         return n if self.drop_last else -(-len(self.dataset) // self.batch_size)
+
+
+class ArrayLoader:
+    """Loader over in-memory arrays (the ClipCap precomputed-embedding path):
+    {key: rows of that key} batches of `batch_size` rows in a shuffled order.
+    items: dict of equal-length arrays. This class keeps the batches on the
+    host (`_device_put` returns them as they are)."""
+
+    def __init__(self, arrays: dict, *, batch_size: int, shuffle: bool = True,
+                 seed: int = 567, drop_last: bool = True, prefetch_depth: int = 2):
+        lens = {len(v) for v in arrays.values()}
+        if len(lens) != 1:
+            raise ValueError(f"ragged arrays: lengths {sorted(lens)}")
+        self.n = lens.pop()
+        self.arrays = arrays
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch_depth = prefetch_depth
+        self._epoch = 0
+
+    def _host_batches(self):
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        self._epoch += 1
+        bs = self.batch_size
+        ends = self.n - (self.n % bs if self.drop_last else 0)
+        for start in range(0, ends, bs):
+            idx = order[start: start + bs]
+            yield {k: v[idx] for k, v in self.arrays.items()}
+
+    def _device_put(self, batch):
+        return batch
+
+    def __iter__(self):
+        return prefetch(self._host_batches(), self._device_put, self.prefetch_depth)
+
+    def __len__(self):
+        return self.n // self.batch_size if self.drop_last else -(-self.n // self.batch_size)
+
+
+def prefetch(batches, put: Callable, depth: int):
+    """`put(batch)` of each batch, `depth` batches ahead of the one yielded."""
+    queue = collections.deque()
+    for host_batch in batches:
+        queue.append(put(host_batch))  # the copy starts now
+        if len(queue) > depth:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()

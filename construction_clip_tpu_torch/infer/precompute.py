@@ -3,7 +3,8 @@ precompute built on it, the parse_coco.py equivalent (counterpart of
 construction_clip_tpu/infer/precompute.py): every annotation's image through
 the image tower, its caption type and violation type classified against the
 label prompts, and an archive of {embeddings, attributes, captions} that the
-ClipCap training reads.
+ClipCap training reads, with that training's tokenisation of it
+(`tokenize_for_caption_training`, a copy of the JAX package's host code).
 """
 
 from __future__ import annotations
@@ -146,3 +147,28 @@ def load_archive(path: str) -> dict:
     if path.endswith(".pkl"):
         return load_reference_pickle(path)
     return dict(np.load(path, allow_pickle=True))
+
+
+def tokenize_for_caption_training(archive, hf_tokenizer, *, attribute_length: int,
+                                  max_seq_len: Optional[int] = None):
+    """archive: dict from precompute_corpus. Tokenize captions (zero-padded, like the
+    reference's 0-padding at CLIP_prefix_caption/train.py:46-49) and attributes
+    (padded/truncated to attribute_length, train.py:536-538 in test.py's predict).
+
+    max_seq_len default: min(mean + 10*std, max) over caption lengths — the
+    reference's rule (train.py:107).
+    """
+    cap_ids = [hf_tokenizer.encode(str(c)) for c in archive["captions"]]
+    lens = np.asarray([len(c) for c in cap_ids]) if cap_ids else np.zeros(1, int)
+    if max_seq_len is None:
+        max_seq_len = int(min(lens.mean() + 10 * lens.std(), lens.max()))
+    toks = np.zeros((len(cap_ids), max_seq_len), np.int32)
+    for i, ids in enumerate(cap_ids):
+        ids = ids[:max_seq_len]
+        toks[i, : len(ids)] = ids
+    attr = np.zeros((len(cap_ids), attribute_length), np.int32)
+    for i, a in enumerate(archive["attributes"]):
+        ids = hf_tokenizer.encode(str(a))[:attribute_length]
+        attr[i, : len(ids)] = ids
+    return {"prefix": archive["embeddings"].astype(np.float32),
+            "tokens": toks, "attribute": attr}

@@ -1,5 +1,6 @@
-"""ClipCap prefix mapper (counterpart of construction_clip_tpu/models/clipcap/
-model.py:map_prefix): CLIP embedding -> GPT-2 prefix embeddings.
+"""ClipCap prefix captioning (counterpart of construction_clip_tpu/models/clipcap/
+model.py): CLIP embedding -> mapper -> GPT-2 prefix, the training forward over
+[prefix ‖ attribute ‖ caption] and its caption loss.
 
 Only the default MLP mapper is ported: Linear(clip_dim -> n_embd*prefix/2) ->
 tanh -> Linear(-> n_embd*prefix), reshaped to [B, prefix_length, n_embd].
@@ -11,6 +12,7 @@ import torch
 
 from construction_clip_tpu_torch.core.configs import ClipCapConfig, GPT2Config
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from construction_clip_tpu_torch.models import gpt2 as gpt2_lib
 
 
 def map_prefix(mapper_params, ccfg: ClipCapConfig, gcfg: GPT2Config, clip_embed, *,
@@ -23,3 +25,32 @@ def map_prefix(mapper_params, ccfg: ClipCapConfig, gcfg: GPT2Config, clip_embed,
     h = torch.tanh(x @ p["w1"] + p["b1"])
     out = h @ p["w2"] + p["b2"]
     return out.reshape(x.shape[0], ccfg.prefix_length, gcfg.n_embd)
+
+
+def clipcap_forward(params, ccfg: ClipCapConfig, gcfg: GPT2Config, *, tokens, clip_embed,
+                    attribute_tokens, policy: Policy = DEFAULT_POLICY):
+    """Training forward: fp32 logits [B, P + A + T, V] over the concatenated
+    [prefix ‖ wte(attribute) ‖ wte(tokens)] through the uncached GPT-2."""
+    prefix = map_prefix(params["mapper"], ccfg, gcfg, clip_embed, policy=policy)
+    attr_emb = gpt2_lib.embed_tokens(params["gpt"], attribute_tokens, policy=policy)
+    tok_emb = gpt2_lib.embed_tokens(params["gpt"], tokens, policy=policy)
+    embeds = torch.cat([prefix.to(tok_emb.dtype), attr_emb, tok_emb], dim=1)
+    return gpt2_lib.gpt2_forward(params["gpt"], gcfg, inputs_embeds=embeds, policy=policy)[0]
+
+
+def caption_loss_parts(logits, tokens, ccfg: ClipCapConfig, *, ignore_id: int = 0):
+    """(sum of the masked token NLL, count of valid tokens): next-token CE of
+    logits[:, P + A - 1 : -1] against the caption tokens in fp32, id
+    `ignore_id` masked out. Kept apart so that data-parallel ranks divide by
+    the global count."""
+    offset = ccfg.prefix_length + ccfg.attribute_length
+    logp = torch.log_softmax(logits[:, offset - 1: -1].float(), dim=-1)
+    nll = -logp.gather(-1, tokens.long()[..., None])[..., 0]
+    mask = (tokens != ignore_id).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def caption_loss(logits, tokens, ccfg: ClipCapConfig, *, ignore_id: int = 0):
+    """The token-mean CE over the valid caption tokens."""
+    total, count = caption_loss_parts(logits, tokens, ccfg, ignore_id=ignore_id)
+    return total / count.clamp(min=1.0)

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from construction_clip_tpu_torch.core.configs import GPT2Config
-from construction_clip_tpu_torch.core.params import as_tree, layer, tree_map
+from construction_clip_tpu_torch.core.params import as_tree, tree_map
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.ops import decode_attention as dec
 from construction_clip_tpu_torch.ops.activations import gelu_new
@@ -114,6 +114,14 @@ def _proj(lp, h, out):
     return h + _linear(merge_heads(out), lp["attn"]["c_proj_w"], lp["attn"]["c_proj_b"])
 
 
+def _position_embeddings(wpe, start: int, t: int):
+    """wpe rows start .. start + t - 1. A position past the table takes its last
+    row, as the JAX package's gather clamps out-of-range indices."""
+    if start + t <= wpe.shape[0]:
+        return wpe[start: start + t]
+    return wpe[torch.arange(start, start + t, device=wpe.device).clamp_(max=wpe.shape[0] - 1)]
+
+
 def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
                  attn_bias=None, cache: Optional[KVCache] = None,
                  cache_ancestry=None, policy: Policy = DEFAULT_POLICY):
@@ -130,14 +138,15 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
         policy.compute_dtype)
     start = cache.length if cache is not None else 0
     t = x.shape[1]
-    if start + t > cfg.n_positions:
-        raise ValueError(f"positions up to {start + t} exceed n_positions={cfg.n_positions}")
-    x = x + p["wpe"][start: start + t]
+    x = x + _position_embeddings(p["wpe"], start, t)
     if cache is not None and t > 1 and start != 0:
         raise ValueError("multi-token cached calls are prefill only (fresh cache)")
 
+    # one unbind per leaf: its backward stacks the L gradients in one op, where
+    # a view per layer would each scatter into a zeroed copy of the whole stack
+    layers = tree_map(lambda z: z.unbind(0), p["blocks"])
     for index in range(cfg.n_layer):
-        lp = layer(p["blocks"], index)
+        lp = tree_map(lambda views: views[index], layers)
         q, k, v = _qkv(lp, x, cfg)
         if cache is None or t > 1:
             if cache is not None:

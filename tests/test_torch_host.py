@@ -16,8 +16,11 @@ from construction_clip_tpu.data import datasets as j_datasets
 from construction_clip_tpu.data import labels as j_labels
 from construction_clip_tpu.data import pipeline as j_pipeline
 from construction_clip_tpu.data import schema as j_schema
+from construction_clip_tpu.infer import precompute as j_precompute
+from construction_clip_tpu.infer import score as j_score
 from construction_clip_tpu_torch.data import clip_tokenizer, datasets, labels, offline_assets
 from construction_clip_tpu_torch.data import pipeline, schema
+from construction_clip_tpu_torch.infer import precompute, score
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -158,7 +161,7 @@ def test_port_imports_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("app", ["train_clip", "predict_t5", "serve", "predict_zeroshot",
-                                 "parse_corpus"])
+                                 "parse_corpus", "train_clipcap", "predict"])
 def test_apps_refuse_a_missing_cuda_device(app, monkeypatch):
     """--device defaults to cuda; without a usable CUDA device the app stops
     at once and names --device cpu, instead of running on the CPU."""
@@ -182,3 +185,92 @@ def test_tokenizer_file_reads_the_offline_bert_vocab(tmp_path):
     ids = tok.encode(labels.attribute_string("缺失", "墜落"))
     assert ids[0] == 101 and ids[-1] == 102 and len(ids) == 6 and tok.vocab_size() == 21128
     assert tok.decode(ids).replace(" ", "") == "缺失墜落"
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_array_loader_gives_the_original_batches(drop_last):
+    """ArrayLoader (the ClipCap training's loader) against the JAX package's:
+    the same shuffled batches over 3 epochs (np.random.default_rng(seed +
+    epoch)), drop_last and __len__."""
+    gen = np.random.default_rng(2)
+    arrays = {"prefix": gen.standard_normal((11, 5)).astype(np.float32),
+              "tokens": gen.integers(0, 50, (11, 6)).astype(np.int32)}
+    kw = dict(batch_size=4, drop_last=drop_last, seed=9)
+    port, orig = pipeline.ArrayLoader(arrays, **kw), j_pipeline.ArrayLoader(arrays, **kw)
+    assert len(port) == len(orig) == (2 if drop_last else 3)
+    for _ in range(3):
+        got, want = list(port), list(orig._host_batches())
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_tokenize_for_caption_training_gives_the_original_arrays(tmp_path):
+    """Zero-padded captions cut at min(mean + 10 std, max), attributes padded
+    or cut to attribute_length: equal to the JAX package's function through
+    the same tokenizer (the offline BERT vocab)."""
+    from construction_clip_tpu_torch.apps.common import TokenizerFile
+
+    path = str(tmp_path / "vocab.txt")
+    offline_assets.write_bert_vocab(path, offline_assets.corpus_characters([]))
+    tok = TokenizerFile(path)
+    archive = {"embeddings": np.random.default_rng(0).standard_normal((5, 8)),
+               "captions": np.asarray(["工地", "", "墜落 邊緣 開口 未設置護欄", "機械", "a1"],
+                                      dtype=object),
+               "attributes": np.asarray(["缺失 墜落 ", "現況 機械 ", "", "缺失 物料 ",
+                                         "缺失 感電 "], dtype=object)}
+    for kw in (dict(attribute_length=3), dict(attribute_length=20, max_seq_len=4)):
+        got = precompute.tokenize_for_caption_training(archive, tok, **kw)
+        want = j_precompute.tokenize_for_caption_training(archive, tok, **kw)
+        assert sorted(got) == sorted(want) == ["attribute", "prefix", "tokens"]
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+SCORE_PAIRS = [("工地邊緣未設置護欄", "工地邊緣設置護欄"), ("墜落", "墜落"), ("開口", ""),
+               ("a b c d e", "a b c d"), ("機械", "物料機械機械"), ("x", "y")]
+
+
+@pytest.mark.parametrize("fn", ["char_bleu", "rouge_n", "rouge_l"])
+def test_score_metrics_give_the_original_values(fn):
+    for ref, hyp in SCORE_PAIRS:
+        args = (ref, hyp) if fn == "char_bleu" else (list(ref), list(hyp))
+        kws = [{"n": 1}, {"n": 2}] if fn == "rouge_n" else [{}]
+        for kw in kws:
+            assert getattr(score, fn)(*args, **kw) == getattr(j_score, fn)(*args, **kw)
+
+
+def test_score_pairs_and_the_score_app_give_the_original_json(tmp_path, capsys):
+    """score_pairs over the pairs, and the port's score app on an
+    output_log.json (records without a reference skipped) printing the JSON
+    of the JAX package's score_pairs."""
+    from construction_clip_tpu_torch.apps import score as score_app
+
+    assert score.score_pairs(SCORE_PAIRS) == j_score.score_pairs(SCORE_PAIRS)
+    assert score.score_pairs([]) == j_score.score_pairs([])
+    records = [{"ground_truth_caption": r, "caption": h} for r, h in SCORE_PAIRS]
+    records.append({"ground_truth_caption": "", "caption": "墜落"})
+    path = tmp_path / "output_log.json"
+    path.write_text(json.dumps(records, ensure_ascii=False), encoding="utf-8")
+    score_app.main([str(path)])
+    assert json.loads(capsys.readouterr().out) == j_score.score_pairs(SCORE_PAIRS)
+
+
+def test_visualize_writes_a_png_of_a_metric_log(tmp_path, capsys, monkeypatch):
+    """The port's visualize app plots the columns of a MetricLogger JSONL
+    (TensorBoard made unimportable, so the logger writes its JSONL only)."""
+    from construction_clip_tpu_torch.apps import visualize
+    from construction_clip_tpu_torch.train.metrics import MetricLogger
+
+    for mod in ("torch.utils.tensorboard", "tensorboardX"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    logger = MetricLogger(str(tmp_path), "clipcap")
+    for step, loss in ((1, 4.0), (2, 3.1), (3, 2.5)):
+        logger.log(step, loss=loss, step_time=0.1)
+    logger.close()
+    out = tmp_path / "curves.png"
+    visualize.main([logger.jsonl_path, "--keys", "loss", "step_time", "--out", str(out)])
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" and f"wrote {out}" in capsys.readouterr().out

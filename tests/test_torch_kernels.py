@@ -1145,3 +1145,99 @@ def test_watchdog_measures_each_call_from_its_put():
     assert not fired.is_set() and not dog.pending
     dog.stop()
     assert not dog.fired
+
+
+# ---- the ClipCap slice on the card against the CPU ---------------------------------------
+
+class _CharTokenizer:
+    """Character-level stand-in for the BERT tokenizer over a vocab list
+    ([CLS] + a character's id, or [UNK] + [SEP]; decode joins with spaces): the
+    card's machine has no `tokenizers`."""
+
+    def __init__(self, vocab):
+        self.vocab, self.ids = vocab, {tok: i for i, tok in enumerate(vocab)}
+
+    def encode(self, text):
+        return [101] + [self.ids.get(c, 100) for c in text if not c.isspace()] + [102]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(self.vocab[int(i)] for i in ids
+                        if not (skip_special_tokens and self.vocab[int(i)].startswith("[")))
+
+
+def _clipcap_tiny(tmp_path):
+    from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, GPT2Config
+    from construction_clip_tpu_torch.data import offline_assets
+    from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer
+
+    merges, vocab = str(tmp_path / "merges.txt.gz"), str(tmp_path / "vocab.txt")
+    offline_assets.write_clip_merges(merges, n_merges=6)
+    offline_assets.write_bert_vocab(vocab, offline_assets.corpus_characters([]), size=128)
+    with open(vocab, encoding="utf-8") as f:
+        lm_tok = _CharTokenizer(f.read().splitlines())
+    cfg, gcfg = CLIPConfig.tiny_bpe(), GPT2Config.tiny()
+    ccfg = ClipCapConfig(prefix_length=4, attribute_length=6, clip_dim=cfg.text.embed_dim,
+                         only_prefix=False)
+    return (convert.init_clip(0, cfg), convert.init_clipcap(1, ccfg, gcfg),
+            (cfg, ccfg, gcfg), ClipTokenizer(merges), lm_tok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beam", [True, False], ids=["beam", "greedy"])
+def test_predict_batch_on_card_equals_the_cpu(use_beam, tmp_path, gen, cuda_device):
+    """One batch of the predict app's batch function at tiny width in fp32:
+    the records on the card (K1 in both towers, K2 at every decode step)
+    equal the CPU's (the plain versions)."""
+    from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.apps.predict import make_process
+    from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY
+    from construction_clip_tpu_torch.data.schema import Annotation
+
+    clip_np, cap_np, (cfg, ccfg, gcfg), clip_tok, lm_tok = _clipcap_tiny(tmp_path)
+    staged = (gen.random((4, 64, 64, 3)) * 255).astype(np.uint8)
+    anns = [Annotation(id=i, file_name=f"{i}.jpg", caption=f"c{i}") for i in range(4)]
+    records = {}
+    for device in (torch.device("cpu"), cuda_device):
+        for fn in (fab.fused_attention_block, dec.decode_step_attention):
+            fn.launches = 0
+        process = make_process(convert.to_params(clip_np, device=device), cfg,
+                               convert.to_params(cap_np, device=device), ccfg, gcfg, clip_tok,
+                               lm_tok, use_beam=use_beam, policy=DEFAULT_POLICY, device=device)
+        with contextlib.redirect_stdout(None):
+            records[device.type] = process(anns, staged)
+        launched = (fab.fused_attention_block.launches, dec.decode_step_attention.launches)
+        assert all(launched) == (device.type == "cuda"), launched
+    assert records["cuda"] == records["cpu"]
+
+
+@pytest.mark.cuda
+def test_caption_step_on_card_equals_the_cpu(tmp_path, gen, cuda_device):
+    """One full fine-tune caption step at tiny width in fp32 from the same
+    params and batch: the loss to 1e-5 relative, and every gradient leaf by
+    ||g_card - g_cpu|| / (||g_cpu|| + 1e-6 ||G||) <= 1e-4, G the whole CPU
+    gradient (cuBLAS against the CPU's GEMMs: sums in another order; the
+    second term keeps the key bias, whose gradient is rounding noise on both,
+    from counting as a relative error)."""
+    from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.core.params import tree_leaves
+    from construction_clip_tpu_torch.train import caption
+
+    _, cap_np, (_, ccfg, gcfg), _, _ = _clipcap_tiny(tmp_path)
+    tokens = gen.integers(1, gcfg.vocab_size, (4, 9)).astype(np.int32)
+    tokens[1, 4:], tokens[3, 1:] = 0, 0
+    batch = {"tokens": tokens,
+             "prefix": gen.standard_normal((4, ccfg.clip_dim)).astype(np.float32),
+             "attribute": gen.integers(1, gcfg.vocab_size, (4, 6)).astype(np.int32)}
+    out = {}
+    for device in (torch.device("cpu"), cuda_device):
+        params = convert.to_params(cap_np, device=device, trainable=True)
+        on = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, grads = caption.loss_and_grads(params, None, ccfg, gcfg, on)
+        out[device.type] = (float(loss), [g.cpu() for g in tree_leaves(grads)])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    total = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in gc])))
+    for a, b in zip(gg, gc):
+        err = float(torch.linalg.vector_norm(a - b) / (torch.linalg.vector_norm(b) + 1e-6 * total))
+        assert err <= 1e-4, err
