@@ -149,6 +149,27 @@ Phases, each printing one line (the last line is the JSON verdict):
      in fp32, greedy, on the kernel and the plain path: the classes equal,
      and greedy captions equal or, where not, parted at a step whose plain
      top-2 logit gap is below 1e-3 (as phase 6).
+ 30. mT5 caption training at full width (mT5-small 250112x8+8x512, untied
+     head, MLP mapper with prefix 20 and clip 512), bf16:
+     train/t5.make_t5_caption_train_step on data/loader.TorchArrayLoader
+     batches of a synthetic archive (prefix [N,512], captions of 8-32 ids
+     drawn Zipf-like from a 30,000-id BPE range, padded to 32), 10 steps of
+     B=40 (the JAX app's --bs) in each mode, only-prefix (the frozen T5 cast
+     once) and full fine-tune; the first batch's loss after the steps must be
+     below its loss before them; the median step, a step's device time, the
+     peak memory above the pre-step line; none of K1-K10 may launch (the JAX
+     step runs no Pallas kernel). The full fine-tune's params are saved with
+     save_params_npz for phase 32.
+ 31. one full fine-tune mT5 caption step in fp32 at full width, B=4, on the
+     card against the CPU on the same params and batch: the loss and every
+     gradient leaf (t5/shared, which takes the scatter-added gradients of
+     the encoder's and the decoder's inputs, and t5/lm_head on their own
+     lines); then the card's step again with TF32 GEMMs, a control that must
+     read above the bound.
+ 32. the port's apps/predict_t5.make_process at full width on phase 30's npz
+     (load_params_npz), bf16, greedy, 32 steps, 16 synthetic images in
+     batches of 8: the records carry the JAX app's keys; K8 launches steps +
+     1 times a batch and K1 launches; s per batch and tokens/s.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -2493,6 +2514,232 @@ def phase_predict(clip_np, cap_npz: str, cfgs, clip_tok, lm_tok, device="cuda",
     return out
 
 
+# ---- mT5 caption training, and the predict_t5 app on what it trained -------------------
+
+T5_CAPTION_BATCH, T5_CAPTION_STEPS, T5_MAX_LENGTH = 40, 10, 32   # the JAX app's --bs, --max_length
+BPE_VOCAB = 30000   # train_tokenizer's default --vocab_size: the ids a caption holds
+# the full fine-tune's fp32 gradients on the card against the CPU's, each leaf's
+# largest difference over its largest element plus 1e-6 of the largest element
+# of any leaf, as CAPTION_GRAD_TOL. Sums in another order through 8+8 layers
+# and a 250,112-way softmax, and the scatter-add of both stacks' input
+# gradients into `shared`: a sound run on an H100 read 5.0e-6 at worst
+# (decoder/ln_cross), 1.9e-6 on shared, 6.0e-7 on lm_head; the same step with
+# the card's GEMMs in TF32, the phase's control, read 2.9e-3 (encoder/attn/k)
+# and 9.8e-4 on shared. The bound sits 60x above the sound reading (room for
+# another CPU's summation order, which moved phase 28's by 30x) and ~10x
+# below the control.
+T5_CAPTION_GRAD_TOL = 3e-4
+PREDICT_T5_KEYS = ["id", "file_name", "attribute", "caption", "ground_truth_caption"]
+
+
+def t5_caption_archive(rng, n: int, ccfg) -> dict:
+    """The arrays apps/train_clipcap_t5.py trains on: prefix [n, clip_dim] fp32
+    embeddings, captions of 8-32 ids drawn Zipf-like from the ids of a
+    30,000-entry BPE vocabulary (above its 5 specials), zero-padded to 32,
+    and their attention mask."""
+    ids = rng.permutation(np.arange(5, BPE_VOCAB))
+    weights = 1.0 / np.arange(1, len(ids) + 1)
+    weights /= weights.sum()
+    tokens = np.zeros((n, T5_MAX_LENGTH), np.int32)
+    for i, length in enumerate(rng.integers(8, T5_MAX_LENGTH + 1, n)):
+        tokens[i, :length] = rng.choice(ids, size=length, p=weights)
+    return {"input_ids": tokens, "attention_mask": (tokens != 0).astype(np.int32),
+            "prefix": rng.standard_normal((n, ccfg.clip_dim)).astype(np.float32)}
+
+
+def t5_caption_batch_loss(state, frozen, ccfg, tcfg, batch) -> float:
+    """The bf16 caption loss of `batch` at the state's params."""
+    from construction_clip_tpu_torch.models.clipcap.t5_model import (
+        clipcap_t5_forward, t5_caption_loss)
+
+    params = as_tree(state.params)
+    params = {"mapper": params, "t5": frozen} if ccfg.only_prefix else params
+    with torch.inference_mode():
+        logits = clipcap_t5_forward(params, ccfg, tcfg, input_ids=batch["input_ids"],
+                                    attention_mask=batch["attention_mask"],
+                                    clip_embed=batch["prefix"], policy=BF16_POLICY)
+        return float(t5_caption_loss(logits, batch["input_ids"], ccfg))
+
+
+def phase_t5_caption_train(cfgs, tree, out_npz: str, device="cuda") -> dict:
+    """Phase 30: make_t5_caption_train_step in bf16 on TorchArrayLoader batches
+    of a synthetic archive, T5_CAPTION_STEPS steps of T5_CAPTION_BATCH rows in
+    each mode, from the numpy tree `tree`; the full fine-tune's params are
+    saved to `out_npz`."""
+    import dataclasses
+
+    from construction_clip_tpu_torch.data.loader import TorchArrayLoader
+    from construction_clip_tpu_torch.train.checkpoint import save_params_npz
+    from construction_clip_tpu_torch.train.t5 import make_t5_caption_train_step
+
+    _, ccfg, tcfg = cfgs
+    arrays = t5_caption_archive(np.random.default_rng(30),
+                                T5_CAPTION_BATCH * T5_CAPTION_STEPS, ccfg)
+    out = {}
+    for mode in ("only_prefix", "full"):
+        mcfg = dataclasses.replace(ccfg, only_prefix=mode == "only_prefix")
+        if mcfg.only_prefix:   # the frozen T5 cast to bf16 once, before the steps
+            params = convert.to_params(tree["mapper"], device=device, trainable=True)
+            frozen = BF16_POLICY.cast_to_compute(convert.to_params(tree["t5"],
+                                                                   device=device).tree())
+        else:
+            params, frozen = convert.to_params(tree, device=device, trainable=True), None
+        tx = make_adamw(1e-4, warmup_steps=1, total_steps=100)
+        state = TrainState.create(params, tx)
+        step = make_t5_caption_train_step(mcfg, tcfg, tx, policy=BF16_POLICY, device=device)
+        loader = TorchArrayLoader(arrays, batch_size=T5_CAPTION_BATCH, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()   # params, moments, earlier phases' tensors
+        reset_launches()
+        losses, times = [], []
+        t0 = time.perf_counter()
+        for batch in loader:
+            if not losses:
+                first = batch
+            state, m = step(state, frozen, batch)
+            losses.append(float(m["loss"]))   # waits for the step
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        counts = launches()
+        peak = (torch.cuda.max_memory_allocated() - at_start) / 2 ** 30
+        first_after = t5_caption_batch_loss(state, frozen, mcfg, tcfg, first)
+        if len(losses) != T5_CAPTION_STEPS or not all(np.isfinite(losses)) or \
+                not first_after < losses[0]:
+            raise AssertionError(f"mT5 caption training {mode}: losses {losses}, the first "
+                                 f"batch's after the steps {first_after}")
+        if any(counts.values()):
+            raise AssertionError(f"mT5 caption training {mode} launched a kernel: {counts}")
+        per_kernel = kernel_device_ms(lambda: step(state, frozen, batch), reps=2)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        out[mode] = {"batch": T5_CAPTION_BATCH, "steps": T5_CAPTION_STEPS, "losses": losses,
+                     "first_batch_loss_after": first_after,
+                     "median_step_ms": statistics.median(times) * 1e3,
+                     "step_device_ms": sum(per_kernel.values()), "kernels_by_device_ms": top,
+                     "peak_memory_above_start_gib": peak,
+                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "trainable_params": sum(p.numel() for p in tree_leaves(as_tree(params))),
+                     "launches": counts}
+        say(f"t5_caption_train_{mode}", **out[mode])
+        if mode == "full":
+            save_params_npz(out_npz, state.params)
+        del params, frozen, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_t5_caption_parity(cfgs, tree, device="cuda") -> None:
+    """Phase 31: one full fine-tune step's fp32 loss and gradients at full
+    width, B=4, on the card against the CPU on the same params and batch;
+    then the card's step with TF32 GEMMs, the control that must read above
+    the bound."""
+    import dataclasses
+
+    from construction_clip_tpu_torch.train.t5 import loss_and_grads
+
+    _, ccfg, tcfg = cfgs
+    ccfg = dataclasses.replace(ccfg, only_prefix=False)
+    batch = t5_caption_archive(np.random.default_rng(31), 4, ccfg)
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for run, dev in (("card", device), ("cpu", "cpu"), ("card_tf32", device)):
+        params = convert.to_params(tree, device=dev, trainable=True)
+        names = list(_paths(as_tree(params)))
+        torch.backends.cuda.matmul.allow_tf32 = run == "card_tf32"
+        try:
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(
+                params, None, ccfg, tcfg,
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            runs[run] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                         time.perf_counter() - t0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del params, grads
+        torch.cuda.empty_cache()
+    l_cpu, g_cpu, s_cpu = runs["cpu"]
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu)
+
+    def errors(run):
+        return {n: float((a - b).abs().max()) / (float(b.abs().max()) + floor)
+                for n, a, b in zip(names, runs[run][1], g_cpu)}
+
+    errs, control = errors("card"), errors("card_tf32")
+    worst, control_worst = max(errs, key=errs.get), max(control, key=control.get)
+    l_card, s_card = runs["card"][0], runs["card"][2]
+    report = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": abs(l_card - l_cpu) / l_cpu,
+              "leaves": len(names), "worst_leaf": worst, "worst_leaf_err": errs[worst],
+              "shared_err": errs["t5/shared"], "lm_head_err": errs["t5/lm_head"],
+              "tol": T5_CAPTION_GRAD_TOL,
+              "tf32_worst_leaf": control_worst, "tf32_worst_leaf_err": control[control_worst],
+              "tf32_shared_err": control["t5/shared"], "tf32_lm_head_err": control["t5/lm_head"],
+              "tf32_loss_rel_err": abs(runs["card_tf32"][0] - l_cpu) / l_cpu,
+              "errors_by_leaf": {n: errs[n] for n in sorted(errs, key=errs.get)[-6:]},
+              "card_s": s_card, "cpu_s": s_cpu}
+    say("t5_caption_parity", batch=4, **report)
+    if report["loss_rel_err"] > 1e-5 or errs[worst] > T5_CAPTION_GRAD_TOL:
+        raise AssertionError(f"mT5 caption step, card against CPU: {report}")
+    if control[control_worst] <= T5_CAPTION_GRAD_TOL:
+        raise AssertionError(f"mT5 caption step: the TF32 control is within the bound: {report}")
+
+
+def phase_predict_t5(clip_np, t5_npz: str, cfgs, clip_tok, lm_tok, device="cuda",
+                     n_images: int = 16, batch: int = 8) -> dict:
+    """Phase 32: the port's apps/predict_t5.make_process at full width on the
+    caption params of `t5_npz` (phase 30's full fine-tune), bf16, greedy, 32
+    steps, `n_images` synthetic images staged by host_shape_unify in batches
+    of `batch` (K8's rows)."""
+    from construction_clip_tpu_torch.apps.predict_t5 import make_process
+    from construction_clip_tpu_torch.data.pipeline import host_shape_unify
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+
+    clip_cfg, ccfg, tcfg = cfgs
+    cap_tree = load_params_npz(t5_npz, convert.init_clipcap_t5(convert.SHAPES, ccfg, tcfg))
+    rng = np.random.default_rng(32)
+    shapes = [(480, 640), (256, 256), (600, 400), (1080, 1920)]
+    images = synthetic_images(rng, [shapes[i % len(shapes)] for i in range(n_images)])
+    staged = np.stack([host_shape_unify(im, 256) for im in images])
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", caption=f"gt {i}")
+            for i in range(n_images)]
+    batches = [(anns[i:i + batch], staged[i:i + batch]) for i in range(0, n_images, batch)]
+    process = make_process(convert.to_params(clip_np, dtype=torch.bfloat16, device=device),
+                           clip_cfg,
+                           convert.to_params(cap_tree, dtype=torch.bfloat16, device=device),
+                           ccfg, tcfg, clip_tok, lm_tok, max_length=T5_MAX_LENGTH, greedy=True,
+                           policy=BF16_POLICY, device=device)
+    with contextlib.redirect_stdout(io.StringIO()):   # the app prints each caption
+        process(*batches[0])   # warm-up
+        torch.cuda.synchronize()
+        records, k8, k1, tokens = [], [], 0, 0
+        t0 = time.perf_counter()
+        for b_anns, b_staged in batches:
+            reset_launches()
+            recs, res = process(b_anns, b_staged)
+            counts = launches()
+            steps = int(res.lengths.max())
+            if counts["vocab_head_logits"] != steps + 1:
+                raise AssertionError(f"predict_t5: K8 launched {counts['vocab_head_logits']} "
+                                     f"times for {steps} steps, not steps + 1")
+            k8.append(counts["vocab_head_logits"])
+            k1 += counts["fused_attention_block"]
+            tokens += int(res.lengths.sum())
+            records += recs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if len(records) != n_images or any(list(r) != PREDICT_T5_KEYS or not r["attribute"] or
+                                       not isinstance(r["caption"], str) for r in records):
+        raise AssertionError(f"predict_t5: bad records {records[:2]}")
+    if k1 <= 0:
+        raise AssertionError("predict_t5: the image tower did not run K1")
+    out = {"images": n_images, "batch": batch, "batches": len(batches), "wall_s": wall,
+           "s_per_batch": wall / len(batches), "tokens_per_s": tokens / wall,
+           "k8_launches_by_batch": k8, "k1_launches": k1,
+           "captions": [r["caption"][:24] for r in records[:2]]}
+    say("predict_t5", **out)
+    return out
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -2604,6 +2851,14 @@ def main() -> None:
         phase_clipcap_train(cfgs, cap_npz)
         phase_clipcap_parity(cfgs)
         phase_predict(convert.init_clip(0, cfgs[0]), cap_npz, cfgs, clip_tok, lm_tok)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t5_npz = os.path.join(tmp, "t5_prefix.npz")
+        tree = convert.init_clipcap_t5(30, t5_cfgs[1], t5_cfgs[2])
+        phase_t5_caption_train(t5_cfgs, tree, t5_npz)
+        phase_t5_caption_parity(t5_cfgs, tree)
+        del tree
+        phase_predict_t5(convert.init_clip(0, cfgs[0]), t5_npz, t5_cfgs, clip_tok, lm_tok)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

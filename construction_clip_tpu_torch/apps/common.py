@@ -27,20 +27,25 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_clip(checkpoint: str | None, *, arch: str = "vit_b_32"):
-    """(numpy params tree, CLIPConfig): the .npz that either package writes,
-    checked against the shapes of `arch`, or random weights from seed 0 when
-    `checkpoint` is None. The JAX apps' .pt loading (OpenAI/HF state dicts)
-    is not ported."""
+    """(numpy params tree, CLIPConfig): random weights from seed 0 when
+    `checkpoint` is None; the .npz that either package writes, checked
+    against the shapes of `arch`; or a .pt state dict, in OpenAI's layout
+    when its keys start with `visual.` (the config then read from it), else
+    in HF CLIPModel's at the shapes of `arch` (models/clip/convert.py)."""
     from construction_clip_tpu_torch import convert
     from construction_clip_tpu_torch.core.configs import CLIPConfig
+    from construction_clip_tpu_torch.models.clip import convert as clip_convert
     from construction_clip_tpu_torch.train.checkpoint import load_params_npz
 
     cfg = getattr(CLIPConfig, arch)()
     if checkpoint is None:
         return convert.init_clip(0, cfg), cfg
-    if not checkpoint.endswith(".npz"):
-        raise ValueError(f"{checkpoint}: the port reads .npz CLIP checkpoints only")
-    return load_params_npz(checkpoint, convert.init_clip(convert.SHAPES, cfg)), cfg
+    if checkpoint.endswith(".npz"):
+        return load_params_npz(checkpoint, convert.init_clip(convert.SHAPES, cfg)), cfg
+    sd = clip_convert.load_torch_checkpoint(checkpoint)
+    if any(k.startswith("visual.") for k in sd):
+        return clip_convert.from_openai_state_dict(sd)
+    return clip_convert.from_hf_state_dict(sd, cfg), cfg
 
 
 def load_clip_tokenizer(merges_path: str | None, *, expect_vocab: int | None = None):
@@ -109,3 +114,30 @@ class TokenizerFile:
 
     def vocab_size(self) -> int:
         return self._tok.get_vocab_size()
+
+
+def tokenizer_vocab_size(tok) -> int | None:
+    """The vocab size of a tokenizer: its vocab_size() (TokenizerFile), else
+    its len() (a transformers tokenizer), else None."""
+    if hasattr(tok, "vocab_size") and callable(tok.vocab_size):
+        return tok.vocab_size()
+    try:
+        return len(tok)
+    except TypeError:
+        return None
+
+
+def fit_t5_vocab(tcfg, tok):
+    """tcfg with vocab_size grown (to a multiple of 128) to cover a larger
+    tokenizer. An id past the table raises in torch's indexing (XLA's gather
+    clamps it), so the apps fit the vocab before the params are made; train
+    and predict derive the size from the same tokenizer file, so that their
+    checkpoints fit each other."""
+    import dataclasses
+
+    vs = tokenizer_vocab_size(tok)
+    if vs and vs > tcfg.vocab_size:
+        padded = -(-vs // 128) * 128
+        print(f"t5 vocab {tcfg.vocab_size} -> {padded} (tokenizer has {vs} tokens)")
+        return dataclasses.replace(tcfg, vocab_size=padded)
+    return tcfg

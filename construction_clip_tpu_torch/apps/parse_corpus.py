@@ -7,7 +7,8 @@ parse_coco.py entry point):
 
 The flags and defaults are apps/parse_corpus.py's, and it writes the same .npz
 keys (embeddings, attributes, captions) for the ClipCap training. --checkpoint
-takes the .npz that either package writes; without one, the weights are random
+takes the .npz that either package writes or a .pt state dict (OpenAI's or
+HF's, apps/common.load_clip); without one, the weights are random
 from a fixed seed. It runs on --device: `cuda` (the default; an error where no
 CUDA device works) or `cpu`, in fp32 weights and compute on both, as the JAX
 app (it passes no precision policy). Images are read with PIL; on a
@@ -33,7 +34,7 @@ def parse_args(argv=None):
     p.add_argument("--json_path", default="../all.json")
     p.add_argument("--image_root", default="../")
     p.add_argument("--checkpoint", default=None,
-                   help="fine-tuned CLIP weights (.npz, either package's)")
+                   help="CLIP weights: .npz (either package's) or a .pt state dict (OpenAI or HF)")
     p.add_argument("--clip_bpe", default=None)
     p.add_argument("--out", default="./embedding/ViT-B_32_train_embedding.npz")
     p.add_argument("--batch_size", type=int, default=64)

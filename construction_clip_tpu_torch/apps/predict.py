@@ -8,8 +8,9 @@ captioning in batches, written to `<output_dir>/output_log.json`.
         --caption_checkpoint models/clipcap.npz --tokenizer vocab.txt
 
 The flags and the records are apps/predict.py's, with these differences.
-CLIP and caption checkpoints are the .npz files that either package writes;
-without one, the weights are the port's random init from a fixed seed.
+CLIP and caption checkpoints are the .npz files that either package writes
+(CLIP also a .pt state dict, OpenAI's or HF's, as apps/common.load_clip reads
+it); without one, the weights are the port's random init from a fixed seed.
 --tokenizer is a local BERT vocab.txt (or a directory holding one), `vocab.txt`
 by default. It runs on --device: `cuda` (the default; an error where no CUDA
 device works) or `cpu`; --policy auto computes in bf16 on the card and in
@@ -45,7 +46,8 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--json_path", default="test.json")
     p.add_argument("--image_root", default=".")
-    p.add_argument("--clip_checkpoint", default=None, help=".npz params (either package's)")
+    p.add_argument("--clip_checkpoint", default=None,
+                   help=".npz params (either package's) or a .pt state dict (OpenAI or HF)")
     p.add_argument("--arch", default="vit_b_32",
                    choices=["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe"])
     p.add_argument("--caption_checkpoint", default=None,

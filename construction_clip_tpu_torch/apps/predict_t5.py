@@ -7,7 +7,8 @@ cached sampled (or --greedy) T5 decode -> caption.
         --image_root images/ --tokenizer bpe.json --caption_checkpoint t5cap.npz
 
 The flags, defaults and output JSON are apps/predict_t5.py's. CLIP and caption
-checkpoints are the .npz files that either package writes; without one, the
+checkpoints are the .npz files that either package writes (CLIP also a .pt
+state dict, OpenAI's or HF's, as apps/common.load_clip reads it); without one, the
 weights are random from a fixed seed. The tokenizer is a `tokenizers` JSON
 file. It runs on --device: `cuda` (the default; an error where no CUDA device
 works) or `cpu`, in fp32 weights and compute on both, as the JAX app (it
@@ -17,7 +18,6 @@ passes no precision policy).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 
@@ -26,8 +26,8 @@ import torch
 
 from construction_clip_tpu_torch import convert
 from construction_clip_tpu_torch.apps.common import (
-    TokenizerFile, add_device_flag, load_clip, load_clip_tokenizer, resolve_device,
-    stream_corpus)
+    TokenizerFile, add_device_flag, fit_t5_vocab, load_clip, load_clip_tokenizer,
+    resolve_device, stream_corpus)
 from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, T5Config
 from construction_clip_tpu_torch.core.params import as_tree
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
@@ -47,7 +47,8 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--json_path", default="../test.json")
     p.add_argument("--image_root", default="../")
-    p.add_argument("--clip_checkpoint", default=None, help=".npz params (either package's)")
+    p.add_argument("--clip_checkpoint", default=None,
+                   help=".npz params (either package's) or a .pt state dict (OpenAI or HF)")
     p.add_argument("--arch", default="vit_b_32",
                    choices=["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe"])
     p.add_argument("--clip_bpe", default=None)
@@ -62,16 +63,6 @@ def parse_args(argv=None):
     p.add_argument("--out", default="output/output_t5.json")
     add_device_flag(p)
     return p.parse_args(argv)
-
-
-def fit_t5_vocab(tcfg: T5Config, vocab_size: int) -> T5Config:
-    """Grow the T5 vocab (to a multiple of 128) to cover a larger tokenizer, as
-    apps/common.py:fit_t5_vocab does, so that checkpoints of either CLI fit."""
-    if vocab_size > tcfg.vocab_size:
-        padded = -(-vocab_size // 128) * 128
-        print(f"t5 vocab {tcfg.vocab_size} -> {padded} (tokenizer has {vocab_size} tokens)")
-        return dataclasses.replace(tcfg, vocab_size=padded)
-    return tcfg
 
 
 def attribute_ids(lm_tok, attrs) -> np.ndarray:
@@ -132,8 +123,7 @@ def main(argv=None):
     clip_tok = load_clip_tokenizer(
         args.clip_bpe, expect_vocab=clip_cfg.text.vocab_size if args.clip_checkpoint else None)
     lm_tok = TokenizerFile(args.tokenizer)
-    tcfg = fit_t5_vocab(T5Config() if args.t5_size == "small" else T5Config.tiny(),
-                        lm_tok.vocab_size())
+    tcfg = fit_t5_vocab(T5Config() if args.t5_size == "small" else T5Config.tiny(), lm_tok)
     ccfg = ClipCapConfig(prefix_length=args.prefix_length, attribute_length=0,
                          clip_dim=clip_cfg.text.embed_dim, mapper=args.mapping_type)
     cap_tree = (load_params_npz(args.caption_checkpoint,

@@ -5,7 +5,8 @@ plot (the port's counterpart of apps/predict_zeroshot.py):
         --image_root images/ --checkpoint clip_latest.npz --out predictions.json
 
 The flags, defaults and output JSON are apps/predict_zeroshot.py's. --checkpoint
-takes the .npz that either package writes; without one, the weights are random
+takes the .npz that either package writes or a .pt state dict (OpenAI's or
+HF's, apps/common.load_clip); without one, the weights are random
 from a fixed seed. It runs on --device: `cuda` (the default; an error where no
 CUDA device works) or `cpu`, in fp32 weights and compute on both, as the JAX
 app (it passes no precision policy). Images are read with PIL and
@@ -38,7 +39,8 @@ def parse_args(argv=None):
     p.add_argument("--image_root", default="../")
     p.add_argument("--key", default="violation_type",
                    choices=["violation_type", "caption_type"])
-    p.add_argument("--checkpoint", default=None, help=".npz params (either package's)")
+    p.add_argument("--checkpoint", default=None,
+                   help=".npz params (either package's) or a .pt state dict (OpenAI or HF)")
     p.add_argument("--arch", default="vit_b_32",
                    choices=["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe"])
     p.add_argument("--clip_bpe", default=None)

@@ -6,7 +6,9 @@ classes and a caption as JSON; GET /ping; GET /.
         --tokenizer vocab.txt --int8 --batch_window_ms 20
 
 The flags and defaults are apps/serve.py's for what the port serves: the CLIP
-and caption checkpoints are the .npz files `train/checkpoint.py` reads (random
+checkpoint is the .npz that `train/checkpoint.py` reads or a .pt state
+dict (OpenAI's or HF's, apps/common.load_clip), the caption checkpoint such
+an .npz (random
 weights from numpy seeds 0 and 1 without them, as chip_smoke.py's serving
 phases draw them), --clip_bpe and --tokenizer are local
 files (a BERT vocab.txt or a `tokenizers` JSON), --int8 quantizes the image
@@ -21,7 +23,7 @@ from __future__ import annotations
 import argparse
 
 from construction_clip_tpu_torch.apps.common import (
-    TokenizerFile, add_device_flag, load_clip_tokenizer, resolve_device)
+    TokenizerFile, add_device_flag, load_clip, load_clip_tokenizer, resolve_device)
 
 
 def parse_args(argv=None):
@@ -29,7 +31,8 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--clip_checkpoint", default=None, help=".npz params (either package's)")
+    p.add_argument("--clip_checkpoint", default=None,
+                   help=".npz params (either package's) or a .pt state dict (OpenAI or HF)")
     p.add_argument("--caption_checkpoint", default=None, help=".npz {mapper, gpt}")
     p.add_argument("--clip_bpe", default=None)
     p.add_argument("--tokenizer", default="vocab.txt",
@@ -55,7 +58,7 @@ def build_service(args, clip_tok, lm_tok, device):
     """The TorchPredictService that `main` serves, for parsed `args`, on
     `device`, with the given tokenizers."""
     from construction_clip_tpu_torch import convert
-    from construction_clip_tpu_torch.core.configs import CLIPConfig, ClipCapConfig, GPT2Config
+    from construction_clip_tpu_torch.core.configs import ClipCapConfig, GPT2Config
     from construction_clip_tpu_torch.core.params import as_tree
     from construction_clip_tpu_torch.infer.caption import CaptionPipeline
     from construction_clip_tpu_torch.serve.app import TorchPredictService
@@ -64,13 +67,11 @@ def build_service(args, clip_tok, lm_tok, device):
     if args.enable_detector or args.detector_checkpoint:
         raise NotImplementedError("the object detector is not ported (--enable_detector, "
                                   "--detector_checkpoint)")
-    clip_cfg = getattr(CLIPConfig, args.arch)()
+    clip_tree, clip_cfg = load_clip(args.clip_checkpoint, arch=args.arch)
     ccfg = ClipCapConfig(prefix_length=args.prefix_length,
                          attribute_length=args.attribute_length, mapper=args.mapping_type,
                          clip_dim=clip_cfg.text.embed_dim)
     gcfg = GPT2Config() if args.arch != "tiny" else GPT2Config.tiny()
-    clip_tree = (load_params_npz(args.clip_checkpoint, convert.init_clip(convert.SHAPES, clip_cfg))
-                 if args.clip_checkpoint else convert.init_clip(0, clip_cfg))
     cap_tree = (load_params_npz(args.caption_checkpoint,
                                 convert.init_clipcap(convert.SHAPES, ccfg, gcfg))
                 if args.caption_checkpoint else convert.init_clipcap(1, ccfg, gcfg))

@@ -8,7 +8,8 @@ counterpart of apps/train_clip.py), on one device or data-parallel:
 
 Same flags and defaults as apps/train_clip.py, except that --resume names a
 checkpoint directory of this package (train/checkpoint.py), --checkpoint takes
-the .npz that either package writes, and --native_loader is not ported. It
+the .npz that either package writes or a .pt state dict (OpenAI's or HF's,
+apps/common.load_clip), and --native_loader is not ported. It
 trains on --device: `cuda` (the default; an error where no CUDA device works)
 or `cpu`; each step runs the port's kernels on the card (train/contrastive.py). Every epoch is a
 resumable unit: `<output_dir>/<prefix>_comb<N>/step_<epoch>.pt`, and a rerun
@@ -52,7 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--groups_per_batch", type=int, default=1)
     p.add_argument("--output_dir", default="models")
     p.add_argument("--output_prefix", default="clip")
-    p.add_argument("--checkpoint", default=None, help=".npz params (either package's)")
+    p.add_argument("--checkpoint", default=None,
+                   help=".npz params (either package's) or a .pt state dict (OpenAI or HF)")
     p.add_argument("--clip_bpe", default=None, help="path to bpe_simple_vocab_16e6.txt.gz")
     p.add_argument("--arch", default="vit_b_32",
                    choices=["vit_b_32", "vit_b_16", "vit_l_14", "tiny", "tiny_bpe"])

@@ -18,9 +18,9 @@ by default). The step is train/caption.py's: only the mapper with
 
 The random init is the port's own: convert.init_clipcap from numpy seed 567,
 at the JAX package's shapes and scales but not the values of the JAX app's
-jax.random.key(567). --gpt_checkpoint (the HF GPT-2 converter) and
---mapping_type transformer are not ported (ROADMAP.md Queue 1 items 6 and 7)
-and raise.
+jax.random.key(567). --gpt_checkpoint starts GPT-2 from a HF state dict (.pt
+or .bin, models/gpt2.from_hf_state_dict), as the JAX app does. --mapping_type
+transformer is not ported (ROADMAP.md Queue 1 item 7) and raises.
 
 Every epoch is a resumable unit, `<out_dir>/<prefix>/step_<epoch>.pt`, and a
 rerun resumes from the latest. At the end it writes `<out_dir>/<prefix>.npz`
@@ -65,7 +65,8 @@ def parse_args(argv=None):
                    help="BERT vocab.txt, a directory holding one, or a tokenizers JSON")
     p.add_argument("--lr", type=float, default=2e-5)
     p.add_argument("--warmup_steps", type=int, default=5000)
-    p.add_argument("--gpt_checkpoint", default=None, help="not ported")
+    p.add_argument("--gpt_checkpoint", default=None,
+                   help="HF GPT-2 .pt/.bin state dict to start the LM from")
     p.add_argument("--gpt_size", default="base", choices=["base", "tiny"],
                    help="tiny = test-scale decoder")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
@@ -95,22 +96,12 @@ def train(args, dp=None):
 
     from construction_clip_tpu_torch import convert
     from construction_clip_tpu_torch.core.configs import ClipCapConfig, GPT2Config
-    from construction_clip_tpu_torch.core.params import as_tree
     from construction_clip_tpu_torch.core.precision import policy_from_name
-    from construction_clip_tpu_torch.data.loader import TorchArrayLoader
     from construction_clip_tpu_torch.infer.precompute import (
         load_archive, tokenize_for_caption_training)
     from construction_clip_tpu_torch.train.caption import make_caption_train_step
-    from construction_clip_tpu_torch.train.checkpoint import (
-        latest_step, restore_state, save_params_npz)
-    from construction_clip_tpu_torch.train.metrics import MetricLogger, StepTimer
-    from construction_clip_tpu_torch.train.resilience import StepWatchdog, run_resilient
-    from construction_clip_tpu_torch.train.state import TrainState, make_adamw
 
     device = dp.device if dp is not None else resolve_device(args.device)
-    if args.gpt_checkpoint:
-        raise NotImplementedError("--gpt_checkpoint (HF GPT-2 weights) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
     if args.mapping_type != "mlp":
         raise NotImplementedError(f"--mapping_type {args.mapping_type} is not ported yet "
                                   "(only mlp; ROADMAP.md Queue 1 item 7)")
@@ -138,8 +129,14 @@ def train(args, dp=None):
     say(f"device: {device} ({name}), {world} data-parallel rank(s)")
     say(f"{len(arrays['prefix'])} items, caption len {arrays['tokens'].shape[1]}")
 
+    gpt_tree = None
+    if args.gpt_checkpoint:
+        from construction_clip_tpu_torch.models.clip.convert import load_torch_checkpoint
+        from construction_clip_tpu_torch.models.gpt2 import from_hf_state_dict
+
+        gpt_tree = from_hf_state_dict(load_torch_checkpoint(args.gpt_checkpoint), gcfg)
     # every rank draws the same init from the seed
-    tree = convert.init_clipcap(INIT_SEED, ccfg, gcfg)
+    tree = convert.init_clipcap(INIT_SEED, ccfg, gcfg, gpt_params=gpt_tree)
     say("Train only prefix" if args.only_prefix else "Train both prefix and GPT")
     if args.only_prefix:
         params = convert.to_params(tree["mapper"], device=device, trainable=True)
@@ -149,10 +146,36 @@ def train(args, dp=None):
         params, frozen = convert.to_params(tree, device=device, trainable=True), None
     del tree
 
+    fit(args, lambda tx: make_caption_train_step(ccfg, gcfg, tx, policy=policy, device=device,
+                                                 dp=dp),
+        params, frozen, arrays, device=device, dp=dp,
+        frozen_tree={"gpt": gpt} if args.only_prefix else None)
+
+
+def fit(args, make_step, params, frozen, arrays: dict, *, device, dp, frozen_tree):
+    """The caption apps' training run (train_clipcap, train_clipcap_t5): AdamW
+    with warmup over `params` for --epochs epochs of `arrays` in global
+    batches of --bs x ranks, `make_step(tx)`'s step taking (state, frozen,
+    batch); every epoch a resumable checkpoint, the loss logged every 50
+    steps and at each epoch's end; at the end <out_dir>/<prefix>.npz holds
+    the trained params, with the fp32 `frozen_tree` ({"gpt": ...} or
+    {"t5": ...}) beside the mapper in only-prefix runs. Rank 0 alone prints,
+    logs and writes."""
+    from construction_clip_tpu_torch.core.params import as_tree
+    from construction_clip_tpu_torch.data.loader import TorchArrayLoader
+    from construction_clip_tpu_torch.train.checkpoint import (
+        latest_step, restore_state, save_params_npz)
+    from construction_clip_tpu_torch.train.metrics import MetricLogger, StepTimer
+    from construction_clip_tpu_torch.train.resilience import StepWatchdog, run_resilient
+    from construction_clip_tpu_torch.train.state import TrainState, make_adamw
+
+    world = dp.world if dp is not None else 1
+    main_rank = dp is None or dp.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
     loader = TorchArrayLoader(arrays, batch_size=args.bs * world, device=device, dp=dp)
     tx = make_adamw(args.lr, warmup_steps=args.warmup_steps,
                     total_steps=args.epochs * max(len(loader), 1))
-    step_fn = make_caption_train_step(ccfg, gcfg, tx, policy=policy, device=device, dp=dp)
+    step_fn = make_step(tx)
     state = TrainState.create(params, tx)
     if args.resume and latest_step(args.resume) is not None:
         state = restore_state(args.resume, state)
@@ -191,8 +214,8 @@ def train(args, dp=None):
                               checkpoint_dir=os.path.join(args.out_dir, args.prefix),
                               save_every_epochs=args.save_every, dp=dp)
     final = as_tree(state.params)
-    if args.only_prefix:
-        final = {"mapper": final, "gpt": gpt}
+    if frozen_tree is not None:
+        final = {"mapper": final, **frozen_tree}
     npz_path = os.path.join(args.out_dir, f"{args.prefix}.npz")
     save_params_npz(npz_path, final, dp=dp)
     say(f"saved inference params {npz_path}")

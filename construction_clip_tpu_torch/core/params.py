@@ -28,6 +28,16 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def stack_trees(trees: list):
+    """Equal numpy trees stacked leaf by leaf along a new leading axis (the
+    layer stacks of a converted checkpoint)."""
+    import numpy as np
+
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def layer(stacked, index: int):
     """Params of one layer of a stacked tree (views, no copy)."""
     return tree_map(lambda z: z[index], stacked)

@@ -1,8 +1,8 @@
 """ClipCap mT5 variant (counterpart of construction_clip_tpu/models/clipcap/
 t5_model.py): the mapped CLIP prefix is concatenated in front of the T5
 encoder states of the attribute tokens, and the decoder attends over both.
-
-The training loss waits for the training slice of the port.
+The training loss is the CE of the prefix-aligned slice against the caption
+tokens (t5_caption_loss_parts), as the JAX module computes it.
 """
 
 from __future__ import annotations
@@ -56,3 +56,20 @@ def clipcap_t5_forward(params, ccfg: ClipCapConfig, tcfg: T5Config, *,
     logits, _ = t5_lib.t5_decode(params["t5"], tcfg, dec_in, hidden, encoder_mask=full_mask,
                                  policy=policy)
     return logits
+
+
+def t5_caption_loss_parts(logits, input_ids, ccfg: ClipCapConfig, *, ignore_id: int = 0):
+    """(sum of the masked token NLL, valid-token count), both fp32 scalars:
+    logits[:, prefix_length-1:-1] against input_ids, ids equal to `ignore_id`
+    left out. Data-parallel steps divide the sum by the global count."""
+    pred = logits[:, ccfg.prefix_length - 1:-1]
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    nll = -torch.gather(logp, -1, input_ids.long()[..., None])[..., 0]
+    mask = (input_ids != ignore_id).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def t5_caption_loss(logits, input_ids, ccfg: ClipCapConfig, *, ignore_id: int = 0):
+    """The token-mean CE of the caption slice (0 for a batch without a valid token)."""
+    total, count = t5_caption_loss_parts(logits, input_ids, ccfg, ignore_id=ignore_id)
+    return total / count.clamp(min=1.0)

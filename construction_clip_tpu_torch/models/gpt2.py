@@ -174,3 +174,44 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
 def embed_tokens(params, tokens, *, policy: Policy = DEFAULT_POLICY):
     """wte lookup: the ClipCap prompt concatenates these with the mapped prefix."""
     return params["wte"][tokens.long()].to(policy.compute_dtype)
+
+
+def from_hf_state_dict(sd, cfg: GPT2Config) -> dict:
+    """A HF GPT2LMHeadModel / GPT2Model state dict -> the numpy tree
+    (`convert.init_gpt2`'s layout), as the JAX package's from_hf_state_dict.
+    HF's Conv1D weights are already [in, out]; the blocks are stacked."""
+    import numpy as np
+
+    from construction_clip_tpu_torch.core.params import stack_trees
+
+    def a(k):
+        x = sd[k]
+        if hasattr(x, "detach"):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    prefix = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+
+    def block(i):
+        b = f"{prefix}h.{i}"
+        return {
+            "ln_1": {"scale": a(f"{b}.ln_1.weight"), "bias": a(f"{b}.ln_1.bias")},
+            "attn": {"c_attn_w": a(f"{b}.attn.c_attn.weight"),
+                     "c_attn_b": a(f"{b}.attn.c_attn.bias"),
+                     "c_proj_w": a(f"{b}.attn.c_proj.weight"),
+                     "c_proj_b": a(f"{b}.attn.c_proj.bias")},
+            "ln_2": {"scale": a(f"{b}.ln_2.weight"), "bias": a(f"{b}.ln_2.bias")},
+            "mlp": {"c_fc_w": a(f"{b}.mlp.c_fc.weight"),
+                    "c_fc_b": a(f"{b}.mlp.c_fc.bias"),
+                    "c_proj_w": a(f"{b}.mlp.c_proj.weight"),
+                    "c_proj_b": a(f"{b}.mlp.c_proj.bias")},
+        }
+
+    blocks = [block(i) for i in range(cfg.n_layer)]
+    return {
+        "wte": a(f"{prefix}wte.weight"),
+        "wpe": a(f"{prefix}wpe.weight"),
+        "blocks": stack_trees(blocks),
+        "ln_f": {"scale": a(f"{prefix}ln_f.weight"), "bias": a(f"{prefix}ln_f.bias")},
+    }
+

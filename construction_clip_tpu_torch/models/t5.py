@@ -259,3 +259,59 @@ def t5_forward(params, cfg: T5Config, *, input_ids, decoder_input_ids, attention
     logits, _ = t5_decode(params, cfg, decoder_input_ids, encoder_hidden,
                           encoder_mask=attention_mask, policy=policy)
     return logits, encoder_hidden
+
+
+# -------------------------------------------------------------------- converter
+
+def from_hf_state_dict(sd, cfg: T5Config) -> dict:
+    """A HF (M)T5ForConditionalGeneration state dict -> the numpy tree
+    (`convert.init_t5`'s layout), as the JAX package's from_hf_state_dict:
+    Linear weights transposed to [in, out], blocks stacked, the relative
+    position tables of block 0; a checkpoint without `lm_head.weight` (tied
+    T5) takes `shared` there, as the JAX converter does."""
+    import numpy as np
+
+    from construction_clip_tpu_torch.core.params import stack_trees
+
+    def a(k):
+        x = sd[k]
+        if hasattr(x, "detach"):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    def lin(k):
+        return np.ascontiguousarray(a(k).T)   # torch Linear [out, in] -> [in, out]
+
+    def attn(b, name):
+        return {n: lin(f"{b}.{name}.{n}.weight") for n in ("q", "k", "v", "o")}
+
+    def ffn(b):
+        return {n: lin(f"{b}.DenseReluDense.{n}.weight") for n in ("wi_0", "wi_1", "wo")}
+
+    def enc_block(i):
+        b = f"encoder.block.{i}"
+        return {"ln_attn": a(f"{b}.layer.0.layer_norm.weight"),
+                "attn": attn(f"{b}.layer.0", "SelfAttention"),
+                "ln_ffn": a(f"{b}.layer.1.layer_norm.weight"),
+                "ffn": ffn(f"{b}.layer.1")}
+
+    def dec_block(i):
+        b = f"decoder.block.{i}"
+        return {"ln_self": a(f"{b}.layer.0.layer_norm.weight"),
+                "self_attn": attn(f"{b}.layer.0", "SelfAttention"),
+                "ln_cross": a(f"{b}.layer.1.layer_norm.weight"),
+                "cross_attn": attn(f"{b}.layer.1", "EncDecAttention"),
+                "ln_ffn": a(f"{b}.layer.2.layer_norm.weight"),
+                "ffn": ffn(f"{b}.layer.2")}
+
+    rel = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    return {
+        "shared": a("shared.weight"),
+        "enc_rel_emb": a(f"encoder.{rel}"),
+        "dec_rel_emb": a(f"decoder.{rel}"),
+        "encoder": stack_trees([enc_block(i) for i in range(cfg.num_layers)]),
+        "enc_final_ln": a("encoder.final_layer_norm.weight"),
+        "decoder": stack_trees([dec_block(i) for i in range(cfg.num_decoder_layers)]),
+        "dec_final_ln": a("decoder.final_layer_norm.weight"),
+        "lm_head": lin("lm_head.weight") if "lm_head.weight" in sd else a("shared.weight"),
+    }

@@ -161,7 +161,8 @@ def test_port_imports_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("app", ["train_clip", "predict_t5", "serve", "predict_zeroshot",
-                                 "parse_corpus", "train_clipcap", "predict"])
+                                 "parse_corpus", "train_clipcap", "predict",
+                                 "train_clipcap_t5", "product_e2e"])
 def test_apps_refuse_a_missing_cuda_device(app, monkeypatch):
     """--device defaults to cuda; without a usable CUDA device the app stops
     at once and names --device cpu, instead of running on the CPU."""
@@ -274,3 +275,147 @@ def test_visualize_writes_a_png_of_a_metric_log(tmp_path, capsys, monkeypatch):
     out = tmp_path / "curves.png"
     visualize.main([logger.jsonl_path, "--keys", "loss", "step_time", "--out", str(out)])
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" and f"wrote {out}" in capsys.readouterr().out
+
+
+# ---- the host copies of the mT5 chain, the converters' slice and the chain ---------------
+
+def _jax_app(monkeypatch, name, argv):
+    """apps/<name>.py of the JAX package run as its __main__ in this process."""
+    import contextlib
+    import io
+    import runpy
+
+    monkeypatch.syspath_prepend(os.path.join(REPO, "apps"))
+    monkeypatch.setattr(sys, "argv", [name] + argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        runpy.run_path(os.path.join(REPO, "apps", f"{name}.py"), run_name="__main__")
+
+
+def _caption_corpus(tmp_path):
+    anns = [{"id": i, "caption": c, "violation_list": v, "file_name": f"{i}.jpg"}
+            for i, (c, v) in enumerate([("工地邊緣未設置護欄", ""), ("", "開口未防護"),
+                                        ("", ""), ("墜落 機械 物料", "x"), ("工地 開口", "")])]
+    path = tmp_path / "all.json"
+    path.write_text(json.dumps({"annotations": anns}, ensure_ascii=False), encoding="utf-8")
+    return str(path)
+
+
+@pytest.mark.parametrize("key", ["caption", "violation_list"])
+def test_json_to_text_writes_the_original_file(key, tmp_path, monkeypatch, capsys):
+    """The port's json_to_text app against apps/json_to_text.py: the same lines
+    (the --key field, else violation_list, empty ones skipped)."""
+    from construction_clip_tpu_torch.apps import json_to_text
+
+    corpus = _caption_corpus(tmp_path)
+    json_to_text.main(["--json_path", corpus, "--out", str(tmp_path / "port.txt"), "--key", key])
+    _jax_app(monkeypatch, "json_to_text",
+             ["--json_path", corpus, "--out", str(tmp_path / "jax.txt"), "--key", key])
+    got = (tmp_path / "port.txt").read_bytes()
+    assert got == (tmp_path / "jax.txt").read_bytes()
+    assert len(got.splitlines()) == {"caption": 4, "violation_list": 2}[key]
+    assert "wrote" in capsys.readouterr().out
+
+
+def test_train_tokenizer_writes_the_original_json(tmp_path, monkeypatch, capsys):
+    """The port's train_tokenizer app against apps/train_tokenizer.py on the
+    same text dump: the same tokenizers JSON, byte for byte."""
+    from construction_clip_tpu_torch.apps import json_to_text, train_tokenizer
+
+    txt = str(tmp_path / "text.txt")
+    json_to_text.main(["--json_path", _caption_corpus(tmp_path), "--out", txt])
+    argv = ["--input", txt, "--vocab_size", "200", "--min_frequency", "1"]
+    train_tokenizer.main(argv + ["--out", str(tmp_path / "port.json")])
+    _jax_app(monkeypatch, "train_tokenizer", argv + ["--out", str(tmp_path / "jax.json")])
+    got = (tmp_path / "port.json").read_bytes()
+    assert got == (tmp_path / "jax.json").read_bytes()
+    assert json.loads(got)["model"]["type"] == "BPE" and "wrote" in capsys.readouterr().out
+
+
+ZH_TEXTS = ["工地邊緣未設置護欄，有墜落之虞。", "開口未防護一樓 ○○ 樓梯", "a1 機械 123 物料/吊掛",
+            "  ", "（鋼筋）「外露」─┼─ 施工架", "Hello 工地 x2", "作業人員未戴安全帽、未繫安全帶"]
+
+
+def test_tokenize_zh_and_its_filter_give_the_original_tokens():
+    """data/corpus.py's copy: tokenize_zh, filter_tokens and the excluded
+    punctuation, against construction_clip_tpu/data/corpus.py."""
+    from construction_clip_tpu.data import corpus as j_corpus
+
+    from construction_clip_tpu_torch.data import corpus
+
+    assert corpus.EXCLUDE_PUNCTUATION == j_corpus.EXCLUDE_PUNCTUATION
+    for text in ZH_TEXTS:
+        assert corpus.tokenize_zh(text) == j_corpus.tokenize_zh(text)
+    tokens = ["工地", "a工", "12", "工 地", "工、地", "", " ", "○", "機械"]
+    assert corpus.filter_tokens(tokens) == j_corpus.filter_tokens(tokens) == ["工地", "機械"]
+
+
+def test_fit_t5_vocab_gives_the_original_configs(capsys):
+    """apps/common.py's tokenizer_vocab_size and fit_t5_vocab (the port's one
+    copy, which predict_t5 and train_clipcap_t5 import) against the JAX apps'
+    on tokenizers smaller than, equal to and larger than the vocab, and on
+    objects that give their size by len() or not at all."""
+    import dataclasses
+
+    from construction_clip_tpu.core.configs import T5Config as JT5Config
+
+    from construction_clip_tpu_torch.apps import common
+    from construction_clip_tpu_torch.core.configs import T5Config
+
+    j_common = _jax_common()
+
+    class Sized:
+        def __init__(self, n):
+            self.n = n
+
+        def vocab_size(self):
+            return self.n
+
+    class Lengthed(list):
+        pass
+
+    toks = [Sized(50), Sized(100), Sized(101), Sized(30000), Lengthed(range(300)), object()]
+    for tok in toks:
+        assert common.tokenizer_vocab_size(tok) == j_common.tokenizer_vocab_size(tok)
+        for port_cfg, jax_cfg in ((T5Config.tiny(), JT5Config.tiny()), (T5Config(), JT5Config())):
+            got = common.fit_t5_vocab(port_cfg, tok)
+            assert dataclasses.asdict(got) == dataclasses.asdict(j_common.fit_t5_vocab(jax_cfg, tok))
+    assert common.fit_t5_vocab(T5Config.tiny(), Sized(101)).vocab_size == 128
+    capsys.readouterr()
+
+
+def _jax_common():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("jax_apps_common",
+                                                  os.path.join(REPO, "apps", "common.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_product_e2e_synthesis_gives_the_original_images_and_subsets():
+    """The chain's copies of synth_image and _round_robin_subset against
+    tools/run_product_e2e.py's: the same pixels for each class and marker,
+    and the same class-balanced subsets. A subset larger than the corpus is
+    the whole corpus in the port (the JAX copy's loop never ends there, so
+    it is not called with one)."""
+    import run_product_e2e
+
+    from construction_clip_tpu_torch.apps import product_e2e
+
+    anns = [schema.Annotation(id=i, file_name=f"site/{i}.jpg", caption_type=ct,
+                              violation_type=vt)
+            for i, (ct, vt) in enumerate(
+                [("violation", v) for v in labels.VIOLATION_TYPES] +
+                [("status", "墜落"), ("status", "not a class"), ("violation", "")])]
+    for a in anns:
+        np.testing.assert_array_equal(product_e2e.synth_image(a), run_product_e2e.synth_image(a))
+    raw = [{"id": a.id, "violation_type": a.violation_type} for a in anns] * 2
+    for n in (1, 5, 12):
+        assert product_e2e._round_robin_subset(anns, n) == \
+            run_product_e2e._round_robin_subset(anns, n)
+        key = (lambda r: r.get("violation_type", ""))
+        assert product_e2e._round_robin_subset(raw, n, key=key) == \
+            run_product_e2e._round_robin_subset(raw, n, key=key)
+    assert product_e2e._round_robin_subset(anns, 40) == \
+        run_product_e2e._round_robin_subset(anns, len(anns))
