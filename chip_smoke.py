@@ -138,9 +138,10 @@ Phases, each printing one line (the last line is the JSON verdict):
      training runs no hand kernel, as the JAX step runs no Pallas kernel).
      The full fine-tune's params are saved with save_params_npz for phase 29.
  28. one full fine-tune caption step in fp32 at full width, B=4, on the card
-     against the CPU on the same params and batch: the loss and every
-     gradient leaf (the tied wte on its own line); then the card's step
-     again with TF32 GEMMs, a control that must read above the bound.
+     against the CPU on the same params and batch, for each of six batches
+     (CAPTION_PARITY_SEEDS): the loss and every gradient leaf (the tied wte
+     on its own line); then the first batch's step on the card again with
+     TF32 GEMMs, a control that must read above the bound.
  29. the port's apps/predict.make_process at full width on phase 27's npz
      (load_params_npz), bf16, beam 3, 100 steps: 32 synthetic images of mixed
      sizes staged by host_shape_unify, in batches of 16; the records carry the
@@ -170,6 +171,40 @@ Phases, each printing one line (the last line is the JSON verdict):
      (load_params_npz), bf16, greedy, 32 steps, 16 synthetic images in
      batches of 8: the records carry the JAX app's keys; K8 launches steps +
      1 times a batch and K1 launches; s per batch and tokens/s.
+ 33. K1 and K3 at head width 96 ([16,30,768], 8 heads: GPT-2's transformer
+     mapper in predict, clip_length 10 + prefix 20 rows), bf16 and fp32, on
+     the SIMT route (the tensor-core route takes dh 64), against their plain
+     versions at phases 3 and 7's tolerances; times, device times (CUDA-graph
+     replays), bounds, and the composed library block's forward and backward
+     device times beside them.
+ 34. phase 27 with the transformer mapper (8 blocks, clip_length 10, 8 heads
+     of 96, ReLU; GPT-2 base, prefix 20, attribute 20, B=16, 10 steps in each
+     mode on phase 27's archive): K1 and K3 launch 8 times a step, on the
+     SIMT route; the first batch's loss falls in each mode; then
+     phase 28's fp32 card-against-CPU steps (CAPTION_GRAD_TOL, its TF32
+     control) with this mapper, the CPU runs on the card's ReLU masks, the
+     signs the CPU gives otherwise counted and its own-mask reading beside.
+ 35. phase 29 with --mapping_type transformer on phase 34's npz: K1 launches
+     12 times (image tower, tensor cores) and 8 times (mapper, SIMT) a batch;
+     the fp32 greedy captions on the kernel path against the plain path.
+ 36. explainability at full width (ViT-B/32, GPT-2 base, phase 27's npz),
+     fp32: apps/predict.make_explain on 4 staged 256x256 images captioned
+     greedily (the JET overlay, per-character scores, the decoder attention
+     rows, each a distribution); s an image; no kernel launched inside
+     infer/explain.interpret (the probe path is the composed attention);
+     R_image and R_text on the card against the CPU's on the same inputs
+     (EXPLAIN_TOL), and the TF32 control above it.
+ 37. the train_clip_caption app (its loop is train_clip.fit) at ViT-B/32,
+     bf16, --batch_size 8, the 49,408-token BPE: one epoch of 10 steps over
+     (image, violation_list) pairs, the images through TorchImageTextLoader's
+     load_image hook (no PIL), then its eval and checkpoints: K1 and K3
+     launch 24 times a step (K1 also 24 an eval batch), all on the tensor
+     cores; the first batch's loss falls; the median step and its device
+     time.
+ 38. mT5 caption training with the transformer mapper (width 512, 8 heads of
+     64), full fine-tune, bf16, 3 steps of B=40: K1 and K3 launch 8 times a
+     step, all on the tensor cores; then one predict_t5 batch of 8 on the
+     trained params: K1 12 + 8 times on the tensor cores, K8 steps + 1.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -204,7 +239,7 @@ from construction_clip_tpu_torch.core.configs import (  # noqa: E402
     CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
 from construction_clip_tpu_torch.core.mesh import (  # noqa: E402
     replicate, shard_batch, spawn_ranks)
-from construction_clip_tpu_torch.core.params import as_tree, tree_leaves  # noqa: E402
+from construction_clip_tpu_torch.core.params import as_tree, tree_leaves, tree_map  # noqa: E402
 from construction_clip_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY  # noqa: E402
 from construction_clip_tpu_torch.data import offline_assets  # noqa: E402
 from construction_clip_tpu_torch.data.clip_tokenizer import ClipTokenizer  # noqa: E402
@@ -2234,8 +2269,15 @@ CAPTION_BATCH, CAPTION_STEPS = 16, 10
 # largest element in two sound runs whose CPUs summed in other orders. The
 # same step with the card's GEMMs in TF32 (10-bit mantissa), which the phase
 # runs as its control, read 1.2e-3 on w1 on an H100. The bound sits between,
-# about 4.7x above the larger sound reading and 4x below the control.
+# about 4.7x above the larger sound reading and 4x below the control. Phase
+# 34's transformer mapper steps through ReLU, whose derivative jumps at 0: on
+# an H100, one pre-activation that the CPU put on the other side of 0 moved
+# mapper/blocks/mlp/w_fc by 6.0e-4 of its largest element against the CPU run
+# on its own masks, and by 2.1e-6 with the card's masks replayed. So the CPU
+# run takes the card's ReLU masks (relu_masks), and the phase reports the
+# flips and the own-mask reading beside the held one.
 CAPTION_GRAD_TOL = 3e-4
+CAPTION_PARITY_SEEDS = (28, 29, 30, 31, 32, 33)   # the batches of phases 28 and 34
 PREDICT_KEYS = ["id", "file_name", "ground_truth_caption", "ground_truth_attribute",
                 "caption", "attribute", "caption_type", "violation_type", "decode_suspect"]
 
@@ -2273,10 +2315,38 @@ def caption_batch_loss(state, frozen, ccfg, gcfg, batch) -> float:
         return float(caption_loss(logits, batch["tokens"], ccfg))
 
 
-def phase_clipcap_train(cfgs, out_npz: str, device="cuda") -> dict:
-    """Phase 27: make_caption_train_step in bf16 on TorchArrayLoader batches
-    of a synthetic archive, CAPTION_STEPS steps of CAPTION_BATCH rows in each
-    mode; the full fine-tune's params are saved to `out_npz`."""
+def mapper_launches(ccfg, gcfg, steps: int) -> dict:
+    """The K1 and K3 launches of `steps` caption training steps: one of each a
+    transformer-mapper block (its blocks take the fused block), none for the
+    MLP mapper (GPT-2's training attention is plain torch); and those on the
+    tensor-core route, which the mapper's head width picks."""
+    from construction_clip_tpu_torch.models.clipcap.model import MAPPER_HEADS
+    from construction_clip_tpu_torch.ops.attention_block import route
+
+    n = ccfg.mapper_layers * steps if ccfg.mapper == "transformer" else 0
+    tc = n if route(torch.bfloat16, gcfg.n_embd // MAPPER_HEADS) == "tc" else 0
+    want = {name: 0 for name in WRAPPERS}
+    want.update(fused_attention_block=n, fused_attention_block_bwd=n)
+    return {"launches": want, "tc": {"fused_attention_block": tc,
+                                     "fused_attention_block_bwd": tc}}
+
+
+def tower_launches(clip_cfg, dtype) -> dict:
+    """K1's launches in one image-tower call (a block each) and those on the
+    tensor-core route, which the tower's head width and `dtype` pick."""
+    from construction_clip_tpu_torch.ops.attention_block import route
+
+    v = clip_cfg.vision
+    n = v.layers
+    return {"launches": n, "tc": n if route(dtype, v.width // v.heads) == "tc" else 0}
+
+
+def phase_clipcap_train(cfgs, out_npz: str, device="cuda", name: str = "clipcap_train") -> dict:
+    """Phases 27 and 34: make_caption_train_step in bf16 on TorchArrayLoader
+    batches of a synthetic archive, CAPTION_STEPS steps of CAPTION_BATCH rows
+    in each mode; the full fine-tune's params are saved to `out_npz`. The
+    launches must be mapper_launches' (none with the MLP mapper); the first
+    batch's loss must fall in both modes."""
     import dataclasses
 
     from construction_clip_tpu_torch.data.loader import TorchArrayLoader
@@ -2314,7 +2384,7 @@ def phase_clipcap_train(cfgs, out_npz: str, device="cuda") -> dict:
             losses.append(float(m["loss"]))   # waits for the step
             times.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
-        counts = launches()
+        counts, tc = launches(), tc_launches()
         peak = (torch.cuda.max_memory_allocated() - at_start) / 2 ** 30
         # the loss falls: the first batch's, before the steps and after them
         first_after = caption_batch_loss(state, frozen, mcfg, gcfg, first)
@@ -2322,8 +2392,11 @@ def phase_clipcap_train(cfgs, out_npz: str, device="cuda") -> dict:
                 not first_after < losses[0]:
             raise AssertionError(f"caption training {mode}: losses {losses}, the first "
                                  f"batch's after the steps {first_after}")
-        if any(counts.values()):
-            raise AssertionError(f"caption training {mode} launched a kernel: {counts}")
+        want = mapper_launches(mcfg, gcfg, CAPTION_STEPS)
+        tc = {k: tc[k] for k in want["tc"]}
+        if counts != want["launches"] or tc != want["tc"]:
+            raise AssertionError(f"caption training {mode}: launches {counts}, on the "
+                                 f"tensor cores {tc}; want {want}")
         per_kernel = kernel_device_ms(lambda: step(state, frozen, batch), reps=2)
         step_device_ms = sum(per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
@@ -2333,8 +2406,8 @@ def phase_clipcap_train(cfgs, out_npz: str, device="cuda") -> dict:
                      "step_device_ms": step_device_ms, "kernels_by_device_ms": top,
                      "peak_memory_above_start_gib": peak,
                      "trainable_params": sum(p.numel() for p in tree_leaves(as_tree(params))),
-                     "launches": counts}
-        say(f"clipcap_train_{mode}", **out[mode])
+                     "launches": {k: v for k, v in counts.items() if v}, "tc_launches": tc}
+        say(f"{name}_{mode}", **out[mode])
         if mode == "full":
             save_params_npz(out_npz, state.params)
         del params, frozen, state, step
@@ -2342,51 +2415,102 @@ def phase_clipcap_train(cfgs, out_npz: str, device="cuda") -> dict:
     return out
 
 
-def phase_clipcap_parity(cfgs, device="cuda") -> None:
-    """Phase 28: one full fine-tune step's fp32 loss and gradients at full
-    width, B=4, on the card against the CPU on the same params and batch."""
+@contextlib.contextmanager
+def relu_masks(record: list, replay=None):
+    """torch.relu (the transformer mapper's activation) with each call's
+    (x > 0) appended to `record`; with `replay`, a list of such masks, each
+    call computes x times the next of them instead, so that a run takes
+    another run's activation pattern."""
+    relu = torch.relu
+    masks = iter(replay) if replay is not None else None
+
+    def recorded(x):
+        record.append((x > 0).cpu())
+        return relu(x) if masks is None else x * next(masks).to(x.device, x.dtype)
+
+    torch.relu = recorded
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def phase_clipcap_parity(cfgs, device="cuda", name: str = "clipcap_parity") -> None:
+    """Phases 28 and 34: one full fine-tune step's fp32 loss and gradients at
+    full width, B=4, on the card against the CPU on the same params, for each
+    batch of CAPTION_PARITY_SEEDS. ReLU's derivative steps at 0, so a
+    pre-activation within rounding of 0 may fall on the other side on the
+    CPU, and the gradient rows it gates move by their whole size (the
+    transformer mapper of phase 34; the MLP mapper's tanh has no step): the
+    CPU run takes the card run's ReLU masks, and the pre-activations whose
+    sign the CPU's own forward gives otherwise are counted, with the reading
+    against the CPU run on its own masks beside. The first batch's step with
+    the card's GEMMs in TF32 is the control."""
     import dataclasses
 
     from construction_clip_tpu_torch.train.caption import loss_and_grads
 
     _, gcfg, ccfg = cfgs
     ccfg = dataclasses.replace(ccfg, only_prefix=False)
-    batch = caption_archive(np.random.default_rng(28), 4, ccfg, gcfg)
     tree = convert.init_clipcap(5, ccfg, gcfg)
-    runs = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32
-    for run, dev in (("card", device), ("cpu", "cpu"), ("card_tf32", device)):
+    names = None
+
+    def run(dev, batch, record, replay=None, allow_tf32=False):
+        nonlocal names
         params = convert.to_params(tree, device=dev, trainable=True)
         names = list(_paths(as_tree(params)))
-        torch.backends.cuda.matmul.allow_tf32 = run == "card_tf32"
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
         try:
             t0 = time.perf_counter()
-            loss, grads = loss_and_grads(
-                params, None, ccfg, gcfg,
-                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
-            runs[run] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
-                         time.perf_counter() - t0)
+            with relu_masks(record, replay):
+                loss, grads = loss_and_grads(
+                    params, None, ccfg, gcfg,
+                    {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            return float(loss), [g.cpu() for g in tree_leaves(grads)], time.perf_counter() - t0
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
-        del params, grads
-    l_cpu, g_cpu, s_cpu = runs["cpu"]
-    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu)
 
-    def errors(run):
-        return {n: float((a - b).abs().max()) / (float(b.abs().max()) + floor)
-                for n, a, b in zip(names, runs[run][1], g_cpu)}
+    def errors(a, b):
+        floor = 1e-6 * max(float(g.abs().max()) for g in b[1])
+        return {n: float((x - y).abs().max()) / (float(y.abs().max()) + floor)
+                for n, x, y in zip(names, a[1], b[1])}
 
-    errs, control = errors("card"), errors("card_tf32")
-    worst, control_worst = max(errs, key=errs.get), max(control, key=control.get)
-    l_card, s_card = runs["card"][0], runs["card"][2]
-    report = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": abs(l_card - l_cpu) / l_cpu,
-              "leaves": len(names), "worst_leaf": worst, "worst_leaf_err": errs[worst],
-              "wte_err": errs["gpt/wte"], "tol": CAPTION_GRAD_TOL,
+    per_batch, control = [], None
+    for seed in CAPTION_PARITY_SEEDS:
+        batch = caption_archive(np.random.default_rng(seed), 4, ccfg, gcfg)
+        card_masks, cpu_masks = [], []
+        card = run(device, batch, card_masks)
+        cpu = run("cpu", batch, cpu_masks, replay=card_masks)
+        # no ReLU: the CPU's own masks are the card's
+        own = run("cpu", batch, []) if card_masks else cpu
+        errs, own_errs = errors(card, cpu), errors(card, own)
+        worst, own_worst = max(errs, key=errs.get), max(own_errs, key=own_errs.get)
+        per_batch.append({
+            "seed": seed, "loss_card": card[0], "loss_cpu": cpu[0],
+            "loss_rel_err": abs(card[0] - cpu[0]) / cpu[0], "worst_leaf": worst,
+            "worst_leaf_err": errs[worst], "wte_err": errs["gpt/wte"],
+            "relu_elements": sum(m.numel() for m in card_masks),
+            "relu_signs_the_cpu_gives_otherwise": sum(
+                int((a != b).sum()) for a, b in zip(card_masks, cpu_masks)),
+            "worst_leaf_with_the_cpus_own_masks": own_worst,
+            "worst_leaf_err_with_the_cpus_own_masks": own_errs[own_worst],
+            "errors_by_leaf": {n: errs[n] for n in sorted(errs, key=errs.get)[-4:]},
+            "card_s": card[2], "cpu_s": cpu[2]})
+        if control is None:
+            tf32_run = run(device, batch, [], allow_tf32=True)
+            control = errors(tf32_run, cpu)
+            control_loss_err = abs(tf32_run[0] - cpu[0]) / cpu[0]
+    control_worst = max(control, key=control.get)
+    report = {"batch": 4, "leaves": len(names), "tol": CAPTION_GRAD_TOL,
+              "worst_leaf_err": max(r["worst_leaf_err"] for r in per_batch),
+              "loss_rel_err": max(r["loss_rel_err"] for r in per_batch),
+              "relu_signs_the_cpu_gives_otherwise": sum(
+                  r["relu_signs_the_cpu_gives_otherwise"] for r in per_batch),
               "tf32_worst_leaf": control_worst, "tf32_worst_leaf_err": control[control_worst],
-              "tf32_loss_rel_err": abs(runs["card_tf32"][0] - l_cpu) / l_cpu,
-              "card_s": s_card, "cpu_s": s_cpu}
-    say("clipcap_parity", batch=4, **report)
-    if report["loss_rel_err"] > 1e-5 or errs[worst] > CAPTION_GRAD_TOL:
+              "tf32_loss_rel_err": control_loss_err, "batches": per_batch}
+    say(name, **report)
+    if report["loss_rel_err"] > 1e-5 or report["worst_leaf_err"] > CAPTION_GRAD_TOL:
         raise AssertionError(f"caption step, card against CPU: {report}")
     if control[control_worst] <= CAPTION_GRAD_TOL:
         raise AssertionError(f"caption step: the TF32 control is within the bound: {report}")
@@ -2426,12 +2550,13 @@ def _predict_gaps(pipe: CaptionPipeline, staged, rows) -> list:
 
 
 def phase_predict(clip_np, cap_npz: str, cfgs, clip_tok, lm_tok, device="cuda",
-                  n_images: int = 32, batch: int = 16) -> dict:
-    """Phase 29: the port's apps/predict.make_process at full width on the
-    caption params of `cap_npz` (phase 27's full fine-tune), bf16, beam 3,
-    100 steps, `n_images` synthetic images of mixed sizes staged by
-    host_shape_unify in batches of `batch`; then the same images in fp32,
-    greedy, on the kernel and the plain path."""
+                  n_images: int = 32, batch: int = 16, name: str = "predict") -> dict:
+    """Phases 29 and 35: the port's apps/predict.make_process at full width on
+    the caption params of `cap_npz` (phase 27's or 34's full fine-tune),
+    bf16, beam 3, 100 steps, `n_images` synthetic images of mixed sizes
+    staged by host_shape_unify in batches of `batch`; then the same images in
+    fp32, greedy, on the kernel and the plain path. K1 launches once an
+    image-tower block and once a transformer-mapper block a batch."""
     from construction_clip_tpu_torch.apps.predict import make_process
     from construction_clip_tpu_torch.data.pipeline import host_shape_unify
     from construction_clip_tpu_torch.data.schema import Annotation
@@ -2467,10 +2592,14 @@ def phase_predict(clip_np, cap_npz: str, cfgs, clip_tok, lm_tok, device="cuda",
     counts = {k: v for k, v in launches().items() if k in SERVE_KERNELS}
     tc_k1 = tc_launches()["fused_attention_block"]
     _record_checks(records, n_images)
-    check_tc_route("predict bf16", counts, {"fused_attention_block": tc_k1},
-                   ("fused_attention_block",))
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of predict's path never launched: {counts}")
+    mapper = mapper_launches(ccfg, gcfg, len(batches))
+    tower = tower_launches(clip_cfg, torch.bfloat16)
+    want_k1 = tower["launches"] * len(batches) + mapper["launches"]["fused_attention_block"]
+    want_tc = tower["tc"] * len(batches) + mapper["tc"]["fused_attention_block"]
+    if (counts["fused_attention_block"], tc_k1) != (want_k1, want_tc) or \
+            counts["decode_step_attention"] <= 0:
+        raise AssertionError(f"{name}: launches {counts}, K1 on the tensor cores {tc_k1}; "
+                             f"want K1 {want_k1}, {want_tc} of them on the tensor cores")
     del process
 
     fp32 = {}
@@ -2509,8 +2638,10 @@ def phase_predict(clip_np, cap_npz: str, cfgs, clip_tok, lm_tok, device="cuda",
            "decode_suspect": sum(r["decode_suspect"] for r in records),
            "fp32_classes_equal": True, "fp32_greedy_captions_equal": n_images - len(mismatches),
            "fp32_mismatches": mismatches, "fp32_kernel_launches": fp32["kernel_launches"],
+           "k1_launches_a_batch": counts["fused_attention_block"] / len(batches),
+           "k1_simt_launches": counts["fused_attention_block"] - tc_k1,
            "captions": [r["caption"][:24] for r in records[:2]]}
-    say("predict", **out)
+    say(name, **out)
     return out
 
 
@@ -2740,6 +2871,330 @@ def phase_predict_t5(clip_np, t5_npz: str, cfgs, clip_tok, lm_tok, device="cuda"
     return out
 
 
+# ---- K1/K3 at dh 96, the transformer mappers, explainability, train_clip_caption -----------
+
+# GPT-2's transformer mapper in predict: batch 16, clip_length 10 + prefix 20 rows,
+# width 768 in 8 heads of 96 (the SIMT route: the tensor-core route takes dh 64)
+DH96_SHAPE = (16, 30, 768, 8)
+# the transformer mappers of phases 34, 35 (GPT-2) and 38 (mT5): 8 blocks over
+# clip_length 10 rows, the clip length predict and predict_t5 build
+MAPPER_CCFG = ClipCapConfig(mapper="transformer", mapper_layers=8, clip_length=10)
+# R_image and R_text of the fp32 relevance on the card against the CPU's on the same
+# inputs, as their largest difference over the CPU's largest |R|, as
+# CAPTION_GRAD_TOL holds a gradient: R is one block's clamp(grad x probs) (start
+# layer -1), each a product of a 12-block forward and a short backward whose fp32
+# sums run in another order on the card. The same run with the card's GEMMs in
+# TF32 (10-bit mantissas, 2^-11 a product) is the control and must read above.
+EXPLAIN_TOL = 3e-4
+EXPLAIN_IMAGES = 4
+CLIP_CAPTION_BATCH, CLIP_CAPTION_STEPS = 8, 10   # the JAX app's --batch_size, a device
+
+
+def phase_dh96(results: dict) -> None:
+    """Phase 33: K1 and K3 at DH96_SHAPE, bf16 and fp32, against their plain
+    versions, on the SIMT route; times, device times (CUDA-graph replays),
+    the bound and the composed library block's device time (its forward
+    beside K1, its autograd backward beside K3)."""
+    from construction_clip_tpu_torch.ops.attention_block import route, supported
+
+    b, t, d, h = DH96_SHAPE
+    rng = np.random.default_rng(33)
+    names = ("dx", "dqkv", "merged", "dln_scale", "dln_bias")
+    for dtype in (torch.bfloat16, torch.float32):
+        x, ln, attn = _block_inputs(rng, b, t, d, dtype, "cuda")
+        g = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to("cuda", dtype)
+        args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"],
+                attn["b_out"])
+        what = f"{[b, t, d]} h={h} {dtype}"
+        if not supported(x, h) or route(dtype, d // h) != "simt":
+            raise AssertionError(f"dh 96 {what}: not on K1/K3's SIMT route")
+
+        def fwd():
+            return fused_attention_block(x, ln, attn, n_heads=h)
+
+        def bwd():
+            return fused_attention_block_bwd(x, g, *args[:5], n_heads=h)
+
+        def fused_block(*a):
+            return fused_attention_block(a[0], {"scale": a[1], "bias": a[2]},
+                                         {"w_qkv": a[3], "b_qkv": a[4], "w_out": a[5],
+                                          "b_out": a[6]}, n_heads=h)
+
+        def composed(*a):
+            return composed_block(*a, n_heads=h, causal=False)
+
+        reset_launches()
+        got_f, got_b = fwd(), bwd()
+        torch.cuda.synchronize()
+        counts, tc = launches(), tc_launches()
+        if (counts["fused_attention_block"], counts["fused_attention_block_bwd"]) != (1, 1) or \
+                tc["fused_attention_block"] or tc["fused_attention_block_bwd"]:
+            raise AssertionError(f"dh 96 {what}: launches {counts}, tensor-core {tc}")
+        m = b * t
+        k1 = compare(got_f, fused_attention_block_plain(x, *args, n_heads=h),
+                     *K1_TOL[dtype], what=f"K1 {what}")
+        k1.update(route="simt", ms=median_ms(fwd), device_ms=graph_ms(fwd),
+                  plain_ms=median_ms(lambda: fused_attention_block_plain(x, *args, n_heads=h)),
+                  composed_device_ms=graph_ms(lambda: composed(x, *args)),
+                  **bound(nbytes(x, *args, x),
+                          {dtype: 2 * m * d * 4 * d + attention_ops(b, h, t, d // h, 2)}))
+        say("k1_dh96", shape=[b, t, d], heads=h, dtype=str(dtype), **k1)
+        per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"K3 {what} {n}") for n, a, w in
+               zip(names, got_b, fused_attention_block_bwd_plain(x, g, *args[:5], n_heads=h))}
+        k3 = _merge(per)
+        k3.update(route="simt", ms=median_ms(bwd, 11, 3), device_ms=graph_ms(bwd),
+                  plain_ms=median_ms(lambda: fused_attention_block_bwd_plain(
+                      x, g, *args[:5], n_heads=h), 11, 3),
+                  block_backward_device_ms=backward_device_ms(fused_block, (x, *args), g),
+                  composed_backward_device_ms=backward_device_ms(composed, (x, *args), g),
+                  **bound(nbytes(x, g, *args[:5], *got_b),
+                          {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}))
+        say("k3_dh96", shape=[b, t, d], heads=h, dtype=str(dtype),
+            scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **k3)
+        results[str(dtype)] = {"k1": k1, "k3": k3}
+
+
+def phase_explain(clip_np, cap_npz: str, cfgs, clip_tok, lm_tok, device="cuda") -> dict:
+    """Phase 36: apps/predict.make_explain at full width (ViT-B/32, GPT-2 base,
+    phase 27's npz), fp32, on EXPLAIN_IMAGES staged 256x256 images captioned
+    greedily: seconds an image; no kernel launched inside interpret; each
+    decoder attention row a distribution; R_image and R_text on the card
+    against the CPU's on the same inputs, with the TF32 control."""
+    from construction_clip_tpu_torch.apps.predict import make_explain, make_process
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.infer.explain import interpret
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+
+    clip_cfg, gcfg, ccfg = cfgs
+    cap_tree = load_params_npz(cap_npz, convert.init_clipcap(convert.SHAPES, ccfg, gcfg))
+    staged = np.stack(synthetic_images(np.random.default_rng(36),
+                                       [(256, 256)] * EXPLAIN_IMAGES))
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg") for i in range(EXPLAIN_IMAGES)]
+    clip_p = convert.to_params(clip_np, device=device)
+    cap_p = as_tree(convert.to_params(cap_tree, device=device))
+    process = make_process(clip_p, clip_cfg, cap_p, ccfg, gcfg, clip_tok, lm_tok,
+                           use_beam=False, policy=DEFAULT_POLICY, device=device)
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = process(anns, staged)
+    explain = make_explain(process.pipe, clip_p, cap_p["gpt"], device=device)
+    explain(staged[:1], records[:1])   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    items = explain(staged, records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    explain_counts = {k: v for k, v in launches().items() if v}
+    for rec, item in zip(records, items):
+        if item["overlay"].shape != staged.shape[1:] or item["overlay"].dtype != np.uint8 or \
+                not item["char_scores"]:
+            raise AssertionError(f"explain: bad overlay or text scores for {rec['caption']!r}")
+        rows = item["attention"]
+        if rows is None or not np.allclose(rows.sum(-1), 1.0, atol=1e-5) or \
+                rows.shape[0] != len(item["labels"]):
+            raise AssertionError(f"explain: attention rows are not distributions: {rows}")
+
+    images = preprocess_batch(staged, clip_cfg.vision.image_size, device=device)
+    tokens = clip_tok.tokenize([r["caption"] or r["attribute"] for r in records],
+                               clip_cfg.text.context_length)
+    reset_launches()
+    runs = {"card": interpret(clip_p, clip_cfg, images, tokens)}
+    torch.cuda.synchronize()
+    inside = launches()
+    if any(inside.values()):
+        raise AssertionError(f"interpret launched a kernel: {inside}")
+    cpu_p = convert.to_params(clip_np)
+    t0 = time.perf_counter()
+    runs["cpu"] = interpret(cpu_p, clip_cfg, images.cpu(), tokens)
+    cpu_s = time.perf_counter() - t0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        runs["card_tf32"] = interpret(clip_p, clip_cfg, images, tokens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def errors(run):
+        return {name: float((got.cpu() - want).abs().max() / want.abs().max())
+                for name, got, want in zip(("R_text", "R_image"), runs[run], runs["cpu"])}
+
+    errs, control = errors("card"), errors("card_tf32")
+    out = {"images": EXPLAIN_IMAGES, "wall_s": wall, "s_per_image": wall / EXPLAIN_IMAGES,
+           "launches_in_explain": explain_counts, "launches_in_interpret": 0,
+           "errors": errs, "tol": EXPLAIN_TOL, "tf32_errors": control, "cpu_interpret_s": cpu_s,
+           "attention_rows": [list(i["attention"].shape) for i in items],
+           "captions": [r["caption"][:24] for r in records[:2]]}
+    say("explain", **out)
+    if max(errs.values()) > EXPLAIN_TOL:
+        raise AssertionError(f"explain: R on the card against the CPU: {out}")
+    if max(control.values()) <= EXPLAIN_TOL:
+        raise AssertionError(f"explain: the TF32 control is within the bound: {out}")
+    return out
+
+
+def phase_clip_caption(cfg, clip_tok, device="cuda") -> dict:
+    """Phase 37: the train_clip_caption app's own loop (train_clip.fit) at
+    ViT-B/32, bf16, --batch_size CLIP_CAPTION_BATCH, with the 49,408-token
+    BPE: one epoch of CLIP_CAPTION_STEPS steps over (image, violation_list)
+    pairs of CaptionPairDataset, the images through TorchImageTextLoader's
+    load_image hook (synthetic arrays, no PIL), then the epoch's eval and
+    checkpoints. K1 and K3 launch once a tower block a step (K1 also in
+    each eval batch), all on the tensor cores; the first batch's loss after
+    the epoch is below its loss at the first step; the median step and its
+    device time are read from the app's steps."""
+    from unittest import mock
+
+    from construction_clip_tpu_torch.apps import train_clip_caption
+    from construction_clip_tpu_torch.data import pipeline
+
+    rng = np.random.default_rng(37)
+    n_train = CLIP_CAPTION_BATCH * CLIP_CAPTION_STEPS
+    n = n_train * 5 // 4   # train_ratio 0.8: n_train pairs to train, the rest to eval
+    arrays = dict(zip([f"site_{i}.jpg" for i in range(n)],
+                      synthetic_images(rng, [(300, 400)] * n)))
+    anns = [{"id": i, "caption_type": "violation", "violation_type": VIOLATION_TYPES[i % 9],
+             "violation_list": f"{VIOLATION_TYPES[i % 9]}缺失{i}", "caption": "",
+             "file_name": f"site_{i}.jpg", "objects": ""} for i in range(n)]
+
+    def load_image(path):
+        return arrays[os.path.basename(path)]
+
+    seen = {"losses": [], "times": []}
+    make_train_step = contrastive.make_train_step
+
+    def timed_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            seen["losses"].append(float(m["loss"]))   # waits for the step
+            seen["times"].append(time.perf_counter() - t0)
+            seen.setdefault("first", batch)
+            seen.update(step=step, state=state, batch=batch)
+            return state, m
+        return timed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "all.json")
+        with open(corpus, "w", encoding="utf-8") as f:
+            json.dump({"type": "captions", "annotations": anns}, f, ensure_ascii=False)
+        merges = os.path.join(tmp, "clip_merges.txt.gz")
+        offline_assets.write_clip_merges(merges)
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(pipeline, "default_load_image", load_image), \
+                mock.patch.object(contrastive, "make_train_step", timed_train_step), \
+                contextlib.redirect_stdout(io.StringIO()):
+            train_clip_caption.main(
+                ["--json_path", corpus, "--image_path", tmp, "--arch", "vit_b_32",
+                 "--precision", "bf16", "--batch_size", str(CLIP_CAPTION_BATCH),
+                 "--clip_bpe", merges, "--epochs", "1", "--save_every", "1",
+                 "--lr", "1e-4", "--warmup_steps", "0", "--output_dir", os.path.join(tmp, "m"),
+                 "--log_dir", os.path.join(tmp, "log"), "--device", device])
+        wall = time.perf_counter() - t0
+        counts, tc = launches(), tc_launches()
+        npz = os.path.exists(os.path.join(tmp, "m", "clip_cap_latest.npz"))
+        with open(os.path.join(tmp, "log", "clip_cap.jsonl"), encoding="utf-8") as f:
+            logged = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    step, state = seen["step"], seen["state"]
+    first_after = float(step(state, seen["first"])[1]["loss"])
+    blocks_a_pass = cfg.vision.layers + cfg.text.layers
+    eval_batches = (n - n_train) // CLIP_CAPTION_BATCH   # the loader drops a last part
+    want = {name: 0 for name in WRAPPERS}
+    want.update(fused_attention_block=blocks_a_pass * (CLIP_CAPTION_STEPS + eval_batches),
+                fused_attention_block_bwd=blocks_a_pass * CLIP_CAPTION_STEPS)
+    need = ("fused_attention_block", "fused_attention_block_bwd")
+    out = {"batch": CLIP_CAPTION_BATCH, "steps": len(seen["losses"]),
+           "losses": seen["losses"], "first_batch_loss_after": first_after,
+           "median_step_ms": statistics.median(seen["times"]) * 1e3,
+           "step_device_ms": sum(kernel_device_ms(lambda: step(state, seen["batch"]),
+                                                  reps=2).values()),
+           "wall_s": wall, "logged_losses": logged, "npz": npz,
+           "launches": {k: v for k, v in counts.items() if v},
+           "tc_launches": {k: tc[k] for k in need}}
+    say("clip_caption", **out)
+    if len(seen["losses"]) != CLIP_CAPTION_STEPS or not np.isfinite(seen["losses"]).all() \
+            or not npz or not logged:
+        raise AssertionError(f"train_clip_caption app: {out}")
+    if counts != want:
+        raise AssertionError(f"train_clip_caption: launches {counts}; want {want}")
+    check_tc_route("train_clip_caption bf16", counts, tc, need)
+    if not first_after < seen["losses"][0]:
+        raise AssertionError(f"train_clip_caption: the first batch's loss did not fall: {out}")
+    return out
+
+
+def phase_t5_mapper(clip_np, cfgs, clip_tok, lm_tok, device="cuda", steps: int = 3) -> dict:
+    """Phase 38: train/t5.make_t5_caption_train_step with the transformer
+    mapper (MAPPER_CCFG at mT5's width 512, 8 heads of 64), full fine-tune,
+    bf16, `steps` steps of T5_CAPTION_BATCH rows: K1 and K3 once a mapper
+    block a step, all on the tensor cores; then one predict_t5 batch of 8 on
+    the trained params: K1 12 + 8 times on the tensor cores, K8 steps + 1."""
+    import dataclasses
+
+    from construction_clip_tpu_torch.apps.predict_t5 import make_process
+    from construction_clip_tpu_torch.data.loader import TorchArrayLoader
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.models.clipcap.t5_model import mapper_shape
+    from construction_clip_tpu_torch.train.t5 import make_t5_caption_train_step
+
+    clip_cfg, ccfg, tcfg = cfgs
+    mcfg = dataclasses.replace(MAPPER_CCFG, attribute_length=0, only_prefix=False)
+    params = convert.to_params(convert.init_clipcap_t5(38, mcfg, tcfg), device=device,
+                               trainable=True)
+    tx = make_adamw(1e-4, warmup_steps=1, total_steps=100)
+    state = TrainState.create(params, tx)
+    step = make_t5_caption_train_step(mcfg, tcfg, tx, policy=BF16_POLICY, device=device)
+    loader = TorchArrayLoader(t5_caption_archive(np.random.default_rng(38),
+                                                 T5_CAPTION_BATCH * steps, mcfg),
+                              batch_size=T5_CAPTION_BATCH, device=device)
+    reset_launches()
+    losses, times = [], []
+    for batch in loader:
+        t0 = time.perf_counter()
+        state, m = step(state, None, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts, tc = launches(), tc_launches()
+    want = mapper_launches(mcfg, mapper_shape(tcfg), steps)
+    if counts != want["launches"] or {k: tc[k] for k in want["tc"]} != want["tc"] or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"mT5 mapper training: losses {losses}, launches {counts}, "
+                             f"tensor-core {tc}; want {want}")
+    cap = BF16_POLICY.cast_to_compute(tree_map(lambda v: v.detach(), as_tree(state.params)))
+    del state, step, params
+    process = make_process(convert.to_params(clip_np, dtype=torch.bfloat16, device=device),
+                           clip_cfg, cap, mcfg, tcfg, clip_tok, lm_tok,
+                           max_length=T5_MAX_LENGTH, greedy=True, policy=BF16_POLICY,
+                           device=device)
+    staged = np.stack(synthetic_images(np.random.default_rng(39), [(256, 256)] * 8))
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", caption=f"gt {i}") for i in range(8)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        reset_launches()
+        t0 = time.perf_counter()
+        records, res = process(anns, staged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    p_counts, p_tc = launches(), tc_launches()
+    tower = tower_launches(clip_cfg, torch.bfloat16)
+    mapper = mapper_launches(mcfg, mapper_shape(tcfg), 1)
+    k1 = (tower["launches"] + mapper["launches"]["fused_attention_block"],
+          tower["tc"] + mapper["tc"]["fused_attention_block"])
+    if (p_counts["fused_attention_block"], p_tc["fused_attention_block"]) != k1 or \
+            p_counts["vocab_head_logits"] != int(res.lengths.max()) + 1 or len(records) != 8:
+        raise AssertionError(f"predict_t5 with the transformer mapper: launches {p_counts}, "
+                             f"tensor-core {p_tc}")
+    out = {"batch": T5_CAPTION_BATCH, "steps": steps, "losses": losses,
+           "median_step_ms": statistics.median(times) * 1e3,
+           "launches": {k: v for k, v in counts.items() if v},
+           "tc_launches": {k: tc[k] for k in want["tc"]},
+           "predict_t5_s": wall, "predict_t5_launches": {k: v for k, v in p_counts.items() if v},
+           "captions": [r["caption"][:24] for r in records[:2]]}
+    say("t5_mapper", **out)
+    return out
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -2851,14 +3306,28 @@ def main() -> None:
         phase_clipcap_train(cfgs, cap_npz)
         phase_clipcap_parity(cfgs)
         phase_predict(convert.init_clip(0, cfgs[0]), cap_npz, cfgs, clip_tok, lm_tok)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
         t5_npz = os.path.join(tmp, "t5_prefix.npz")
         tree = convert.init_clipcap_t5(30, t5_cfgs[1], t5_cfgs[2])
         phase_t5_caption_train(t5_cfgs, tree, t5_npz)
         phase_t5_caption_parity(t5_cfgs, tree)
         del tree
         phase_predict_t5(convert.init_clip(0, cfgs[0]), t5_npz, t5_cfgs, clip_tok, lm_tok)
+        torch.cuda.empty_cache()
+
+        phase_dh96({})
+        mapper_cfgs = (cfgs[0], cfgs[1], MAPPER_CCFG)
+        mapper_npz = os.path.join(tmp, "clipcap_transformer.npz")
+        phase_clipcap_train(mapper_cfgs, mapper_npz, name="clipcap_transformer_train")
+        phase_clipcap_parity(mapper_cfgs, name="clipcap_transformer_parity")
+        phase_predict(convert.init_clip(0, cfgs[0]), mapper_npz, mapper_cfgs, clip_tok, lm_tok,
+                      name="predict_transformer")
+        torch.cuda.empty_cache()
+        phase_explain(convert.init_clip(0, cfgs[0]), cap_npz, cfgs, clip_tok, lm_tok)
+    torch.cuda.empty_cache()
+    phase_clip_caption(cfgs[0], clip_tok)
+    torch.cuda.empty_cache()
+    phase_t5_mapper(convert.init_clip(0, cfgs[0]), t5_cfgs, clip_tok, lm_tok)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

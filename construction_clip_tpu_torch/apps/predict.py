@@ -14,14 +14,22 @@ it); without one, the weights are the port's random init from a fixed seed.
 --tokenizer is a local BERT vocab.txt (or a directory holding one), `vocab.txt`
 by default. It runs on --device: `cuda` (the default; an error where no CUDA
 device works) or `cpu`; --policy auto computes in bf16 on the card and in
-fp32 on the CPU, as the JAX app's auto is bf16 on the TPU. Rows the caption
-pipeline flags `decode_suspect` keep the flag in their record and are not
-re-run: the JAX app's re-run of such rows after a backoff (a TPU fault's
-remedy) is not ported (ROADMAP.md Queue 1 item 7), so --suspect_retries
-defaults to 0 here and a re-run (--suspect_retries above 0, or a
---suspect_backoff) raises. --explain and --attention_maps are not ported
-(ROADMAP.md Queue 1 item 5) and raise. Images are read with PIL; on a machine without PIL, call
-`make_process` with uint8 arrays.
+fp32 on the CPU, as the JAX app's auto is bf16 on the TPU. --mapping_type
+transformer builds the transformer mapper as the JAX app does (8 layers over
+10 projected rows), so it reads a train_clipcap checkpoint trained with
+--prefix_length_clip 10.
+
+Rows the caption pipeline flags `decode_suspect` are captioned again after
+--suspect_backoff seconds, up to --suspect_retries times, as in the JAX app.
+--explain writes, for each image, `<name>.relevance.png` (the CLS row's
+relevance over the image, a JET overlay) and `<name>.relevance.html` (the
+caption's per-character relevance), from infer/explain.interpret on the fp32
+CLIP params whatever --policy is; --attention_maps writes `<name>.attn.png`,
+the decoder's last-layer attention over the prompt and the caption, from the
+fp32 GPT-2 params (the prompt itself under --policy), as the JAX app. The
+per-image work is `make_explain`, which returns arrays; `main` writes the
+files. Images are read with PIL; on a machine without PIL, call
+`make_process` and `make_explain` with uint8 arrays.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
+import numpy as np
 import torch
 
 from construction_clip_tpu_torch.apps.common import (
@@ -64,13 +74,15 @@ def parse_args(argv=None):
     p.add_argument("--beam", action="store_true", default=True)
     p.add_argument("--greedy", dest="beam", action="store_false")
     p.add_argument("--output_dir", default="output")
-    p.add_argument("--suspect_retries", type=int, default=0,
-                   help="only 0: re-running decode_suspect rows is not ported")
-    p.add_argument("--suspect_backoff", type=float, default=None,
-                   help="not ported (the wait before a decode_suspect re-run)")
+    p.add_argument("--suspect_retries", type=int, default=2,
+                   help="re-run rows still decode_suspect after the pipeline's greedy "
+                        "retry this many times")
+    p.add_argument("--suspect_backoff", type=float, default=300.0,
+                   help="seconds to wait before each decode_suspect re-run")
     p.add_argument("--plots", action="store_true", help="write annotated figures")
-    p.add_argument("--explain", action="store_true", help="not ported")
-    p.add_argument("--attention_maps", action="store_true", help="not ported")
+    p.add_argument("--explain", action="store_true", help="relevance overlays")
+    p.add_argument("--attention_maps", action="store_true",
+                   help="per-token decoder attention heatmaps")
     add_device_flag(p)
     return p.parse_args(argv)
 
@@ -102,7 +114,62 @@ def make_process(clip_params, clip_cfg: CLIPConfig, cap_params, ccfg: ClipCapCon
             print(f"{a.file_name}: {pr['attribute']}{pr['caption']}")
         return records
 
+    process.pipe = pipe
     return process
+
+
+def make_explain(pipe: CaptionPipeline, clip_params, gpt_params, *, explain: bool = True,
+                 attention_maps: bool = True, device):
+    """The per-image explainability of `pipe`'s captions: explain(staged_u8 [n,
+    S, S, 3], records) -> one dict an image: "overlay" (uint8 [S, S, 3], the
+    relevance over the image) and "char_scores" ([(char, score)]) with
+    `explain`; "attention" ([n_tokens, seq_len] fp32 rows) and "labels" (the
+    caption's tokens) with `attention_maps`, None where the caption has no
+    token. clip_params and gpt_params are the fp32 trees on `device`: relevance
+    and attention run in fp32 whatever the pipeline's policy (the JAX app's
+    interpret and decoder_attention_map take its DEFAULT_POLICY), the prompt
+    under the pipeline's."""
+    from construction_clip_tpu_torch.infer import explain as ex
+
+    cfg = pipe.clip_cfg
+
+    def run(staged, records):
+        if staged.shape[1] != staged.shape[2]:
+            raise ValueError(f"staged images must be square, got {staged.shape[1:3]}")
+        images = preprocess_batch(staged, cfg.vision.image_size, device=device)
+        out = []
+        for i, rec in enumerate(records):
+            text = rec["caption"] or rec["attribute"]
+            item = {}
+            if explain:
+                tokens = pipe.clip_tokenizer.tokenize([text], cfg.text.context_length)
+                r_text, r_image = ex.interpret(clip_params, cfg, images[i:i + 1], tokens)
+                heat = ex.image_relevance_map(r_image[0, 0], cfg.vision.grid,
+                                              out_size=staged.shape[1])
+                # the JAX app's round trip through an 8-bit image (its resize to
+                # the staged size is the identity: heat is made at that size)
+                heat = (heat * 255).astype(np.uint8) / 255.0
+                item.update(overlay=ex.overlay_heatmap(staged[i], heat),
+                            char_scores=ex.text_heatmap_per_char(
+                                r_text[0], tokens[0], text, pipe.clip_tokenizer))
+            if attention_maps:
+                ids = pipe.lm_tokenizer.encode(text)
+                rows = None
+                if ids:
+                    with torch.inference_mode():
+                        emb, _ = pipe.classify_and_embed(images[i:i + 1])
+                        prompt = pipe.prompt_embeds(
+                            emb, pipe.attribute_tokens([rec["attribute"]]))
+                    rows = ex.decoder_attention_map(
+                        gpt_params, pipe.gcfg, prompt,
+                        torch.as_tensor(np.asarray(ids, np.int32)[None], device=device))
+                item.update(attention=rows,
+                            labels=[pipe.lm_tokenizer.decode([t]) for t in ids] if ids
+                            else None)
+            out.append(item)
+        return out
+
+    return run
 
 
 def main(argv=None):
@@ -112,13 +179,6 @@ def main(argv=None):
     from construction_clip_tpu_torch.train.checkpoint import load_params_npz
 
     device = resolve_device(args.device)
-    if args.explain or args.attention_maps:
-        raise NotImplementedError("--explain and --attention_maps are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5)")
-    if args.suspect_retries or args.suspect_backoff is not None:
-        raise NotImplementedError("re-running decode_suspect rows (--suspect_retries, "
-                                  "--suspect_backoff) is not ported (ROADMAP.md Queue 1 "
-                                  "item 7)")
     policy = resolve_policy(args.policy, device)
     clip_tree, clip_cfg = load_clip(args.clip_checkpoint, arch=args.arch)
     gcfg = GPT2Config.tiny() if args.arch.startswith("tiny") else GPT2Config()
@@ -137,26 +197,71 @@ def main(argv=None):
         convert.to_params(cap_tree, dtype=policy.compute_dtype, device=device), ccfg, gcfg,
         clip_tok, TokenizerFile(args.tokenizer), use_beam=args.beam, policy=policy,
         device=device)
+    explain = None
+    if args.explain or args.attention_maps:
+        explain = make_explain(process.pipe, convert.to_params(clip_tree, device=device),
+                               convert.to_params(cap_tree["gpt"], device=device),
+                               explain=args.explain, attention_maps=args.attention_maps,
+                               device=device)
 
     os.makedirs(args.output_dir, exist_ok=True)
+    annotations = load_annotations(args.json_path)
     results = []
-    for batch_anns, staged in stream_corpus(load_annotations(args.json_path), args.image_root,
-                                            args.batch_size):
+    for batch_anns, staged in stream_corpus(annotations, args.image_root, args.batch_size):
         records = process(batch_anns, staged)
         results.extend(records)
-        if args.plots:
-            for rec in records:
-                base = os.path.basename(rec["file_name"])
-                _plot(os.path.join(args.image_root, rec["file_name"]), rec,
-                      os.path.join(args.output_dir, base + ".png"))
+        items = explain(staged, records) if explain is not None else [None] * len(records)
+        for rec, item in zip(records, items):
+            base = os.path.join(args.output_dir, os.path.basename(rec["file_name"]))
+            if args.plots:
+                _plot(os.path.join(args.image_root, rec["file_name"]), rec, base + ".png")
+            if args.explain:
+                _write_relevance(item, rec, base + ".relevance.png")
+            if args.attention_maps and item["attention"] is not None:
+                from construction_clip_tpu_torch.infer.explain import plot_attention_map
+
+                plot_attention_map(item["attention"], base + ".attn.png",
+                                   token_labels=item["labels"])
+
+    # rows the pipeline flagged decode_suspect (still empty at max_steps after
+    # its greedy retry) are captioned again after a backoff, as the JAX app
+    # does; their plots and explain files are not made again
+    by_id = {a.id: a for a in annotations}
+    for attempt in range(args.suspect_retries):
+        sus = [r for r in results if r["decode_suspect"]]
+        if not sus:
+            break
+        print(f"decode_suspect rows: {len(sus)}/{len(results)} — retry "
+              f"{attempt + 1}/{args.suspect_retries} after {args.suspect_backoff:.0f}s "
+              f"backoff", flush=True)
+        time.sleep(args.suspect_backoff)
+        rec_by_id = {r["id"]: r for r in sus}
+        for batch_anns, staged in stream_corpus([by_id[r["id"]] for r in sus],
+                                                args.image_root, args.batch_size):
+            images = preprocess_batch(staged, clip_cfg.vision.image_size, device=device)
+            for a, pr in zip(batch_anns, process.pipe.caption_images(images,
+                                                                     use_beam=args.beam)):
+                rec_by_id[a.id].update(pr)
     n_sus = sum(1 for r in results if r["decode_suspect"])
     if n_sus:
-        print(f"WARNING: {n_sus}/{len(results)} rows are decode_suspect (flagged in "
-              f"their records; not re-run)", flush=True)
+        print(f"WARNING: {n_sus}/{len(results)} rows remain decode_suspect after "
+              f"{args.suspect_retries} retries", flush=True)
     out_json = os.path.join(args.output_dir, "output_log.json")
     with open(out_json, "w", encoding="utf-8") as f:
         json.dump(results, f, ensure_ascii=False, indent=2)
     print(f"wrote {out_json} ({len(results)} items)")
+
+
+def _write_relevance(item, rec, out_path):
+    """The relevance overlay PNG and, beside it, the caption's per-character
+    heatmap HTML."""
+    from PIL import Image
+
+    from construction_clip_tpu_torch.infer.explain import render_text_heatmap_html
+
+    Image.fromarray(item["overlay"]).save(out_path)
+    render_text_heatmap_html(item["char_scores"], out_path.rsplit(".", 1)[0] + ".html",
+                             title=rec["caption"] or rec["attribute"])
 
 
 def _plot(image_path, rec, out_path):

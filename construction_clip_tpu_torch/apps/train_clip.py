@@ -103,13 +103,31 @@ def join_world(device_flag: str, world: int):
 def train(args, dp=None):
     """The training run of parsed `args`, data-parallel over `dp` (a
     core/mesh.DataParallel) when given."""
+    from construction_clip_tpu_torch.data.datasets import PairGroupDataset
+
+    world = dp.world if dp is not None else 1
+    step_batch = args.groups_per_batch * args.combination_num
+    if step_batch % world:
+        raise ValueError(f"step batch {step_batch} (--groups_per_batch x --combination_num) "
+                         f"must be divisible by the {world} ranks (raise --groups_per_batch)")
+    fit(args, dp, lambda split: PairGroupDataset(args.json_path, key=args.key, split=split,
+                                                 train_ratio=args.train_ratio,
+                                                 combination_num=args.combination_num),
+        items_per_batch=args.groups_per_batch,
+        run_name=f"{args.output_prefix}_comb{args.combination_num}")
+
+
+def fit(args, dp, make_dataset, *, items_per_batch: int, run_name: str):
+    """The contrastive training loop of train_clip and train_clip_caption:
+    `make_dataset(split)`'s items ("train", "test"), `items_per_batch` of them
+    a global batch, checkpoints under <output_dir>/<run_name>, the loss
+    logged as `run_name`, <output_prefix>_latest.npz at the end."""
     import numpy as np
     import torch
 
     from construction_clip_tpu_torch import convert
     from construction_clip_tpu_torch.core.mesh import replicate
     from construction_clip_tpu_torch.core.precision import policy_from_name
-    from construction_clip_tpu_torch.data.datasets import PairGroupDataset
     from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
     from construction_clip_tpu_torch.data.pipeline import default_load_image
     from construction_clip_tpu_torch.data.preprocess import preprocess_batch
@@ -124,10 +142,6 @@ def train(args, dp=None):
     world = dp.world if dp is not None else 1
     main_rank = dp is None or dp.rank == 0
     say = print if main_rank else (lambda *a, **k: None)
-    step_batch = args.groups_per_batch * args.combination_num
-    if step_batch % world:
-        raise ValueError(f"step batch {step_batch} (--groups_per_batch x --combination_num) "
-                         f"must be divisible by the {world} ranks (raise --groups_per_batch)")
     tree, cfg = load_clip(args.checkpoint, arch=args.arch)
     params = convert.to_params(tree, device=device, trainable=True)
     if dp is not None:
@@ -138,18 +152,14 @@ def train(args, dp=None):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     say(f"device: {device} ({name}), {world} data-parallel rank(s)")
 
-    def dataset(split):
-        return PairGroupDataset(args.json_path, key=args.key, split=split,
-                                train_ratio=args.train_ratio,
-                                combination_num=args.combination_num)
-
     def make_loader(ds):
         return TorchImageTextLoader(
             ds, lambda texts: tokenizer.tokenize(texts, cfg.text.context_length),
-            batch_size=args.groups_per_batch, device=device, dp=dp,
+            batch_size=items_per_batch, device=device, dp=dp,
             load_image=lambda f: default_load_image(os.path.join(args.image_path, f)))
 
-    train_loader, test_loader = make_loader(dataset("train")), make_loader(dataset("test"))
+    train_loader, test_loader = make_loader(make_dataset("train")), make_loader(
+        make_dataset("test"))
     tx = make_adamw(args.lr, warmup_steps=args.warmup_steps,
                     total_steps=args.epochs * max(len(train_loader), 1))
     step_fn = make_train_step(cfg, tx, policy=policy, device=device, dp=dp)
@@ -160,7 +170,6 @@ def train(args, dp=None):
         state = restore_state(args.resume, state)
         say(f"resumed from {args.resume} at step {state.step}")
 
-    run_name = f"{args.output_prefix}_comb{args.combination_num}"
     logger = MetricLogger(args.log_dir, run_name) if main_rank else None
 
     def log(step, **metrics):
@@ -174,7 +183,7 @@ def train(args, dp=None):
     def images(batch):
         return preprocess_batch(batch["images"], size)
 
-    with StepWatchdog(timeout=args.watchdog_timeout) as watchdog:
+    with StepWatchdog(timeout=getattr(args, "watchdog_timeout", 600.0)) as watchdog:
         def train_epoch(state, epoch):
             m = None
             for batch in train_loader:
@@ -187,9 +196,8 @@ def train(args, dp=None):
                     say(f"epoch {epoch} step {state.step} loss {loss:.4f} acc {acc:.3f} "
                         f"{timer.mean * 1e3:.0f} ms/step")
             if m is None:
-                raise RuntimeError(
-                    f"epoch {epoch} ran zero steps — dataset produced no groups "
-                    f"(need >= {args.combination_num} distinct --key classes)")
+                raise RuntimeError(f"epoch {epoch} ran zero steps: the training set gave "
+                                   f"no batch of {items_per_batch} items")
             log(state.step, loss=float(m["loss"]), accuracy=float(m["accuracy"]),
                 step_time=timer.mean)
             if (epoch + 1) % args.save_every == 0:

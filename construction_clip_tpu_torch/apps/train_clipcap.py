@@ -20,7 +20,12 @@ The random init is the port's own: convert.init_clipcap from numpy seed 567,
 at the JAX package's shapes and scales but not the values of the JAX app's
 jax.random.key(567). --gpt_checkpoint starts GPT-2 from a HF state dict (.pt
 or .bin, models/gpt2.from_hf_state_dict), as the JAX app does. --mapping_type
-transformer is not ported (ROADMAP.md Queue 1 item 7) and raises.
+transformer trains the transformer mapper (--num_layers blocks over
+--prefix_length_clip projected rows and the prefix constant; at GPT-2's width
+768 with 8 heads, dh 96: K1 and K3 on their SIMT route). predict and serve
+build it with --prefix_length_clip 10 and 8 layers, as the JAX apps do, so a
+checkpoint trained at this app's default --prefix_length_clip 20 does not
+load there (in either package: its mapper/proj is [clip_dim, 20 x 768]).
 
 Every epoch is a resumable unit, `<out_dir>/<prefix>/step_<epoch>.pt`, and a
 rerun resumes from the latest. At the end it writes `<out_dir>/<prefix>.npz`
@@ -102,9 +107,6 @@ def train(args, dp=None):
     from construction_clip_tpu_torch.train.caption import make_caption_train_step
 
     device = dp.device if dp is not None else resolve_device(args.device)
-    if args.mapping_type != "mlp":
-        raise NotImplementedError(f"--mapping_type {args.mapping_type} is not ported yet "
-                                  "(only mlp; ROADMAP.md Queue 1 item 7)")
     world = dp.world if dp is not None else 1
     main_rank = dp is None or dp.rank == 0
     say = print if main_rank else (lambda *a, **k: None)

@@ -22,7 +22,9 @@ The random init is the port's own: convert.init_clipcap_t5 from numpy seed 567,
 at the JAX package's shapes and scales but not the values of the JAX app's
 jax.random.key(567). --t5_checkpoint starts T5 from a HF (m)T5 state dict (.pt
 or .bin, models/t5.from_hf_state_dict), as the JAX app does. --mapping_type
-transformer is not ported (ROADMAP.md Queue 1 item 7) and raises.
+transformer trains the transformer mapper (--num_layers blocks over
+--prefix_length_clip projected rows and the prefix constant; width 512, 8
+heads, dh 64: K1 and K3 on the card's tensor cores in bf16).
 
 Every epoch is a resumable unit, `<out_dir>/<prefix>/step_<epoch>.pt`, and a
 rerun resumes from the latest. At the end it writes `<out_dir>/<prefix>.npz`
@@ -115,9 +117,6 @@ def train(args, dp=None):
     from construction_clip_tpu_torch.train.t5 import make_t5_caption_train_step
 
     device = dp.device if dp is not None else resolve_device(args.device)
-    if args.mapping_type != "mlp":
-        raise NotImplementedError(f"--mapping_type {args.mapping_type} is not ported yet "
-                                  "(only mlp; ROADMAP.md Queue 1 item 7)")
     world = dp.world if dp is not None else 1
     main_rank = dp is None or dp.rank == 0
     say = print if main_rank else (lambda *a, **k: None)

@@ -168,17 +168,24 @@ def init_gpt2(seed: int, cfg: GPT2Config, dtype=np.float32) -> dict:
 
 
 def init_mapper(seed: int, ccfg: ClipCapConfig, gcfg: GPT2Config, dtype=np.float32) -> dict:
-    """The MLP mapper at construction_clip_tpu.models.clipcap.init_mapper's
-    shapes/scales."""
-    if ccfg.mapper != "mlp":
-        raise NotImplementedError(f"mapper {ccfg.mapper!r} is not ported yet (only 'mlp')")
+    """The MLP or transformer mapper (ccfg.mapper) at
+    construction_clip_tpu.models.clipcap.init_mapper's shapes/scales."""
     rng = _rng(seed)
-    hidden = (gcfg.n_embd * ccfg.prefix_length) // 2
-    out = gcfg.n_embd * ccfg.prefix_length
-    return {"w1": _normal(rng, (ccfg.clip_dim, hidden), ccfg.clip_dim ** -0.5, dtype),
-            "b1": np.zeros((hidden,), dtype),
-            "w2": _normal(rng, (hidden, out), hidden ** -0.5, dtype),
-            "b2": np.zeros((out,), dtype)}
+    d = gcfg.n_embd
+    if ccfg.mapper == "mlp":
+        hidden = (d * ccfg.prefix_length) // 2
+        out = d * ccfg.prefix_length
+        return {"w1": _normal(rng, (ccfg.clip_dim, hidden), ccfg.clip_dim ** -0.5, dtype),
+                "b1": np.zeros((hidden,), dtype),
+                "w2": _normal(rng, (hidden, out), hidden ** -0.5, dtype),
+                "b2": np.zeros((out,), dtype)}
+    if ccfg.mapper == "transformer":
+        return {"proj": _normal(rng, (ccfg.clip_dim, ccfg.clip_length * d),
+                                ccfg.clip_dim ** -0.5, dtype),
+                "proj_b": np.zeros((ccfg.clip_length * d,), dtype),
+                "prefix_const": _normal(rng, (ccfg.prefix_length, d), 0.02, dtype),
+                "blocks": _stack_init(rng, ccfg.mapper_layers, d, mlp_ratio=2.0, dtype=dtype)}
+    raise ValueError(f"unknown mapper {ccfg.mapper!r}")
 
 
 def init_clipcap(seed: int, ccfg: ClipCapConfig, gcfg: GPT2Config, dtype=np.float32,

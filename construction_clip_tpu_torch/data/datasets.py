@@ -1,6 +1,6 @@
-"""The contrastive fine-tune's sampler (the port's copy of PairGroupDataset from
-construction_clip_tpu/data/datasets.py): index logic only; image IO and
-preprocessing happen in the loader.
+"""The contrastive fine-tunes' samplers (the port's copies of PairGroupDataset
+and CaptionPairDataset from construction_clip_tpu/data/datasets.py): index
+logic only; image IO and preprocessing happen in the loader.
 
 PairGroupDataset — reference ClipPairDataset (CLIP/train.py:36-99): keep
 annotations with a non-empty label `key`, group by label value, enumerate
@@ -10,6 +10,10 @@ a class-balanced N-way batch. Per-class 80/20 train/test split by ORDER (not
 shuffled, train_c = int(count * ratio), CLIP/train.py:77,84-85). The reference
 hardcodes 50 items per combination regardless of class sizes — reproduced as the
 default `items_per_combination=50`.
+
+CaptionPairDataset — reference CLIP/train_caption.py: plain (image, text)
+pairs of the annotations with a non-empty `key`, the first train_ratio of
+them (in order) for train and the rest for test.
 """
 
 from __future__ import annotations
@@ -56,3 +60,20 @@ class PairGroupDataset:
             files.append(a.file_name)
             texts.append(getattr(a, self.key))
         return files, texts
+
+
+class CaptionPairDataset:
+    def __init__(self, json_path: str, *, key: str = "violation_list",
+                 split: str = "train", train_ratio: float = 0.8):
+        anns = [a for a in load_annotations(json_path) if getattr(a, key) != ""]
+        cut = int(len(anns) * train_ratio)
+        self.anns = anns[:cut] if split == "train" else anns[cut:]
+        self.key = key
+
+    def __len__(self) -> int:
+        return len(self.anns)
+
+    def __getitem__(self, item: int):
+        """-> (file_name, text)"""
+        a = self.anns[item]
+        return a.file_name, getattr(a, self.key)

@@ -1,10 +1,14 @@
-"""KV-cached greedy and beam decode for the captioner (counterpart of
-construction_clip_tpu/infer/decode.py:greedy_decode/beam_decode).
+"""KV-cached greedy, nucleus-sampled and beam decode for the captioner
+(counterpart of construction_clip_tpu/infer/decode.py:greedy_decode,
+sample_decode, beam_decode).
 
 The JAX package runs these as `lax.while_loop`s; here the loop is a Python loop
 that checks the stop condition on the host once per step. The arithmetic and the
 tie rules are transcribed exactly:
   - greedy: argmax (first index on ties), finished rows forced to token 0;
+  - sample: the top-p filter of the temperature-scaled logits, then a draw from
+    an explicit `torch.Generator` (in place of the JAX key, so the draws
+    differ from the JAX package's), finished rows forced to token 0;
   - beam: temperature before log_softmax, stopped beams forced to token 0 at zero
     score, running scores length-normalised for a flat top-k over beam*vocab
     (lowest flat index first on ties, as lax.top_k), beams folded into the batch,
@@ -82,6 +86,32 @@ def greedy_decode(params, gcfg: GPT2Config, embeds, *, max_steps: int = 67,
     step = 0
     while step < max_steps and not bool(done.all()):
         nxt = torch.where(done, 0, last.argmax(dim=-1).int())
+        toks[:, step] = nxt
+        done = done | (nxt == stop_token)
+        logits, cache = gpt2_forward(params, gcfg, tokens=nxt[:, None], cache=cache,
+                                     policy=policy)
+        last = logits[:, 0]
+        step += 1
+    return DecodeResult(tokens=toks, lengths=_lengths(toks, stop_token, max_steps),
+                        scores=torch.zeros((b,), device=embeds.device))
+
+
+@torch.inference_mode()
+def sample_decode(params, gcfg: GPT2Config, embeds, generator: torch.Generator, *,
+                  max_steps: int = 67, stop_token: int = 102, top_p: float = 0.8,
+                  temperature: float = 1.0, policy: Policy = DEFAULT_POLICY) -> DecodeResult:
+    """embeds: [B, T0, n_embd] prompt embeddings. Nucleus (top-p) sampling with
+    draws from `generator` (on embeds' device)."""
+    b = embeds.shape[0]
+    params = _precast(params, policy)
+    last, cache = _prefill(params, gcfg, embeds, max_steps, policy)
+    toks = torch.zeros((b, max_steps), dtype=torch.int32, device=embeds.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=embeds.device)
+    step = 0
+    while step < max_steps and not bool(done.all()):
+        probs = torch.softmax(_top_p_filter(last.float() / temperature, top_p), dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0].int()
+        nxt = torch.where(done, 0, nxt)
         toks[:, step] = nxt
         done = done | (nxt == stop_token)
         logits, cache = gpt2_forward(params, gcfg, tokens=nxt[:, None], cache=cache,

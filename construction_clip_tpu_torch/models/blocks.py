@@ -4,7 +4,9 @@ LN -> MLP(act) -> residual. Params for L layers are stacked along a leading axis
 (the JAX layout); `apply_stack` walks them in a Python loop.
 
 The attention half takes the fused block (ops/attention_block.py, kernel K1)
-exactly where the JAX package takes its Pallas block: no bias, and `supported`.
+exactly where the JAX package takes its Pallas block: no bias, no
+`return_probs` or `probs_probe` (the explainability probes, which need the
+probabilities the fused block never forms), and `supported`.
 The MLP half takes the fused MLP residual (ops/mlp.py, kernel K9) where the JAX
 package takes its Pallas MLP: `USE_FUSED_MLP` on, a QuickGELU block, the kernel
 impl and `mlp.supported`. `USE_FUSED_MLP` is the JAX package's switch, off by
@@ -15,6 +17,8 @@ elementwise ops).
 from __future__ import annotations
 
 from typing import Callable
+
+import torch
 
 from construction_clip_tpu_torch.core.params import tree_map
 from construction_clip_tpu_torch.ops import attention_block as fab
@@ -27,14 +31,20 @@ USE_FUSED_MLP = False   # construction_clip_tpu/models/blocks.py:104, off there 
 
 
 def apply_block(params, x, *, n_heads: int, act: Callable, bias=None,
-                is_causal: bool = False, ln_eps: float = 1e-5):
-    if bias is None and resolve_impl() == "kernel" and fab.supported(x, n_heads):
+                is_causal: bool = False, ln_eps: float = 1e-5, return_probs: bool = False,
+                probs_probe=None):
+    """One block; with return_probs, (x, the fp32 probabilities [B, H, T, T])."""
+    if bias is None and not return_probs and probs_probe is None \
+            and resolve_impl() == "kernel" and fab.supported(x, n_heads):
         x = fab.fused_attention_block(x, params["ln_1"], params["attn"], n_heads=n_heads,
                                       causal=is_causal, eps=ln_eps)
-    else:
-        h = layer_norm(x, params["ln_1"]["scale"], params["ln_1"]["bias"], eps=ln_eps)
-        x = x + qkv_attention(h, params["attn"], n_heads, bias=bias, is_causal=is_causal)
-    return _mlp_residual(x, params, act, ln_eps)
+        return _mlp_residual(x, params, act, ln_eps)
+    h = layer_norm(x, params["ln_1"]["scale"], params["ln_1"]["bias"], eps=ln_eps)
+    out = qkv_attention(h, params["attn"], n_heads, bias=bias, is_causal=is_causal,
+                        return_probs=return_probs, probs_probe=probs_probe)
+    out, probs = out if return_probs else (out, None)
+    x = _mlp_residual(x + out, params, act, ln_eps)
+    return (x, probs) if return_probs else x
 
 
 def _mlp_residual(x, params, act, ln_eps):
@@ -47,12 +57,21 @@ def _mlp_residual(x, params, act, ln_eps):
 
 
 def apply_stack(stacked_params, x, *, n_heads: int, act: Callable, bias=None,
-                is_causal: bool = False, ln_eps: float = 1e-5):
+                is_causal: bool = False, ln_eps: float = 1e-5, return_probs: bool = False,
+                probs_probe=None):
     """Apply the L stacked blocks in order. The layers are views from one
     `unbind` per leaf, whose backward stacks the L gradients in one op (a view
-    per layer would each scatter into a zeroed copy of the whole stack)."""
+    per layer would each scatter into a zeroed copy of the whole stack).
+    probs_probe: zeros [L, B, H, T, T], layer l's probe probs_probe[l]. With
+    return_probs, returns (x, the probabilities stacked [L, B, H, T, T])."""
     layers = tree_map(lambda z: z.unbind(0), stacked_params)
+    probs = []
     for index in range(stacked_params["ln_1"]["scale"].shape[0]):
         x = apply_block(tree_map(lambda views: views[index], layers), x, n_heads=n_heads,
-                        act=act, bias=bias, is_causal=is_causal, ln_eps=ln_eps)
-    return x
+                        act=act, bias=bias, is_causal=is_causal, ln_eps=ln_eps,
+                        return_probs=return_probs,
+                        probs_probe=None if probs_probe is None else probs_probe[index])
+        if return_probs:
+            x, p = x
+            probs.append(p)
+    return (x, torch.stack(probs)) if return_probs else x

@@ -38,8 +38,10 @@ def _l2_normalize(x):
 
 
 def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_POLICY,
-                 normalize: bool = False):
-    """images: [B, H, W, 3] float, already preprocessed. Returns [B, embed_dim]."""
+                 normalize: bool = False, return_probs: bool = False, probs_probe=None):
+    """images: [B, H, W, 3] float, already preprocessed. Returns [B, embed_dim];
+    with return_probs, (features, the blocks' probabilities [L, B, H, T, T]).
+    probs_probe: apply_stack's differentiation port, [L, B, H, T, T] zeros."""
     v = cfg.vision
     p = policy.cast_to_compute(params["vision"])
     x = patchify(images.to(policy.compute_dtype), v.patch_size)
@@ -47,25 +49,32 @@ def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_PO
     cls = p["class_emb"].expand(x.shape[0], 1, v.width)
     x = torch.cat([cls, x], dim=1) + p["pos_emb"]
     x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
-    x = apply_stack(p["blocks"], x, n_heads=v.heads, act=_act(cfg))
+    x = apply_stack(p["blocks"], x, n_heads=v.heads, act=_act(cfg), return_probs=return_probs,
+                    probs_probe=probs_probe)
+    x, probs = x if return_probs else (x, None)
     x = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
     feats = policy.cast_to_output(x @ p["proj"])
-    return _l2_normalize(feats) if normalize else feats
+    feats = _l2_normalize(feats) if normalize else feats
+    return (feats, probs) if return_probs else feats
 
 
 def encode_text(params, cfg: CLIPConfig, tokens, *, policy: Policy = DEFAULT_POLICY,
-                normalize: bool = False):
+                normalize: bool = False, return_probs: bool = False, probs_probe=None):
     """tokens: [B, context_length] int. Returns [B, embed_dim], taken at
-    argmax(tokens), the EOT position."""
+    argmax(tokens), the EOT position; return_probs and probs_probe as in
+    encode_image."""
     t = cfg.text
     p = policy.cast_to_compute(params["text"])
     tokens = tokens.long()
     x = p["tok_emb"][tokens] + p["pos_emb"][: tokens.shape[1]]
-    x = apply_stack(p["blocks"], x, n_heads=t.heads, act=_act(cfg), is_causal=True)
+    x = apply_stack(p["blocks"], x, n_heads=t.heads, act=_act(cfg), is_causal=True,
+                    return_probs=return_probs, probs_probe=probs_probe)
+    x, probs = x if return_probs else (x, None)
     x = layer_norm(x, p["ln_final"]["scale"], p["ln_final"]["bias"])
     x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
     feats = policy.cast_to_output(x @ p["proj"])
-    return _l2_normalize(feats) if normalize else feats
+    feats = _l2_normalize(feats) if normalize else feats
+    return (feats, probs) if return_probs else feats
 
 
 def clip_forward(params, cfg: CLIPConfig, images, tokens, *, policy: Policy = DEFAULT_POLICY):

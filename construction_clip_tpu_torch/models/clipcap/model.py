@@ -2,8 +2,13 @@
 model.py): CLIP embedding -> mapper -> GPT-2 prefix, the training forward over
 [prefix ‖ attribute ‖ caption] and its caption loss.
 
-Only the default MLP mapper is ported: Linear(clip_dim -> n_embd*prefix/2) ->
-tanh -> Linear(-> n_embd*prefix), reshaped to [B, prefix_length, n_embd].
+The mappers (ClipCapConfig.mapper):
+  - "mlp": Linear(clip_dim -> n_embd*prefix/2) -> tanh -> Linear(-> n_embd*prefix),
+    reshaped to [B, prefix_length, n_embd];
+  - "transformer": Linear(clip_dim -> clip_length*n_embd) and the learned
+    prefix constant [prefix_length, n_embd], through `mapper_layers` pre-norm
+    blocks (8 heads, MLP ratio 2, ReLU; models/blocks.apply_stack, so K1 and
+    K3 on the card), keeping the last prefix_length rows.
 """
 
 from __future__ import annotations
@@ -13,18 +18,28 @@ import torch
 from construction_clip_tpu_torch.core.configs import ClipCapConfig, GPT2Config
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models import gpt2 as gpt2_lib
+from construction_clip_tpu_torch.models.blocks import apply_stack
+
+MAPPER_HEADS = 8   # the transformer mapper's heads (reference train.py:234-248)
 
 
 def map_prefix(mapper_params, ccfg: ClipCapConfig, gcfg: GPT2Config, clip_embed, *,
                policy: Policy = DEFAULT_POLICY):
     """clip_embed [B, clip_dim] -> prefix embeddings [B, prefix_length, n_embd]."""
-    if ccfg.mapper != "mlp":
-        raise NotImplementedError(f"mapper {ccfg.mapper!r} is not ported yet (only 'mlp')")
     p = policy.cast_to_compute(mapper_params)
     x = clip_embed.to(policy.compute_dtype)
-    h = torch.tanh(x @ p["w1"] + p["b1"])
-    out = h @ p["w2"] + p["b2"]
-    return out.reshape(x.shape[0], ccfg.prefix_length, gcfg.n_embd)
+    d = gcfg.n_embd
+    if ccfg.mapper == "mlp":
+        h = torch.tanh(x @ p["w1"] + p["b1"])
+        out = h @ p["w2"] + p["b2"]
+        return out.reshape(x.shape[0], ccfg.prefix_length, d)
+    if ccfg.mapper != "transformer":
+        raise ValueError(f"unknown mapper {ccfg.mapper!r}")
+    proj = (x @ p["proj"] + p["proj_b"]).reshape(x.shape[0], ccfg.clip_length, d)
+    const = p["prefix_const"].expand(x.shape[0], ccfg.prefix_length, d)
+    seq = apply_stack(p["blocks"], torch.cat([proj, const], dim=1), n_heads=MAPPER_HEADS,
+                      act=torch.relu)
+    return seq[:, ccfg.clip_length:]
 
 
 def clipcap_forward(params, ccfg: ClipCapConfig, gcfg: GPT2Config, *, tokens, clip_embed,

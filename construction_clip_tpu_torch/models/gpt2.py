@@ -52,7 +52,8 @@ class KVCache:
 
 
 def _attn_uncached(q, k, v, attn_bias):
-    """Causal attention within one chunk, [B, H, T, Dh]."""
+    """Causal attention within one chunk, [B, H, T, Dh] -> (out, the fp32
+    probabilities [B, H, T, T])."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
     t = q.shape[2]
     keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
@@ -60,7 +61,8 @@ def _attn_uncached(q, k, v, attn_bias):
     if attn_bias is not None:
         logits = logits + attn_bias.float()
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float()).to(q.dtype)
+    return out, probs
 
 
 def _linear(h, w, b):
@@ -124,8 +126,12 @@ def _position_embeddings(wpe, start: int, t: int):
 
 def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
                  attn_bias=None, cache: Optional[KVCache] = None,
-                 cache_ancestry=None, policy: Policy = DEFAULT_POLICY):
+                 cache_ancestry=None, policy: Policy = DEFAULT_POLICY,
+                 return_probs: bool = False):
     """Returns (logits [B, T, V] fp32, cache | None). tokens XOR inputs_embeds.
+    With return_probs (uncached calls only), (logits, the layers' fp32
+    attention probabilities [L, B, H, T, T]), the decoder attention map's
+    input (infer/explain.decoder_attention_map).
 
     With a cache the new positions start at cache.length. cache_ancestry
     [B, T_max] int32 (t == 1 steps): row i reads cache position t from row
@@ -141,6 +147,9 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
     x = x + _position_embeddings(p["wpe"], start, t)
     if cache is not None and t > 1 and start != 0:
         raise ValueError("multi-token cached calls are prefill only (fresh cache)")
+    if cache is not None and return_probs:
+        raise ValueError("return_probs is for uncached calls")
+    all_probs = []
 
     # one unbind per leaf: its backward stacks the L gradients in one op, where
     # a view per layer would each scatter into a zeroed copy of the whole stack
@@ -152,7 +161,9 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
             if cache is not None:
                 cache.k[index, :, :, :t] = k
                 cache.v[index, :, :, :t] = v
-            out = _attn_uncached(q, k, v, attn_bias)
+            out, probs = _attn_uncached(q, k, v, attn_bias)
+            if return_probs:
+                all_probs.append(probs)
         else:
             cache.k[index, :, :, start] = k[:, :, 0]
             cache.v[index, :, :, start] = v[:, :, 0]
@@ -167,7 +178,7 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
     x = layer_norm(x, p["ln_f"]["scale"], p["ln_f"]["bias"], eps=cfg.layer_norm_epsilon)
     logits = _lm_logits(p, x)
     if cache is None:
-        return logits, None
+        return logits, torch.stack(all_probs) if return_probs else None
     return logits, KVCache(k=cache.k, v=cache.v, length=start + t)
 
 

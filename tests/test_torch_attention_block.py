@@ -87,3 +87,48 @@ def test_wrapper_rejects_other_devices():
         fab.fused_attention_block(x, ln, attn, n_heads=2)
     assert fab.fused_attention_block.launches == before
 
+
+
+def test_the_gpt2_mapper_width_takes_the_simt_route_at_dh_96():
+    """GPT-2's transformer mapper (width 768, 8 heads: dh 96, T = 10 + 20 rows)
+    passes the gate, with K1's shared memory for dh 96 under Hopper's limit,
+    and takes the SIMT chain on the card in bf16 and fp32; mT5's (width 512,
+    8 heads) takes the tensor cores in bf16."""
+    assert fab.supported(torch.zeros(16, 30, 768), 8)
+    assert fab.attention_smem_bytes(30, 96) <= fab.MAX_SMEM_BYTES
+    assert fab.route(torch.bfloat16, 96) == fab.route(torch.float32, 96) == "simt"
+    assert fab.route(torch.bfloat16, 512 // 8) == "tc"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_and_backward_at_dh_96_match_jax(causal, interpret_mode):
+    """K1's and K3's plain versions at a head width of 96 (2 heads of 96):
+    the forward against the Pallas block in interpret mode, the gradients of
+    every input through the autograd Function against jax.grad of the
+    block's reference math."""
+    b, t, d, h = 2, 30, 192, 2
+    rng = np.random.default_rng(96)
+    params, x, ln, attn = _case(2, b, t, d, rng)
+    want = jfab.fused_attention_block(jnp.asarray(x), params["ln_1"], params["attn"],
+                                      n_heads=h, causal=causal)
+    leaves = [torch.from_numpy(x).requires_grad_()] + [
+        a.clone().requires_grad_() for a in (ln["scale"], ln["bias"], attn["w_qkv"],
+                                             attn["b_qkv"], attn["w_out"], attn["b_out"])]
+    got = fab.fused_attention_block(leaves[0], {"scale": leaves[1], "bias": leaves[2]},
+                                    {"w_qkv": leaves[3], "b_qkv": leaves[4],
+                                     "w_out": leaves[5], "b_out": leaves[6]},
+                                    n_heads=h, causal=causal)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    g = rng.standard_normal((b, t, d)).astype(np.float32)
+    grads = torch.autograd.grad(got, leaves, torch.from_numpy(g))
+
+    def loss(*a):
+        return jnp.sum(jfab._ref_math(*a, h, causal, 1e-5) * g)
+
+    jargs = (jnp.asarray(x), params["ln_1"]["scale"], params["ln_1"]["bias"],
+             params["attn"]["w_qkv"], params["attn"]["b_qkv"], params["attn"]["w_out"],
+             params["attn"]["b_out"])
+    jgrads = jax.grad(loss, argnums=tuple(range(7)))(*jargs)
+    for a, w in zip(grads, jgrads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max())

@@ -174,14 +174,17 @@ def test_train_steps_match_jax(only_prefix, jx, jparams):
     rounding noise of either sign into updates of up to lr, and they may move
     apart by 2 lr a step; it is held only to that bound. In only-prefix mode
     the frozen GPT-2 stays bit-equal to its start."""
-    ccfg = dataclasses.replace(CCFG, only_prefix=only_prefix)
+    _steps_match_jax(jx, dataclasses.replace(CCFG, only_prefix=only_prefix), jparams)
+
+
+def _steps_match_jax(jx, ccfg, jparams):
     jccfg = _jccfg(jx, ccfg)
     kw = dict(warmup_steps=0, total_steps=100)
     jtx, ttx = jx.jstate.make_adamw(LR, **kw), state.make_adamw(LR, **kw)
     jstep = jx.jcaption.make_caption_train_step(jccfg, jx.jgcfg, jtx, jx.mesh)
     tstep = caption.make_caption_train_step(ccfg, GCFG, ttx)
     jtree = jx.jax.tree.map(jx.jnp.asarray, jparams)
-    if only_prefix:
+    if ccfg.only_prefix:
         jst, jfrozen = jx.jstate.TrainState.create(jtree["mapper"], jtx), jtree["gpt"]
         gpt = convert.to_params(jparams["gpt"]).tree()
         tst = state.TrainState.create(convert.to_params(jparams["mapper"], trainable=True), ttx)
@@ -197,19 +200,20 @@ def test_train_steps_match_jax(only_prefix, jx, jparams):
     _tree_close(got, want, atol=2e-6, key_bias_atol=2 * 3 * LR)
     assert tst.step == int(jst.step) == 3
     assert len(tree_leaves(tst.opt_state["m"])) == len(jx.jax.tree.leaves(want))
-    if only_prefix:
+    if ccfg.only_prefix:
         _tree_close(_np(gpt), jparams["gpt"], atol=0)
 
 
 def _tree_close(got, want, atol, key_bias_atol=None, path=""):
-    """Every leaf within `atol`; GPT-2's c_attn_b key third (a gradient that is
-    rounding noise) within `key_bias_atol` where one is given."""
+    """Every leaf within `atol`; the key third of an attention bias (GPT-2's
+    c_attn_b, a mapper block's b_qkv: a gradient that is rounding noise)
+    within `key_bias_atol` where one is given."""
     if isinstance(want, dict):
         assert sorted(got) == sorted(want), path
         for k in want:
             _tree_close(got[k], want[k], atol, key_bias_atol, f"{path}/{k}")
         return
-    if key_bias_atol is not None and path.endswith("/attn/c_attn_b"):
+    if key_bias_atol is not None and path.endswith(("/attn/c_attn_b", "/attn/b_qkv")):
         d = want.shape[-1] // 3
         np.testing.assert_allclose(got[..., d:2 * d], want[..., d:2 * d], rtol=0,
                                    atol=key_bias_atol, err_msg=path)
@@ -385,9 +389,165 @@ def test_app_names_the_cause_of_an_epoch_without_steps(tmp_path, monkeypatch):
         train_clipcap.main(argv)
 
 
-@pytest.mark.parametrize("flags, item", [(["--mapping_type", "transformer"], "item 7")])
-def test_app_refuses_what_is_not_ported(flags, item):
+# ---- the transformer mapper ----------------------------------------------------------------
+
+# 2 mapper blocks over 3 projected rows and the 4-row prefix constant, 8 heads
+# of GPT2Config.tiny's width 32 (dh 4)
+TCCFG = dataclasses.replace(CCFG, mapper="transformer", mapper_layers=2, clip_length=3)
+# (rtol, atol) of the prefix against JAX's op by op: fp32 by summation order; bf16
+# by single roundings that another order can flip (one bf16 step is 2^-8)
+MAPPER_TOL = {"fp32": (1e-5, 1e-5), "bf16": (2e-2, 2e-2)}
+
+
+@pytest.fixture(scope="module")
+def jparams_transformer(jx):
+    tree = jx.jmodel.init_clipcap(jx.jax.random.key(4), _jccfg(jx, TCCFG), jx.jgcfg)
+    return jx.jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_transformer_map_prefix_matches_jax(precision, impl, jx, jparams_transformer):
+    """map_prefix with the transformer mapper against the JAX package's op by op
+    (jax.disable_jit()): [B, prefix_length, n_embd], the last prefix rows of
+    the blocks' output. The plain impl composes each block's attention as the
+    JAX package's XLA path does; the kernel impl takes the fused block (K1's
+    plain version on the CPU), which rounds where the Pallas block does, so
+    in bf16 it is held relative to the prefix's largest element."""
+    from construction_clip_tpu_torch.ops.attention import use_impl
+
+    emb = np.random.default_rng(6).standard_normal((B, CCFG.clip_dim)).astype(np.float32)
+    mapper = jparams_transformer["mapper"]
+    with jx.jax.disable_jit():
+        want = jx.jmodel.map_prefix(mapper, _jccfg(jx, TCCFG), jx.jgcfg, jx.jnp.asarray(emb),
+                                    **({} if precision == "fp32" else {"policy": jx.JBF16}))
+    want = np.asarray(want, np.float32)
+    with use_impl(impl):
+        got = model.map_prefix(convert.to_params(mapper).tree(), TCCFG, GCFG,
+                               torch.from_numpy(emb),
+                               policy=BF16_POLICY if precision == "bf16" else DEFAULT_POLICY)
+    assert got.shape == (B, TCCFG.prefix_length, GCFG.n_embd)
+    rtol, atol = MAPPER_TOL[precision]
+    if impl == "kernel" and precision == "bf16":
+        assert float(np.abs(got.float().numpy() - want).max()) <= rtol * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("mapper", ["mlp", "transformer"])
+def test_init_mapper_shapes_equal_jax(mapper, jx):
+    """convert.init_mapper's tree (and its SHAPES template) at the JAX
+    package's init_mapper's keys, shapes and dtypes; the draws' scales."""
+    ccfg = dataclasses.replace(TCCFG, mapper=mapper)
+    want = jx.jmodel.init_mapper(jx.jax.random.key(0), _jccfg(jx, ccfg), jx.jgcfg)
+    got, shapes = (convert.init_mapper(seed, ccfg, GCFG) for seed in (0, convert.SHAPES))
+    for tree in (got, shapes):
+        assert tree_map(lambda a: (a.shape, a.dtype.name), tree) == \
+            tree_map(lambda a: (a.shape, a.dtype.name), jx.jax.tree.map(np.asarray, want))
+    if mapper == "transformer":
+        assert float(np.std(got["prefix_const"])) == pytest.approx(0.02, rel=0.2)
+        assert float(np.std(got["blocks"]["mlp"]["w_proj"])) == pytest.approx(
+            (2 * GCFG.n_embd) ** -0.5, rel=0.2)
+
+
+@pytest.mark.parametrize("only_prefix", [True, False], ids=["only_prefix", "full"])
+def test_transformer_mapper_train_steps_match_jax(only_prefix, jx, jparams_transformer):
+    """test_train_steps_match_jax's 3 steps with the transformer mapper; the key
+    third of each mapper block's b_qkv, whose gradient is rounding noise as
+    GPT-2's c_attn_b's, is held to 2 lr a step as that is."""
+    _steps_match_jax(jx, dataclasses.replace(TCCFG, only_prefix=only_prefix),
+                     jparams_transformer)
+
+
+def _train_app(tmp_path, name, extra, dim=16):
+    """train_clipcap with the transformer mapper, one epoch on the CPU, fp32."""
     from construction_clip_tpu_torch.apps import train_clipcap
 
-    with pytest.raises(NotImplementedError, match=item):
-        train_clipcap.main(["--device", "cpu"] + flags)
+    _archive(tmp_path / f"{name}.npz", dim=dim)
+    argv = ["--data", str(tmp_path / f"{name}.npz"), "--out_dir", str(tmp_path / "m"),
+            "--prefix", name, "--epochs", "1", "--bs", "4", "--lr", "1e-3",
+            "--warmup_steps", "0", "--gpt_size", "tiny", "--tokenizer", _vocab(tmp_path, 128),
+            "--log_dir", str(tmp_path / "log"), "--device", "cpu", "--precision", "fp32",
+            "--mapping_type", "transformer", *extra]
+    train_clipcap.main(argv)
+    return str(tmp_path / "m" / f"{name}.npz")
+
+
+def test_app_trains_the_transformer_mapper(tmp_path, monkeypatch, capsys, jx):
+    """train_clipcap --mapping_type transformer --num_layers 2: the npz holds the
+    2-block mapper over --prefix_length_clip rows, trained from its init, and
+    the JAX package's load_params_npz reads it at its shapes."""
+    from construction_clip_tpu.train.checkpoint import load_params_npz as jload
+
+    from construction_clip_tpu_torch.apps import train_clipcap
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+
+    for mod in ("torch.utils.tensorboard", "tensorboardX"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    npz = _train_app(tmp_path, "tcap", ["--num_layers", "2", "--prefix_length_clip", "5",
+                                        "--only_prefix"])
+    assert "saved inference params" in capsys.readouterr().out
+    ccfg = ClipCapConfig(clip_dim=16, mapper="transformer", mapper_layers=2, clip_length=5)
+    saved = load_params_npz(npz, convert.init_clipcap(convert.SHAPES, ccfg, GCFG))
+    assert saved["mapper"]["blocks"]["attn"]["w_qkv"].shape == (2, 32, 96)
+    assert saved["mapper"]["proj"].shape == (16, 5 * 32)
+    init = convert.init_clipcap(train_clipcap.INIT_SEED, ccfg, GCFG)
+    assert not np.array_equal(saved["mapper"]["proj"], init["mapper"]["proj"])
+    _tree_close(saved["gpt"], init["gpt"], atol=0)
+    template = jx.jmodel.init_clipcap(jx.jax.random.key(0), _jccfg(jx, ccfg), jx.jgcfg)
+    _tree_close(_np(jload(npz, template)), saved, atol=0)
+
+
+@pytest.fixture(scope="module")
+def predict_npz(tmp_path_factory):
+    """A transformer-mapper npz that the predict and serve apps read: 8 blocks
+    (their mapper) over 10 projected rows (their clip_length), trained on
+    tiny CLIP's 32-wide embeddings."""
+    tmp_path = tmp_path_factory.mktemp("tmapper")
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in ("torch.utils.tensorboard", "tensorboardX"):
+            mp.setitem(sys.modules, mod, None)
+        return _train_app(tmp_path, "tmapper", ["--prefix_length_clip", "10"], dim=32)
+
+
+def test_serve_service_captions_with_the_transformer_mapper(predict_npz, monkeypatch):
+    """serve's build_service with --mapping_type transformer on the app's npz,
+    beside the same service built from the npz's params by hand."""
+    from construction_clip_tpu_torch.apps import serve
+    from tests.test_torch_quant import TinyClipTok, TinyLMTok
+
+    args = serve.parse_args(["--arch", "tiny", "--caption_checkpoint", predict_npz,
+                             "--mapping_type", "transformer", "--greedy", "--device", "cpu"])
+    svc = serve.build_service(args, TinyClipTok(), TinyLMTok(), torch.device("cpu"))
+    mapper = svc.pipe._cap["mapper"]
+    assert mapper["blocks"]["attn"]["w_qkv"].shape == (8, 32, 96)
+    with np.load(predict_npz) as data:
+        np.testing.assert_array_equal(mapper["proj"].numpy(), data["mapper/proj"])
+    svc.pipe.max_steps = 4
+    img = (np.random.default_rng(0).random((40, 50, 3)) * 255).astype(np.uint8)
+    out = svc.predict(img)
+    assert out["caption_type"] in ("violation", "status") and isinstance(out["caption"], str)
+
+
+def test_a_checkpoint_at_the_default_clip_length_does_not_load_into_predict(tmp_path, jx):
+    """The reference's quirk, kept: train_clipcap's default --prefix_length_clip
+    is 20, but predict (and serve, predict_t5) build the mapper at
+    clip_length 10, so the checkpoint's mapper/proj has twice the columns
+    predict wants. The port's predict refuses it naming mapper/proj, as the
+    JAX package's load_params_npz does."""
+    from construction_clip_tpu.train.checkpoint import load_params_npz as jload
+
+    from construction_clip_tpu_torch.apps import predict
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in ("torch.utils.tensorboard", "tensorboardX"):
+            mp.setitem(sys.modules, mod, None)
+        npz = _train_app(tmp_path, "dflt", [], dim=32)
+    with np.load(npz) as data:
+        assert data["mapper/proj"].shape == (32, 20 * 32)
+    with pytest.raises(ValueError, match="'mapper/proj' has shape"):
+        predict.main(["--arch", "tiny", "--caption_checkpoint", npz, "--mapping_type",
+                      "transformer", "--device", "cpu", "--json_path", str(tmp_path / "none")])
+    jccfg = jx.jconfigs.ClipCapConfig(clip_dim=32, mapper="transformer")
+    with pytest.raises(AssertionError, match="mapper/proj"):
+        jload(npz, jx.jmodel.init_clipcap(jx.jax.random.key(0), jccfg, jx.jgcfg))

@@ -129,3 +129,61 @@ def test_beam_matches_jax(params, beam_size, rng):
     # length-normalised fp32 log-probs summed over up to 10 steps
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---- nucleus sampling ----------------------------------------------------------------------
+
+def test_sample_decode_with_a_tiny_top_p_is_jax_greedy(params):
+    """top_p 1e-6 keeps each row's most likely token alone, so the sampled
+    tokens are JAX's greedy_decode's whatever the draws."""
+    jparams, tparams = params
+    emb = np.random.default_rng(8).standard_normal((3, 4, GCFG.n_embd)).astype(np.float32)
+    want = jdecode.greedy_decode(jparams, GCFG, jnp.asarray(emb), max_steps=12, stop_token=5)
+    got = decode.sample_decode(tparams, GCFG, torch.from_numpy(emb),
+                               torch.Generator().manual_seed(0), max_steps=12, stop_token=5,
+                               top_p=1e-6)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+
+
+def test_sample_decode_first_token_follows_the_softmax(params):
+    """At top_p 1 and temperature 1 the first token of 4,000 rows of one prompt
+    is drawn from the softmax of the prompt's last logits: the chi-square
+    statistic of its counts (bins of fewer than 5 expected draws merged)
+    below the 0.999 quantile for its degrees of freedom (a fixed generator,
+    so the verdict does not change from run to run). The token table is
+    scaled by 20 so that the softmax is far from uniform (a random tiny
+    GPT-2's is nearly flat), and the same counts against a uniform draw
+    must fail the bound."""
+    from scipy import stats
+
+    tparams = dict(params[1], wte=params[1]["wte"] * 20)
+    emb = np.random.default_rng(9).standard_normal((1, 4, GCFG.n_embd)).astype(np.float32)
+    rows = torch.from_numpy(emb).expand(4000, -1, -1).contiguous()
+    res = decode.sample_decode(tparams, GCFG, rows, torch.Generator().manual_seed(1),
+                               max_steps=1, top_p=1.0, temperature=1.0, stop_token=-1)
+    logits, _ = gpt2.gpt2_forward(tparams, GCFG, inputs_embeds=torch.from_numpy(emb))
+    expected = torch.softmax(logits[0, -1].double(), dim=-1).numpy() * 4000
+    counts = np.bincount(res.tokens[:, 0].numpy(), minlength=GCFG.vocab_size)
+    order = np.argsort(expected)
+    small = order[np.cumsum(expected[order]) < 5]   # the rarest tokens, pooled
+    big = np.setdiff1d(np.arange(GCFG.vocab_size), small)
+    obs, exp = counts[big], expected[big]
+    if len(small):
+        obs, exp = np.append(obs, counts[small].sum()), np.append(exp, expected[small].sum())
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    bound = stats.chi2.ppf(0.999, len(obs) - 1)
+    assert chi2 < bound, (chi2, len(obs))
+    flat = 4000 / GCFG.vocab_size
+    assert float(((counts - flat) ** 2 / flat).sum()) > stats.chi2.ppf(0.999, GCFG.vocab_size - 1)
+
+
+def test_sample_decode_repeats_itself_with_a_fixed_generator(params):
+    _, tparams = params
+    emb = torch.from_numpy(
+        np.random.default_rng(10).standard_normal((4, 3, GCFG.n_embd)).astype(np.float32))
+    a, b, c = (decode.sample_decode(tparams, GCFG, emb, torch.Generator().manual_seed(seed),
+                                    max_steps=10, top_p=0.9)
+               for seed in (3, 3, 4))
+    assert torch.equal(a.tokens, b.tokens) and torch.equal(a.lengths, b.lengths)
+    assert not torch.equal(a.tokens, c.tokens)

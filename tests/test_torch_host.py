@@ -95,6 +95,16 @@ def test_pair_group_dataset_gives_the_original_items(tmp_path, split):
     assert [port[i] for i in range(len(port))] == [orig[i] for i in range(len(orig))]
 
 
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_caption_pair_dataset_gives_the_original_items(tmp_path, split):
+    path = _corpus(tmp_path)
+    kw = dict(key="caption", split=split, train_ratio=0.6)   # half the captions empty
+    port, orig = (datasets.CaptionPairDataset(path, **kw),
+                  j_datasets.CaptionPairDataset(path, **kw))
+    assert len(port) == len(orig) > 0
+    assert [port[i] for i in range(len(port))] == [orig[i] for i in range(len(orig))]
+
+
 @pytest.mark.parametrize("hw", [(256, 256), (480, 640), (301, 257), (1080, 1920), (40, 50)])
 def test_host_shape_unify_gives_the_original_arrays(hw):
     img = (np.random.default_rng(hw[0]).random(hw + (3,)) * 255).astype(np.uint8)
@@ -162,7 +172,7 @@ def test_port_imports_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("app", ["train_clip", "predict_t5", "serve", "predict_zeroshot",
                                  "parse_corpus", "train_clipcap", "predict",
-                                 "train_clipcap_t5", "product_e2e"])
+                                 "train_clipcap_t5", "product_e2e", "train_clip_caption"])
 def test_apps_refuse_a_missing_cuda_device(app, monkeypatch):
     """--device defaults to cuda; without a usable CUDA device the app stops
     at once and names --device cpu, instead of running on the CPU."""

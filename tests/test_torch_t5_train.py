@@ -180,14 +180,17 @@ def test_train_steps_match_jax(only_prefix, jx, jparams):
     under 5% of every leaf (0.1-1.8% here: the lm_head's share is the
     largest). In only-prefix mode the frozen T5 stays
     bit-equal to its start."""
-    ccfg = dataclasses.replace(CCFG, only_prefix=only_prefix)
+    _steps_match_jax(jx, dataclasses.replace(CCFG, only_prefix=only_prefix), jparams)
+
+
+def _steps_match_jax(jx, ccfg, jparams):
     jccfg = _jccfg(jx, ccfg)
     kw = dict(warmup_steps=0, total_steps=100)
     jtx, ttx = jx.jstate.make_adamw(LR, **kw), state.make_adamw(LR, **kw)
     jstep = jx.jtrain.make_t5_caption_train_step(jccfg, jx.jtcfg, jtx, jx.mesh)
     tstep = t5_train.make_t5_caption_train_step(ccfg, TCFG, ttx)
     jtree = jx.jax.tree.map(jx.jnp.asarray, jparams)
-    if only_prefix:
+    if ccfg.only_prefix:
         jst, jfrozen = jx.jstate.TrainState.create(jtree["mapper"], jtx), jtree["t5"]
         t5 = convert.to_params(jparams["t5"]).tree()
         tst = state.TrainState.create(convert.to_params(jparams["mapper"], trainable=True), ttx)
@@ -207,14 +210,25 @@ def test_train_steps_match_jax(only_prefix, jx, jparams):
         jst, jm = jstep(jst, jfrozen, _jnp(jx, batch))
         tst, tm = tstep(tst, t5, _torch(batch))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
-    shares = [float(m.mean()) for m in tree_leaves(noise)]
+    shares = [_noise_share(path, m) for path, m in zip(_paths(noise), tree_leaves(noise))]
     assert max(shares) < 0.05, dict(zip(_paths(noise), shares))
     got, want = _np(as_tree(tst.params)), _np(jst.params)
     _tree_close(got, want, atol=2e-6, noise=noise, noise_atol=2 * 3 * LR)
     assert tst.step == int(jst.step) == 3
     assert len(tree_leaves(tst.opt_state["m"])) == len(jx.jax.tree.leaves(want))
-    if only_prefix:
+    if ccfg.only_prefix:
         _tree_close(_np(t5), jparams["t5"], atol=0)
+
+
+def _noise_share(path, noise):
+    """The share of a leaf's elements whose gradient was rounding noise, the key
+    third of a transformer-mapper block's b_qkv left out: its gradient is
+    mathematically zero (softmax does not change when every logit of a row
+    moves by q.b_k), so all of it is noise, held to the noise bound."""
+    if path.endswith("/attn/b_qkv"):
+        d = noise.shape[-1] // 3
+        noise = np.delete(noise, np.s_[d:2 * d], -1)
+    return float(noise.mean())
 
 
 def _tree_close(got, want, atol, path="", *, rel_to_max=None, noise=None, noise_atol=None):
@@ -422,14 +436,127 @@ def test_app_tokenizes_captions_as_the_jax_app(tmp_path):
     assert got["input_ids"][-1].all() and not got["input_ids"][-2].any()
 
 
-def test_app_refuses_the_transformer_mapper(tmp_path, monkeypatch):
-    from construction_clip_tpu_torch.apps import train_clipcap_t5
+# ---- the transformer mapper ----------------------------------------------------------------
 
-    caps = _archive(tmp_path / "emb.npz")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_clipcap_t5.main(["--device", "cpu", "--mapping_type", "transformer",
-                               "--data", str(tmp_path / "emb.npz"),
-                               "--tokenizer", _bpe(tmp_path, caps)])
+# 2 mapper blocks over 3 projected rows and the 3-row prefix constant, 8 heads of
+# the tiny T5's width 32 (dh 4)
+TCCFG = dataclasses.replace(CCFG, mapper="transformer", mapper_layers=2, clip_length=3)
+
+
+@pytest.fixture(scope="module")
+def jparams_transformer(jx):
+    tree = jx.jmodel.init_clipcap_t5(jx.jax.random.key(4), _jccfg(jx, TCCFG), jx.jtcfg)
+    return jx.jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_transformer_mapper_forward_matches_jax(precision, impl, jx, jparams_transformer):
+    """clipcap_t5_forward with the transformer mapper (sized by the T5 width,
+    t5_model.mapper_shape) against the JAX package op by op, at
+    test_forward_and_loss_match_jax's tolerances. The kernel impl's mapper
+    takes the fused block (K1's plain version on the CPU), which rounds where
+    the Pallas block does, so in bf16 it is held relative to the largest
+    logit."""
+    from construction_clip_tpu_torch.ops.attention import use_impl
+
+    batch = _batch(1)
+    kw = {} if precision == "fp32" else {"policy": jx.JBF16}
+    jb = _jnp(jx, batch)
+    with jx.jax.disable_jit():
+        want = jx.jmodel.clipcap_t5_forward(
+            jparams_transformer, _jccfg(jx, TCCFG), jx.jtcfg, input_ids=jb["input_ids"],
+            attention_mask=jb["attention_mask"], clip_embed=jb["prefix"], **kw)
+    want = np.asarray(want)
+    tb = _torch(batch)
+    with use_impl(impl):
+        got = t5_model.clipcap_t5_forward(
+            convert.to_params(jparams_transformer).tree(), TCCFG, TCFG,
+            input_ids=tb["input_ids"], attention_mask=tb["attention_mask"],
+            clip_embed=tb["prefix"], policy=BF16_POLICY if precision == "bf16" else DEFAULT_POLICY)
+    rtol, atol = FORWARD_TOL[precision]
+    if impl == "kernel" and precision == "bf16":
+        assert float(np.abs(got.numpy() - want).max()) <= rtol * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("only_prefix", [True, False], ids=["only_prefix", "full"])
+def test_transformer_mapper_train_steps_match_jax(only_prefix, jx, jparams_transformer):
+    """test_train_steps_match_jax's 3 steps, gradients and bounds with the
+    transformer mapper."""
+    _steps_match_jax(jx, dataclasses.replace(TCCFG, only_prefix=only_prefix),
+                     jparams_transformer)
+
+
+def _train_app(tmp_path, name, extra, dim=16):
+    """train_clipcap_t5 with the transformer mapper, one epoch on the CPU, fp32;
+    -> (npz, tokenizer JSON, the fitted T5Config)."""
+    from construction_clip_tpu_torch.apps import train_clipcap_t5
+    from construction_clip_tpu_torch.apps.common import TokenizerFile, fit_t5_vocab
+
+    caps = _archive(tmp_path / f"{name}.npz", dim=dim)
+    tok = _bpe(tmp_path, caps)
+    train_clipcap_t5.main(["--data", str(tmp_path / f"{name}.npz"),
+                           "--out_dir", str(tmp_path / "m"), "--prefix", name, "--epochs", "1",
+                           "--bs", "4", "--lr", "1e-3", "--warmup_steps", "0",
+                           "--t5_size", "tiny", "--tokenizer", tok, "--max_length", "8",
+                           "--log_dir", str(tmp_path / "log"), "--device", "cpu",
+                           "--precision", "fp32", "--prefix_length", "4",
+                           "--mapping_type", "transformer", *extra])
+    return str(tmp_path / "m" / f"{name}.npz"), tok, fit_t5_vocab(TCFG, TokenizerFile(tok))
+
+
+def test_app_trains_the_transformer_mapper(tmp_path, monkeypatch, jx):
+    """train_clipcap_t5 --mapping_type transformer --num_layers 2 (a full
+    fine-tune): the npz holds the 2-block mapper, trained, and the JAX
+    package's load_params_npz reads it at its shapes."""
+    from construction_clip_tpu.train.checkpoint import load_params_npz as jload
+
+    from construction_clip_tpu_torch.apps import train_clipcap_t5
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+
+    for mod in ("torch.utils.tensorboard", "tensorboardX"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    npz, _, tcfg = _train_app(tmp_path, "t5t", ["--num_layers", "2"])
+    ccfg = ClipCapConfig(prefix_length=4, attribute_length=0, clip_dim=16,
+                         mapper="transformer", mapper_layers=2, clip_length=20)
+    saved = load_params_npz(npz, convert.init_clipcap_t5(convert.SHAPES, ccfg, tcfg))
+    assert saved["mapper"]["blocks"]["mlp"]["w_fc"].shape == (2, 32, 64)
+    init = convert.init_clipcap_t5(train_clipcap_t5.INIT_SEED, ccfg, tcfg)
+    assert not np.array_equal(saved["mapper"]["proj"], init["mapper"]["proj"])
+    jtcfg = jx.jconfigs.T5Config(**dataclasses.asdict(tcfg))
+    template = jx.jmodel.init_clipcap_t5(jx.jax.random.key(0), _jccfg(jx, ccfg), jtcfg)
+    _tree_close(_np(jload(npz, template)), saved, atol=0)
+
+
+def test_predict_t5_captions_with_the_transformer_mapper(tmp_path, monkeypatch):
+    """predict_t5's batch function with --mapping_type transformer on a
+    train_clipcap_t5 npz that it reads (8 blocks over 10 projected rows, as
+    the app builds the mapper), greedy, on the CPU: a caption an image."""
+    from construction_clip_tpu_torch.apps import predict_t5
+    from construction_clip_tpu_torch.apps.common import TokenizerFile
+    from construction_clip_tpu_torch.core.configs import CLIPConfig
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.train.checkpoint import load_params_npz
+    from tests.test_torch_quant import TinyClipTok
+
+    for mod in ("torch.utils.tensorboard", "tensorboardX"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    npz, tok, tcfg = _train_app(tmp_path, "t5p", ["--prefix_length_clip", "10"], dim=32)
+    clip_cfg = CLIPConfig.tiny()
+    args = predict_t5.parse_args(["--mapping_type", "transformer", "--prefix_length", "4"])
+    ccfg = ClipCapConfig(prefix_length=args.prefix_length, attribute_length=0,
+                         clip_dim=clip_cfg.text.embed_dim, mapper=args.mapping_type)
+    cap = load_params_npz(npz, convert.init_clipcap_t5(convert.SHAPES, ccfg, tcfg))
+    process = predict_t5.make_process(
+        convert.to_params(convert.init_clip(0, clip_cfg)).tree(), clip_cfg,
+        convert.to_params(cap).tree(), ccfg, tcfg, TinyClipTok(), TokenizerFile(tok),
+        max_length=6, greedy=True, policy=DEFAULT_POLICY, device="cpu")
+    staged = (np.random.default_rng(0).random((2, 40, 40, 3)) * 255).astype(np.uint8)
+    records, res = process([Annotation(id=i, file_name=f"{i}.jpg") for i in range(2)], staged)
+    assert len(records) == 2 and all(isinstance(r["caption"], str) for r in records)
+    assert res.tokens.shape == (2, 6)
 
 
 def _paths(tree, prefix=""):

@@ -342,3 +342,39 @@ def test_cli_trains_resumes_and_writes_npz(tmp_path, capsys, monkeypatch):
     template = init_clip(jax.random.key(0), JCLIPConfig.tiny_bpe())
     loaded = jckpt.load_params_npz(str(tmp_path / "m" / "clip_latest.npz"), template)
     assert all(np.isfinite(np.asarray(a)).all() for a in jax.tree.leaves(loaded))
+
+
+def test_caption_cli_trains_two_steps_and_its_checkpoint_loads(tmp_path, capsys, monkeypatch):
+    """train_clip_caption's main on plain (image, violation_list) pairs: 7 train
+    pairs of 9 (train_ratio 0.8), 3 a step, so one epoch is 2 steps of
+    train_clip's loop; its epoch checkpoint restores and its npz loads into
+    the JAX package."""
+    from construction_clip_tpu_torch.apps import train_clip_caption
+    from construction_clip_tpu_torch.train.state import TrainState, make_adamw
+
+    for mod in ("torch.utils.tensorboard", "tensorboardX"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    _corpus(tmp_path)
+    args = ["--json_path", str(tmp_path / "all.json"), "--image_path", str(tmp_path),
+            "--arch", "tiny_bpe", "--precision", "fp32",
+            "--clip_bpe", str(tmp_path / "merges.txt.gz"), "--batch_size", "3",
+            "--epochs", "1", "--save_every", "1", "--output_dir", str(tmp_path / "m"),
+            "--log_dir", str(tmp_path / "log"), "--warmup_steps", "0", "--device", "cpu"]
+    assert train_clip_caption.parse_args([]).key == "violation_list"
+    train_clip_caption.main(args)
+    assert "saved inference params" in capsys.readouterr().out
+    logs = [json.loads(line) for line in open(tmp_path / "log" / "clip_cap.jsonl")]
+    losses = [r for r in logs if "loss" in r]
+    assert losses[-1]["step"] == 2 and np.isfinite(losses[-1]["loss"])
+    assert "test_accuracy" in logs[-1]   # the save_every epoch's evaluation
+    assert sorted(os.listdir(tmp_path / "m" / "clip_cap")) == ["step_0.pt", "step_1.pt"]
+    tree = convert.to_params(convert.init_clip(0, CLIPConfig.tiny_bpe()), trainable=True)
+    tx = make_adamw(1e-5, warmup_steps=0, total_steps=2)
+    restored = checkpoint.restore_state(str(tmp_path / "m" / "clip_cap"),
+                                        TrainState.create(tree, tx))
+    assert restored.step == 2
+    template = init_clip(jax.random.key(0), JCLIPConfig.tiny_bpe())
+    loaded = jckpt.load_params_npz(str(tmp_path / "m" / "clip_cap_latest.npz"), template)
+    assert all(np.isfinite(np.asarray(a)).all() for a in jax.tree.leaves(loaded))
+    with pytest.raises(SystemExit, match="native_loader"):
+        train_clip_caption.main(args + ["--native_loader"])
