@@ -205,6 +205,30 @@ Phases, each printing one line (the last line is the JSON verdict):
      64), full fine-tune, bf16, 3 steps of B=40: K1 and K3 launch 8 times a
      step, all on the tensor cores; then one predict_t5 batch of 8 on the
      trained params: K1 12 + 8 times on the tensor cores, K8 steps + 1.
+ 39. the Faster R-CNN detector (models/detection.fasterrcnn_infer) at serving
+     width: ResNet-50-FPN, 800-px images, 7 classes, bf16, weights from a
+     numpy seed as a torchvision state dict through from_torchvision_state_dict
+     (detector_state_dict): B=1 and B=8, median of 7 calls' CUDA-event and
+     host times, peak memory, the NMS iteration counts, each stage's device
+     time (backbone + FPN, RPN and its NMS, ROI heads, ROIAlign, class NMS),
+     the kernels' device time under torch.profiler; fp32 with TF32 off
+     against the port on the CPU for one image (DETECT_BOX_ATOL,
+     DETECT_SCORE_ATOL, detection by detection); bf16 against fp32 (the share
+     of the top 20 matched at IoU >= 0.5 and the same label); TorchDetector's
+     letterbox staging and map back: detections, every box inside its image.
+ 40. phase 5 with the detector: ThresholdWrapper(TorchDetector) (800-px
+     letterbox, 7 classes, bf16) in TorchPredictService, 10 requests from 4
+     threads, a 20 ms window, max_batch 8: the detector's batch coalesces, K1
+     (tensor cores) and K2 launch in that run, every response has the six
+     keys; req/s, the warm single request, each drained batch's caption and
+     detection seconds beside phase 5's and beside a control without the
+     detector run in turns with it; then requests at threshold 0: names
+     of DETECTOR_CLASSES, boxes inside the image (the 0.8 threshold leaves
+     the random weights' lists empty).
+ 41. apps/eval_detection.evaluate (evaluate_image per image) on 6 synthetic
+     images through a load_image hook (one missing), the app's defaults (8
+     classes, 512 px, fp32), the ground truth from each image's own top
+     detections plus a band object: the metrics JSON, AP50 above 0.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -717,12 +741,18 @@ def check_tc_route(what: str, counts: dict, tc: dict, names=TC_WRAPPERS) -> None
 
 
 SERVE_KERNELS = ("fused_attention_block", "decode_step_attention")
+RESPONSE_KEYS = ("boxes", "labels", "scores", "caption_type", "violation_type", "caption")
 
 
-def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
+def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device, *, detector=None,
+                name: str = "serve") -> dict:
     """The serving path in bf16: TorchPredictService over the port's
     CaptionPipeline (beam 3, 100 steps), 10 requests from 4 threads with a 20 ms
-    coalescing window."""
+    coalescing window. With `detector` (phase 40) each drained batch is also
+    detected in one call, which must coalesce too. Returns the launches of
+    the caption kernels in the run (counts reset just before the service is
+    built, read just after the requests), the req/s and the warm single
+    request's latency."""
     import concurrent.futures as cf
 
     clip_cfg, gcfg, ccfg = cfgs
@@ -733,15 +763,27 @@ def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
         cap_params=convert.to_params(cap_np, dtype=torch.bfloat16, device=device),
         ccfg=ccfg, gcfg=gcfg, clip_tokenizer=clip_tok, lm_tokenizer=lm_tok,
         policy=BF16_POLICY)
-    svc = TorchPredictService(pipe, batch_window_ms=20, max_batch=8)
-    batch_sizes = []
-    caption_batch = svc._caption_batch
+    svc = TorchPredictService(pipe, detector=detector, batch_window_ms=20, max_batch=8)
+    batch_sizes, det_batch_sizes = [], []
+    caption_batch, detect_batch = svc._caption_batch, svc._detect_batch
+
+    caption_s, detect_s = [], []
 
     def counted(staged):
         batch_sizes.append(len(staged))
-        return caption_batch(staged)
+        t0 = time.perf_counter()
+        out = caption_batch(staged)   # strings: the device has finished
+        caption_s.append(time.perf_counter() - t0)
+        return out
 
-    svc._caption_batch = counted
+    def counted_detect(staged, sizes):
+        det_batch_sizes.append(len(staged))
+        t0 = time.perf_counter()
+        out = detect_batch(staged, sizes)   # host lists: the device has finished
+        detect_s.append(time.perf_counter() - t0)
+        return out
+
+    svc._caption_batch, svc._detect_batch = counted, counted_detect
     rng = np.random.default_rng(5)
     warm = synthetic_images(rng, [(480, 640)])[0]
     svc.predict(warm)  # first request: warm-up
@@ -757,19 +799,31 @@ def phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, device) -> dict:
         responses = list(pool.map(svc.predict, images))
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in launches().items() if k in SERVE_KERNELS}
-    check_tc_route("serving bf16", counts, tc_launches(), ("fused_attention_block",))
+    check_tc_route(f"{name} bf16", counts, tc_launches(), ("fused_attention_block",))
     for r in responses:
         if r["caption_type"] not in ("violation", "status") or \
                 r["violation_type"] not in VIOLATION_TYPES or not isinstance(r["caption"], str):
             raise AssertionError(f"bad response {r}")
+        if sorted(r) != sorted(RESPONSE_KEYS) or \
+                not len(r["boxes"]) == len(r["labels"]) == len(r["scores"]):
+            raise AssertionError(f"bad response keys or detection lists {r}")
     if max(batch_sizes) < 2:
         raise AssertionError(f"no coalesced batch formed: {batch_sizes}")
+    if detector is not None and max(det_batch_sizes) < 2:
+        raise AssertionError(f"no coalesced detector batch formed: {det_batch_sizes}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the serving path never launched: {counts}")
-    say("serve", requests=len(images), threads=4, wall_s=wall, req_per_s=len(images) / wall,
-        warm_single_request_s=statistics.median(single), batch_sizes=batch_sizes,
-        launches=counts, captions=[r["caption"][:24] for r in responses[:3]])
-    return counts
+    out = {"launches": counts, "req_per_s": len(images) / wall,
+           "warm_single_request_s": statistics.median(single), "service": svc,
+           "images": images}
+    say(name, requests=len(images), threads=4, wall_s=wall, req_per_s=out["req_per_s"],
+        warm_single_request_s=out["warm_single_request_s"],
+        runs_single_request_s=single, batch_sizes=batch_sizes,
+        caption_batch_s=caption_s, detector_batch_sizes=det_batch_sizes,
+        detect_batch_s=detect_s, launches=counts,
+        detections_per_response=[len(r["boxes"]) for r in responses],
+        captions=[r["caption"][:24] for r in responses[:3]])
+    return out
 
 
 def teacher_forced_logits(params, gcfg, embeds, tokens, impl: str):
@@ -3195,6 +3249,372 @@ def phase_t5_mapper(clip_np, cfgs, clip_tok, lm_tok, device="cuda", steps: int =
     return out
 
 
+# ---- the Faster R-CNN detector and detection serving (phases 39-41) --------------------
+
+DETECTOR_SIZE = 800        # the serving letterbox (apps/serve.py --detector_image_size)
+DETECTOR_CLASSES_N = 7     # the reference head (application.py:14)
+# fp32 on the card (TF32 off) against the CPU, one 800-px image, detection by
+# detection: the same label, each box coordinate within 0.05 px and the score
+# within 1e-4 (sums in another order through 53 convolutions and the box head,
+# on a well-conditioned net; 1e-4 px between the port and JAX at 128 px on the
+# CPU, tests/test_torch_detection.py)
+DETECT_BOX_ATOL = 0.05
+DETECT_SCORE_ATOL = 1e-4
+
+
+def detector_state_dict(seed: int, num_classes: int) -> dict:
+    """A torchvision fasterrcnn_resnet50_fpn state dict (numpy, the names of
+    the reference's model_final.pth) with random weights from a numpy seed:
+    convolutions N(0, 0.03), BatchNorm with running statistics near (0, 1),
+    linears N(0, 0.01), zero biases (tests/test_detection.py's synthetic
+    dict). convert.init_fasterrcnn's tree (He-normal convolutions, identity
+    BatchNorm, the JAX package's init) grows the maps to ~1e4 through the 16
+    residual blocks; its box head then throws every box out of the image, so
+    at 800 px it detects nothing."""
+    from construction_clip_tpu_torch.models.resnet import STAGES, WIDTHS
+
+    gen = np.random.default_rng(seed)
+    sd = {}
+
+    def normal(shape, std):
+        return (gen.standard_normal(shape) * std).astype(np.float32)
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = 1 + normal(c, 0.05)
+        sd[f"{prefix}.bias"] = normal(c, 0.05)
+        sd[f"{prefix}.running_mean"] = normal(c, 0.05)
+        sd[f"{prefix}.running_var"] = (1 + gen.random(c) * 0.1).astype(np.float32)
+
+    def conv(name, o, i, k, bias=False):
+        sd[f"{name}.weight"] = normal((o, i, k, k), 0.03)
+        if bias:
+            sd[f"{name}.bias"] = np.zeros(o, np.float32)
+
+    def lin(name, o, i):
+        sd[f"{name}.weight"] = normal((o, i), 0.01)
+        sd[f"{name}.bias"] = np.zeros(o, np.float32)
+
+    conv("backbone.body.conv1", 64, 3, 7)
+    bn("backbone.body.bn1", 64)
+    c_in = 64
+    for s, (n, w) in enumerate(zip(STAGES, WIDTHS)):
+        for b in range(n):
+            pre = f"backbone.body.layer{s + 1}.{b}"
+            conv(f"{pre}.conv1", w, c_in, 1)
+            bn(f"{pre}.bn1", w)
+            conv(f"{pre}.conv2", w, w, 3)
+            bn(f"{pre}.bn2", w)
+            conv(f"{pre}.conv3", w * 4, w, 1)
+            bn(f"{pre}.bn3", w * 4)
+            if c_in != w * 4:
+                conv(f"{pre}.downsample.0", w * 4, c_in, 1)
+                bn(f"{pre}.downsample.1", w * 4)
+            c_in = w * 4
+    for i, w in enumerate(WIDTHS):
+        conv(f"backbone.fpn.inner_blocks.{i}.0", 256, w * 4, 1, bias=True)
+        conv(f"backbone.fpn.layer_blocks.{i}.0", 256, 256, 3, bias=True)
+    conv("rpn.head.conv.0.0", 256, 256, 3, bias=True)
+    conv("rpn.head.cls_logits", 3, 256, 1, bias=True)
+    conv("rpn.head.bbox_pred", 12, 256, 1, bias=True)
+    lin("roi_heads.box_head.fc6", 1024, 256 * 49)
+    lin("roi_heads.box_head.fc7", 1024, 1024)
+    lin("roi_heads.box_predictor.cls_score", num_classes, 1024)
+    lin("roi_heads.box_predictor.bbox_pred", num_classes * 4, 1024)
+    return sd
+
+
+def detector_tree(seed: int = 39, num_classes: int = DETECTOR_CLASSES_N) -> dict:
+    from construction_clip_tpu_torch.models.detection import from_torchvision_state_dict
+
+    return from_torchvision_state_dict(detector_state_dict(seed, num_classes),
+                                       num_classes=num_classes)
+
+
+def _event_ms(fn):
+    """(fn(), its CUDA-event time in ms: device timeline from before the call's
+    first launch to after its last, gaps for the host included)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _detections(det, row: int = 0):
+    return tuple(t[row].float().cpu().numpy() for t in (det.boxes, det.labels, det.scores))
+
+
+def _matched(want, got, *, box_atol=None, score_atol=None, iou=None) -> int:
+    """How many of `want`'s live detections a distinct live detection of `got`
+    matches: the same label and either every coordinate within box_atol and
+    the score within score_atol, or IoU >= iou."""
+    from construction_clip_tpu_torch.models.detection import box_iou
+
+    (wb, wl, ws), (gb, gl, gs) = want, got
+    used, hits = set(), 0
+    for b, l, s in zip(wb, wl, ws):
+        if s <= 0:
+            continue
+        cand = [j for j in range(len(gs)) if gs[j] > 0 and gl[j] == l and j not in used]
+        if iou is None:
+            cand = [j for j in cand if abs(gs[j] - s) <= score_atol
+                    and np.abs(gb[j] - b).max() <= box_atol]
+            pick = cand[0] if cand else None
+        else:
+            ious = box_iou(torch.from_numpy(b[None]), torch.from_numpy(gb[cand]))[0] \
+                if cand else torch.zeros(0)
+            pick = cand[int(ious.argmax())] if cand and float(ious.max()) >= iou else None
+        if pick is not None:
+            used.add(pick)
+            hits += 1
+    return hits
+
+
+def _stage_ms(params, images, cd) -> dict:
+    """Device time of the detector's stages at one batch, each alone by CUDA
+    events (so each pays its own launch latency): backbone + FPN, the RPN
+    (head convs, top-k, decode, its NMS), the ROI heads (ROIAlign, box head,
+    class NMS, top-k) and ROIAlign within them, and the whole call."""
+    from construction_clip_tpu_torch.models import detection as det
+
+    p = det.cast_params(params, cd)
+    x = ((images.to(cd) - torch.tensor(det.IMAGE_MEAN, dtype=cd, device=images.device))
+         / torch.tensor(det.IMAGE_STD, dtype=cd, device=images.device)).permute(0, 3, 1, 2)
+    nms_ms, nms_mask = [], det.nms_mask
+
+    def timed_nms(*args, **kwargs):
+        out, ms = _event_ms(lambda: nms_mask(*args, **kwargs))
+        nms_ms.append(ms)
+        return out
+
+    det.nms_mask = timed_nms   # the RPN's NMS, then the class NMS, each timed alone
+    try:
+        with torch.inference_mode():
+            (props, keep), _ = _event_ms(lambda: det.rpn_propose(
+                p, det.fpn_forward(p["fpn"], det.resnet_pyramid(p["backbone"], x)),
+                image_size=DETECTOR_SIZE, pre_nms_topk=1000, post_nms_topk=300))
+            feats = det.fpn_forward(p["fpn"], det.resnet_pyramid(p["backbone"], x))
+            det.roi_heads(p, feats, props, keep, image_size=DETECTOR_SIZE,
+                          detections_per_img=100, num_classes=DETECTOR_CLASSES_N,
+                          box_nms_thresh=0.5, score_thresh=0.05, compute_dtype=cd)
+            torch.cuda.synchronize()
+    finally:
+        det.nms_mask = nms_mask
+    with torch.inference_mode():
+        feats, t_backbone = _event_ms(
+            lambda: det.fpn_forward(p["fpn"], det.resnet_pyramid(p["backbone"], x)))
+        (props, keep), t_rpn = _event_ms(lambda: det.rpn_propose(
+            p, feats, image_size=DETECTOR_SIZE, pre_nms_topk=1000, post_nms_topk=300))
+        _, t_heads = _event_ms(lambda: det.roi_heads(
+            p, feats, props, keep, image_size=DETECTOR_SIZE, detections_per_img=100,
+            num_classes=DETECTOR_CLASSES_N, box_nms_thresh=0.5, score_thresh=0.05,
+            compute_dtype=cd))
+        pw = (props[..., 2] - props[..., 0]).clamp(min=1e-6)
+        ph = (props[..., 3] - props[..., 1]).clamp(min=1e-6)
+        lvl = torch.floor(4 + torch.log2(torch.sqrt(pw * ph) / 224 + 1e-6)).clamp(2, 5).long() - 2
+        _, t_roi = _event_ms(lambda: det.roi_align_multilevel(feats[:4], props, lvl,
+                                                              strides=(4, 8, 16, 32)))
+        _, t_all = _event_ms(lambda: det.fasterrcnn_infer(
+            params, images, image_size=DETECTOR_SIZE, num_classes=DETECTOR_CLASSES_N,
+            compute_dtype=cd))
+    return {"backbone_fpn_ms": t_backbone, "rpn_ms": t_rpn, "rpn_nms_ms": nms_ms[0],
+            "roi_heads_ms": t_heads, "roi_align_ms": t_roi, "class_nms_ms": nms_ms[1],
+            "whole_ms": t_all}
+
+
+def phase_detector(device="cuda") -> dict:
+    """Phase 39: the detector alone at serving width (ResNet-50-FPN, 800 px,
+    7 classes) through models/detection.fasterrcnn_infer: bf16 at B=1 and
+    B=8 (median of 7 calls, CUDA-event and host times, peak memory, the NMS
+    iteration counts, the stages' device times and the largest kernels under
+    torch.profiler); fp32 with TF32 off against the port on the CPU for one
+    image; bf16 against fp32; TorchDetector's mapped-back boxes inside their
+    images. The tree comes from a numpy seed through the torchvision
+    converter (detector_state_dict)."""
+    from construction_clip_tpu_torch.models import detection as det
+    from construction_clip_tpu_torch.serve.detector import TorchDetector
+
+    tree = detector_tree()
+    params = {cd: convert.to_detector_params(tree, dtype=cd, device=device)
+              for cd in (torch.bfloat16, torch.float32)}
+    gen = np.random.default_rng(39)
+    images = torch.from_numpy(gen.random((8, DETECTOR_SIZE, DETECTOR_SIZE, 3))
+                              .astype(np.float32)).to(device)
+    kw = dict(image_size=DETECTOR_SIZE, num_classes=DETECTOR_CLASSES_N)
+    timings = {}
+    for bsz in (1, 8):
+        x = images[:bsz]
+        with torch.inference_mode():
+            for _ in range(2):
+                det.fasterrcnn_infer(params[torch.bfloat16], x, compute_dtype=torch.bfloat16, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            events, host, stats = [], [], {}
+            for _ in range(7):
+                t0 = time.perf_counter()
+                out, ms = _event_ms(lambda: det.fasterrcnn_infer(
+                    params[torch.bfloat16], x, compute_dtype=torch.bfloat16,
+                    stats=stats, **kw))
+                host.append((time.perf_counter() - t0) * 1e3)
+                events.append(ms)
+        live = int((out.scores > 0).sum())
+        if live == 0:
+            raise AssertionError(f"B={bsz}: no live detection")
+        its = stats["nms_iterations"]
+        timings[bsz] = {"event_ms": statistics.median(events), "host_ms": statistics.median(host),
+                        "images_per_s": bsz * 1e3 / statistics.median(host),
+                        "peak_mib_above_start": (torch.cuda.max_memory_allocated() - base) / 2**20,
+                        "rpn_nms_iterations": sorted(set(its[0::2])),
+                        "box_nms_iterations": sorted(set(its[1::2])), "live": live}
+    timings["stages_b8"] = _stage_ms(params[torch.bfloat16], images, torch.bfloat16)
+    timings["stages_b1"] = _stage_ms(params[torch.bfloat16], images[:1], torch.bfloat16)
+    with torch.inference_mode():
+        timings["kernel_ms_b1"] = sum(kernel_device_ms(lambda: det.fasterrcnn_infer(
+            params[torch.bfloat16], images[:1], compute_dtype=torch.bfloat16, **kw),
+            reps=3).values())
+        per = kernel_device_ms(lambda: det.fasterrcnn_infer(
+            params[torch.bfloat16], images, compute_dtype=torch.bfloat16, **kw), reps=3)
+    timings["kernel_ms_b8"] = sum(per.values())
+    timings["top_kernels_b8"] = dict(sorted(per.items(), key=lambda kv: -kv[1])[:12])
+
+    # fp32 on the card, TF32 off, against the CPU on the same image
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card = _detections(det.fasterrcnn_infer(params[torch.float32], images[:1], **kw))
+            bf16 = _detections(det.fasterrcnn_infer(params[torch.bfloat16], images[:1],
+                                                    compute_dtype=torch.bfloat16, **kw))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    with torch.inference_mode():
+        cpu = _detections(det.fasterrcnn_infer(convert.to_detector_params(tree),
+                                               images[:1].cpu(), **kw))
+    # detections within the score tolerance of the last slot's may sit on
+    # either side of the top-100 cut
+    sure = cpu[2] > cpu[2][cpu[2] > 0].min() + DETECT_SCORE_ATOL
+    need = tuple(a[sure] for a in cpu)
+    hits = _matched(need, card, box_atol=DETECT_BOX_ATOL, score_atol=DETECT_SCORE_ATOL)
+    both = (cpu[2] > 0) & (card[2] > 0)
+    parity = {"cpu_live": int((cpu[2] > 0).sum()), "card_live": int((card[2] > 0).sum()),
+              "compared": int(sure.sum()), "matched": hits,
+              "slotwise_labels_equal": float((cpu[1][both] == card[1][both]).mean()),
+              "slotwise_max_box_diff_px": float(np.abs(cpu[0][both] - card[0][both]).max()),
+              "slotwise_max_score_diff": float(np.abs(cpu[2] - card[2]).max()),
+              "box_atol_px": DETECT_BOX_ATOL, "score_atol": DETECT_SCORE_ATOL}
+    if hits != int(sure.sum()) or parity["cpu_live"] == 0:
+        raise AssertionError(f"fp32 card against CPU: {parity}")
+    top20 = tuple(a[:20] for a in card)   # scores descend
+    share = _matched(top20, bf16, iou=0.5) / int((top20[2] > 0).sum())
+
+    # TorchDetector: letterbox staging, one batch, boxes mapped back to each image
+    td = TorchDetector(tree, num_classes=DETECTOR_CLASSES_N, image_size=DETECTOR_SIZE,
+                       device=device)
+    shapes = [(480, 640), (768, 1024), (256, 256), (600, 400), (1080, 1920)]
+    originals = synthetic_images(np.random.default_rng(40), shapes)
+    mapped = td.detect_batch(np.stack([td.stage(im) for im in originals]), shapes)
+    for (h, w), d in zip(shapes, mapped):
+        b = np.asarray(d["boxes"]).reshape(-1, 4)
+        if not len(b) or (b < 0).any() or (b[:, [0, 2]] > w).any() or (b[:, [1, 3]] > h).any():
+            raise AssertionError(f"mapped-back boxes of a {h}x{w} image: {b[:4]}")
+    say("detector", batch_1=timings[1], batch_8=timings[8], stages_b8=timings["stages_b8"],
+        stages_b1=timings["stages_b1"], kernel_ms_b1=timings["kernel_ms_b1"],
+        kernel_ms_b8=timings["kernel_ms_b8"],
+        top_kernels_b8=timings["top_kernels_b8"], fp32_card_vs_cpu=parity,
+        bf16_top20_matched_share=share, compute_dtype=str(td.compute_dtype),
+        mapped_back_detections=[len(d["boxes"]) for d in mapped])
+    return {"tree": tree, "timings": timings}
+
+
+def phase_detector_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, tree, serve5: dict) -> None:
+    """Phase 40: phase 5's requests through TorchPredictService with
+    ThresholdWrapper(TorchDetector(...)) (800-px letterbox, 7 classes, bf16),
+    a 20 ms window and max_batch 8: the detector's batch coalesces, K1 (tensor
+    cores) and K2 launch in the run, every response has the six keys. The
+    same service without the detector runs as the control in turns (control,
+    detector, detector, control), since the host-bound caption half's speed
+    drifts over a long process; req/s and the warm single request beside
+    the control's and phase 5's. Then a few requests at threshold 0: names
+    of DETECTOR_CLASSES, boxes inside each image."""
+    from construction_clip_tpu_torch.data.labels import DETECTOR_CLASSES
+    from construction_clip_tpu_torch.serve.detector import ThresholdWrapper, TorchDetector
+
+    wrapper = ThresholdWrapper(TorchDetector(tree, num_classes=DETECTOR_CLASSES_N,
+                                             image_size=DETECTOR_SIZE, device="cuda"))
+    runs = {"detector": [], "control": []}
+    for arm in ("control", "detector", "detector", "control"):
+        runs[arm].append(phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda",
+                                     detector=wrapper if arm == "detector" else None,
+                                     name=f"serve_{arm}"))
+    out = runs["detector"][0]
+    svc = out["service"]
+    wrapper.threshold = 0.0
+    names = set()
+    for im in out["images"][:5]:
+        r = svc.predict(im)
+        h, w = im.shape[:2]
+        b = np.asarray(r["boxes"]).reshape(-1, 4)
+        if not len(b) or (b < 0).any() or (b[:, [0, 2]] > w).any() or (b[:, [1, 3]] > h).any():
+            raise AssertionError(f"threshold 0: boxes of a {h}x{w} image: {b[:4]}")
+        names |= set(r["labels"])
+    if not names or not names <= set(DETECTOR_CLASSES[1:DETECTOR_CLASSES_N]):
+        raise AssertionError(f"threshold 0: labels {names}")
+    say("serve_detector_vs_serve",
+        req_per_s=[r["req_per_s"] for r in runs["detector"]],
+        warm_single_request_s=[r["warm_single_request_s"] for r in runs["detector"]],
+        control_req_per_s=[r["req_per_s"] for r in runs["control"]],
+        control_warm_single_request_s=[r["warm_single_request_s"] for r in runs["control"]],
+        phase5_req_per_s=serve5["req_per_s"],
+        phase5_warm_single_request_s=serve5["warm_single_request_s"],
+        launches=[r["launches"] for r in runs["detector"]], threshold_0_labels=sorted(names))
+
+
+def phase_eval_detection(device="cuda") -> dict:
+    """Phase 41: apps/eval_detection.evaluate (its per-image function,
+    evaluate_image, on each) over 6 synthetic images read through a
+    load_image hook (one file missing), the app's defaults: 8 classes,
+    512-px letterbox, fp32. The ground truth holds each image's own top 3
+    detections, a box of another class and, on one wide image, an object in
+    a long side's band: AP50 above 0, one band object excluded."""
+    from construction_clip_tpu_torch.apps import eval_detection
+    from construction_clip_tpu_torch.serve.detector import TorchDetector
+
+    td = TorchDetector(detector_tree(41, 8), num_classes=8, image_size=512,
+                       compute_dtype=torch.float32, device=device)
+    shapes = [(480, 640), (768, 1024), (256, 256), (600, 400), (1080, 1920), (300, 500)]
+    images = {f"{i}.jpg": im for i, im in
+              enumerate(synthetic_images(np.random.default_rng(41), shapes))}
+    anns = []
+    for name, im in images.items():
+        raw = td.detect(im)
+        anns.append({"file_name": name,
+                     "boxes": [list(map(float, b)) for b in raw["boxes"][:3]] + [[5, 5, 60, 60]],
+                     "labels": [int(v) for v in raw["labels"][:3]] + [3]})
+    anns[0]["boxes"].append([2.0, 20.0, 60.0, 400.0])   # left band of the 640-wide image
+    anns[0]["labels"].append(2)
+    anns.append({"file_name": "missing.jpg", "boxes": [], "labels": []})
+
+    def load_image(path):
+        name = os.path.basename(path)
+        if name not in images:
+            raise FileNotFoundError(path)
+        return images[name]
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = eval_detection.evaluate(td, anns, "site", load_image, num_classes=8)
+    seconds = time.perf_counter() - t0
+    if metrics["evaluated_images"] != len(images) or metrics["skipped_images"] != 1 or \
+            metrics["gt_boxes_outside_crop"] < 1 or not metrics["AP50"] > 0:
+        raise AssertionError(f"eval_detection metrics {metrics}")
+    print(json.dumps(metrics), flush=True)
+    say("eval_detection", seconds=seconds, s_per_image=seconds / len(images), mAP=metrics["mAP"],
+        AP50=metrics["AP50"], AP75=metrics["AP75"])
+    return metrics
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -3208,7 +3628,9 @@ def main() -> None:
     cfgs = (CLIPConfig.vit_b_32(), GPT2Config(), ClipCapConfig())   # full width
     clip_np = convert.init_clip(0, cfgs[0])
     cap_np = convert.init_clipcap(1, cfgs[2], cfgs[1])
-    counts = phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
+    serve5 = phase_serve(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
+    counts = dict(serve5["launches"])
+    serve5 = {k: serve5[k] for k in ("req_per_s", "warm_single_request_s")}
     phase_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
 
     batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
@@ -3328,6 +3750,13 @@ def main() -> None:
     phase_clip_caption(cfgs[0], clip_tok)
     torch.cuda.empty_cache()
     phase_t5_mapper(convert.init_clip(0, cfgs[0]), t5_cfgs, clip_tok, lm_tok)
+    torch.cuda.empty_cache()
+
+    tree = phase_detector()["tree"]
+    phase_detector_serve(convert.init_clip(0, cfgs[0]), convert.init_clipcap(1, cfgs[2], cfgs[1]),
+                         cfgs, clip_tok, lm_tok, tree, serve5)
+    torch.cuda.empty_cache()
+    phase_eval_detection()
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

@@ -1,9 +1,9 @@
 """HTTP serving of the port (the counterpart of apps/serve.py, the
-`application.py` entry point): POST /predict (multipart image) -> zero-shot
-classes and a caption as JSON; GET /ping; GET /.
+`application.py` entry point): POST /predict (multipart image) -> detection,
+zero-shot classes and a caption as JSON; GET /ping; GET /.
 
     python -m construction_clip_tpu_torch.apps.serve --clip_bpe bpe.txt.gz \\
-        --tokenizer vocab.txt --int8 --batch_window_ms 20
+        --tokenizer vocab.txt --enable_detector --batch_window_ms 20
 
 The flags and defaults are apps/serve.py's for what the port serves: the CLIP
 checkpoint is the .npz that `train/checkpoint.py` reads or a .pt state
@@ -14,8 +14,12 @@ phases draw them), --clip_bpe and --tokenizer are local
 files (a BERT vocab.txt or a `tokenizers` JSON), --int8 quantizes the image
 tower and GPT-2 in the port at startup (K7 runs the image tower's attention
 halves), and --device is `cuda` (the default; an error where no CUDA device
-works) or `cpu`. The object detector is not ported: its flags raise. Like
-apps/serve.py the pipeline runs under DEFAULT_POLICY.
+works) or `cpu`. --enable_detector (or --detector_checkpoint, a
+torchvision .pth) adds the Faster R-CNN (serve/detector.TorchDetector on
+--device, bf16 on the card, behind the reference's 0.8 threshold; random
+weights from numpy seed 0 without a checkpoint), whose batch is coalesced
+with the caption batch. Like apps/serve.py the pipeline runs under
+DEFAULT_POLICY.
 """
 
 from __future__ import annotations
@@ -45,8 +49,18 @@ def parse_args(argv=None):
     p.add_argument("--greedy", action="store_true", help="greedy decode instead of beam")
     p.add_argument("--int8", action="store_true",
                    help="quantize the CLIP image tower and GPT-2 to int8 at startup")
-    p.add_argument("--detector_checkpoint", default=None, help="not ported")
-    p.add_argument("--enable_detector", action="store_true", help="not ported")
+    p.add_argument("--detector_checkpoint", default=None,
+                   help="torchvision fasterrcnn .pth (the reference's model_final.pth)")
+    p.add_argument("--enable_detector", action="store_true",
+                   help="run the Faster R-CNN (random weights without a checkpoint)")
+    p.add_argument("--detector_image_size", type=int, default=800,
+                   help="detector staging square (800 = the reference's min-side; "
+                        "512 = the fast config)")
+    p.add_argument("--detector_geometry", default="letterbox", choices=["letterbox", "crop"],
+                   help="letterbox = no content lost (the reference transform's "
+                        "contract); crop = centre crop")
+    p.add_argument("--detector_num_classes", type=int, default=7,
+                   help="head size incl. background (reference application.py:14 builds 7)")
     p.add_argument("--batch_window_ms", type=float, default=0.0,
                    help=">0: coalesce concurrent requests into one device batch")
     p.add_argument("--max_batch", type=int, default=8)
@@ -64,9 +78,14 @@ def build_service(args, clip_tok, lm_tok, device):
     from construction_clip_tpu_torch.serve.app import TorchPredictService
     from construction_clip_tpu_torch.train.checkpoint import load_params_npz
 
+    detector = None
     if args.enable_detector or args.detector_checkpoint:
-        raise NotImplementedError("the object detector is not ported (--enable_detector, "
-                                  "--detector_checkpoint)")
+        from construction_clip_tpu_torch.serve.detector import TorchDetector, ThresholdWrapper
+
+        detector = ThresholdWrapper(TorchDetector(
+            args.detector_checkpoint, num_classes=args.detector_num_classes,
+            image_size=args.detector_image_size, geometry=args.detector_geometry,
+            device=device))
     clip_tree, clip_cfg = load_clip(args.clip_checkpoint, arch=args.arch)
     ccfg = ClipCapConfig(prefix_length=args.prefix_length,
                          attribute_length=args.attribute_length, mapper=args.mapping_type,
@@ -85,7 +104,7 @@ def build_service(args, clip_tok, lm_tok, device):
         cap_params = dict(cap_params, gpt=quantize_gpt2(cap_params["gpt"]))
     pipe = CaptionPipeline(clip_params=clip_params, clip_cfg=clip_cfg, cap_params=cap_params,
                            ccfg=ccfg, gcfg=gcfg, clip_tokenizer=clip_tok, lm_tokenizer=lm_tok)
-    return TorchPredictService(pipe, use_beam=not args.greedy,
+    return TorchPredictService(pipe, detector=detector, use_beam=not args.greedy,
                                batch_window_ms=args.batch_window_ms, max_batch=args.max_batch)
 
 

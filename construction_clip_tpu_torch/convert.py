@@ -14,8 +14,12 @@ For int8 serving, convert the full-precision tree and quantize it in the port
 (models/clip/quant.quantize_clip, models/gpt2.quantize_gpt2), which gives the
 JAX quantizers' bits on the same weights.
 
-`init_clip`, `init_gpt2`, `init_clipcap`, `init_t5` and `init_clipcap_t5` build
-random trees at the JAX initialisers' shapes and scales from a numpy seed, for
+The detector's tree is the exception: `to_detector_params` permutes its
+convolutions from the JAX tree's HWIO to OIHW (channels-last) once, when the
+weights are carried across.
+
+`init_clip`, `init_gpt2`, `init_clipcap`, `init_t5`, `init_clipcap_t5` and
+`init_fasterrcnn` build random trees at the JAX initialisers' shapes and scales from a numpy seed, for
 machines without JAX.
 They draw other numbers than jax.random: for parity with the JAX package, make
 the tree there and copy it with `to_params`. Given `SHAPES` for the seed, they
@@ -39,25 +43,28 @@ def _is_quantized(node) -> bool:
         np.asarray(node["q"]).dtype == np.int8
 
 
+def _tensor(a, cast, device):
+    """One leaf as a tensor of its own (bf16 through a uint16 view), floating
+    leaves cast to `cast` where given, on `device`."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if cast is not None and t.is_floating_point():
+        t = t.to(cast)
+    return t.to(device) if device is not None else t
+
+
 def to_params(tree, *, dtype=None, device=None, trainable: bool = False) -> ParamTree:
     """A nested dict of arrays -> ParamTree (floating leaves cast to `dtype` when
     given, except a quantized leaf's fp32 scale), on `device`; `trainable`
     leaves require grad (serving keeps them frozen)."""
-    def leaf(a, cast):
-        a = np.array(a, copy=True)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a)
-        if cast is not None and t.is_floating_point():
-            t = t.to(cast)
-        return t.to(device) if device is not None else t
-
     def convert(node, cast):
         if isinstance(node, dict):
             cast = None if _is_quantized(node) else cast
             return {k: convert(v, cast) for k, v in node.items()}
-        return leaf(node, cast)
+        return _tensor(node, cast, device)
 
     return ParamTree(convert(tree, dtype), trainable=trainable)
 
@@ -238,3 +245,87 @@ def init_clipcap_t5(seed: int, ccfg: ClipCapConfig, tcfg: T5Config, dtype=np.flo
 
     return {"mapper": init_mapper(seed, ccfg, mapper_shape(tcfg), dtype),
             "t5": t5_params if t5_params is not None else init_t5(seed + 1, tcfg, dtype)}
+
+
+# ---- the Faster R-CNN detector (models/detection.py) ---------------------------------
+
+def init_resnet50(seed, dtype=np.float32) -> dict:
+    """Numpy tree at construction_clip_tpu.models.resnet.init_resnet50's
+    shapes and scales (HWIO convolutions, He-normal; BatchNorm as identity
+    scale/shift)."""
+    from construction_clip_tpu_torch.models.resnet import STAGES, WIDTHS
+
+    rng = _rng(seed)
+
+    def conv(h, w, i, o):
+        return _normal(rng, (h, w, i, o), (2.0 / (h * w * i)) ** 0.5, dtype)
+
+    def bn(c):
+        return {"scale": np.ones((c,), dtype), "shift": np.zeros((c,), dtype)}
+
+    stages, c_in = [], 64
+    for n, width in zip(STAGES, WIDTHS):
+        blocks = []
+        for _ in range(n):
+            p = {"conv1": conv(1, 1, c_in, width), "bn1": bn(width),
+                 "conv2": conv(3, 3, width, width), "bn2": bn(width),
+                 "conv3": conv(1, 1, width, width * 4), "bn3": bn(width * 4)}
+            if c_in != width * 4:
+                p["downsample"] = {"conv": conv(1, 1, c_in, width * 4), "bn": bn(width * 4)}
+            blocks.append(p)
+            c_in = width * 4
+        stages.append(blocks)
+    return {"stem": {"conv": conv(7, 7, 3, 64), "bn": bn(64)}, "stages": stages}
+
+
+def init_fasterrcnn(seed, *, num_classes: int = 8, fpn_channels: int = 256,
+                    dtype=np.float32) -> dict:
+    """Numpy tree at construction_clip_tpu.models.detection.init_fasterrcnn's
+    shapes and scales (the JAX layout: HWIO convolutions, [in, out] linears;
+    lists for the stages and the FPN's levels)."""
+    from construction_clip_tpu_torch.models.detection import ASPECT_RATIOS
+    from construction_clip_tpu_torch.models.resnet import WIDTHS
+
+    rng = _rng(seed)
+    backbone = init_resnet50(rng, dtype)   # default_rng passes a Generator through
+
+    def lin(i, o, std=0.01):
+        return {"w": _normal(rng, (i, o), std, dtype), "b": np.zeros((o,), dtype)}
+
+    def conv3(i, o):
+        return {"w": _normal(rng, (3, 3, i, o), 0.01, dtype), "b": np.zeros((o,), dtype)}
+
+    a = len(ASPECT_RATIOS)
+    return {
+        "backbone": backbone,
+        "fpn": {"inner": [lin(w * 4, fpn_channels) for w in WIDTHS],
+                "layer": [conv3(fpn_channels, fpn_channels) for _ in WIDTHS]},
+        "rpn": {"conv": conv3(fpn_channels, fpn_channels),
+                "cls": lin(fpn_channels, a), "bbox": lin(fpn_channels, a * 4)},
+        "box_head": {"fc6": lin(fpn_channels * 7 * 7, 1024), "fc7": lin(1024, 1024),
+                     "cls_score": lin(1024, num_classes),
+                     "bbox_pred": lin(1024, num_classes * 4)},
+    }
+
+
+def to_detector_params(tree, *, dtype=None, device=None) -> dict:
+    """A detector tree in the JAX layout (`init_fasterrcnn` of either package,
+    `models/detection.from_torchvision_state_dict`, leaves numpy or JAX
+    arrays) -> the port's: nested dicts and lists of frozen tensors on
+    `device`, floating leaves in `dtype` where given.
+
+    This is the one place the port transposes weights: every 4-D leaf (a
+    convolution, HWIO in the JAX tree) is permuted to torch's OIHW and kept
+    in channels-last memory, the layout cuDNN's NHWC kernels read, once here
+    and never per call. Linear weights stay [in, out]."""
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        t = _tensor(node, dtype, device)
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return t
+
+    return convert(tree)

@@ -1,6 +1,6 @@
 """Host side of the input pipeline (the port's copy of default_load_image,
-host_shape_unify, ImageTextLoader and ArrayLoader from
-construction_clip_tpu/data/pipeline.py): threaded image decode, host shape
+host_shape_unify, letterbox_dims, host_letterbox, ImageTextLoader and
+ArrayLoader from construction_clip_tpu/data/pipeline.py): threaded image decode, host shape
 unification, tokenisation, shuffled batches of in-memory arrays and a prefetch
 queue. The copy to a device is data/loader.py's TorchImageTextLoader and
 TorchArrayLoader.
@@ -36,6 +36,33 @@ def host_shape_unify(img: np.ndarray, size: int) -> np.ndarray:
         # crop the index arrays, then gather: no [nh, nw] intermediate
         img = img[ys[top: top + size]][:, xs[left: left + size]]
     return img
+
+
+def letterbox_dims(h: int, w: int, size: int) -> tuple[int, int]:
+    """Effective (nh, nw) of the content region after host_letterbox: long side
+    scaled to `size`, aspect preserved, each side at least 1 px."""
+    scale = size / max(h, w)
+    return (max(1, min(size, int(round(h * scale)))),
+            max(1, min(size, int(round(w * scale)))))
+
+
+def host_letterbox(img: np.ndarray, size: int) -> np.ndarray:
+    """Uniform [size,size,3] uint8 via aspect-preserving long-side scale
+    (nearest-neighbour) + zero pad (bottom/right): the detector's staging.
+    No content is discarded, as torchvision's GeneralizedRCNNTransform
+    resizes and batch-pads but never crops; boxes map back by a per-axis
+    scale (serve/detector.TorchDetector._map_back)."""
+    h, w = img.shape[:2]
+    nh, nw = letterbox_dims(h, w, size)
+    if (nh, nw) != (h, w):
+        ys = (np.arange(nh) * (h / nh)).astype(np.int32).clip(0, h - 1)
+        xs = (np.arange(nw) * (w / nw)).astype(np.int32).clip(0, w - 1)
+        img = img[ys][:, xs]
+    if (nh, nw) == (size, size):
+        return img
+    out = np.zeros((size, size, 3), dtype=img.dtype)
+    out[:nh, :nw] = img
+    return out
 
 
 class ImageTextLoader:

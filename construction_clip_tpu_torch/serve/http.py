@@ -1,6 +1,7 @@
-"""HTTP serving layer (the port's copy of the detector-free path of
-construction_clip_tpu/serve/app.py): request coalescing, routes and the
-`application.py` JSON contract, stdlib only.
+"""HTTP serving layer (the port's copy of construction_clip_tpu/serve/app.py's
+serving path): request coalescing, detection coalesced into the same drained
+batch as captioning, routes and the `application.py` JSON contract, stdlib
+only.
 
 Routes (reference application.py:231-263):
   POST /predict  multipart file upload -> {"boxes", "labels", "scores",
@@ -9,7 +10,8 @@ Routes (reference application.py:231-263):
   GET  /ping     {"response": <name>}
   GET  /         "Hello, World!"
 
-The object detector is not ported: boxes, labels and scores are empty lists.
+boxes, labels and scores come from the detector (serve/detector.py); without
+one (NullDetector) they are empty lists.
 """
 
 from __future__ import annotations
@@ -24,29 +26,41 @@ from typing import Optional
 import numpy as np
 
 from construction_clip_tpu_torch.data.pipeline import host_shape_unify
+from construction_clip_tpu_torch.serve.detector import NullDetector
 
 IMAGE_EXTENSIONS = {"ras", "xwd", "bmp", "jpe", "jpg", "jpeg", "xpm", "ief", "pbm",
                     "tif", "gif", "ppm", "xbm", "tiff", "rgb", "pgm", "png", "pnm"}
-_NO_DETECTIONS = {"boxes": [], "labels": [], "scores": []}
+
+
+def pow2_pad(items: list, cap: int) -> list:
+    """items padded with copies of the last to the next power of two, capped
+    at `cap`: a drain of n requests then runs one of log2(cap)+1 batch shapes
+    (a non-power-of-two cap, e.g. 12, never pads past itself)."""
+    padded = 1
+    while padded < len(items):
+        padded *= 2
+    padded = min(padded, cap)
+    return list(items) + [items[-1]] * (padded - len(items))
 
 
 class PredictService:
-    """Serves one caption pipeline. With batch_window_ms > 0, concurrent
-    requests are coalesced into one device batch by a batcher thread;
-    `_caption_batch(staged_list)` (a subclass's) captions one such batch.
-    Device work is serialised by a lock; decoding uploads and JSON stay
-    threaded."""
+    """Serves one caption pipeline and a detector. With batch_window_ms > 0,
+    concurrent requests are coalesced into one device batch by a batcher
+    thread; `_caption_batch(staged_list)` (a subclass's) captions one such
+    batch, and a real detector (one with an image_size) detects the same
+    drained batch in one `detect_batch`. Device work is serialised by a lock;
+    decoding uploads and JSON stay threaded."""
 
     def __init__(self, caption_pipeline, detector=None, *, use_beam: bool = True,
                  batch_window_ms: float = 0.0, max_batch: int = 16):
-        if detector is not None:
-            raise NotImplementedError("the object detector is not ported")
         self.pipe = caption_pipeline
+        self.detector = detector or NullDetector()
         self.use_beam = use_beam
         self._lock = threading.Lock()
         self._window = batch_window_ms / 1e3
         self._max_batch = max_batch
-        self._pending: list = []  # [(staged, Event, slot)]
+        self._det_size = getattr(self.detector, "image_size", None)
+        self._pending: list = []  # [(staged_cap, staged_det, (h, w), Event, slot)]
         self._cv = threading.Condition()
         if self._window > 0:
             threading.Thread(target=self._drain_loop, daemon=True,
@@ -55,31 +69,50 @@ class PredictService:
     def _caption_batch(self, staged_list):
         raise NotImplementedError
 
+    def _detect_batch(self, staged_list, sizes):
+        n = len(staged_list)
+        staged_list = pow2_pad(staged_list, self._max_batch)
+        sizes = pow2_pad(sizes, self._max_batch)
+        return self.detector.detect_batch(np.stack(staged_list), sizes)[:n]
+
     def predict(self, image_u8: np.ndarray) -> dict:
         staged = host_shape_unify(image_u8, 256)
         if self._window <= 0:
+            detection = self.detector.detect(image_u8)
             with self._lock:
                 pred = self._caption_batch([staged])[0]
+        elif self._det_size is None:   # null detector: free, stays inline
+            detection = self.detector.detect(image_u8)
+            pred, _ = self._predict_batched(staged, None, image_u8.shape[:2])
         else:
-            pred = self._predict_batched(staged)
-        return {**_NO_DETECTIONS,
-                "caption_type": pred["caption_type"],
-                "violation_type": pred["violation_type"],
-                "caption": pred["caption"]}
+            # a real detector owns its staging geometry (letterbox by default);
+            # one without stage() gets the centre-crop unify
+            stage_fn = getattr(self.detector, "stage", None)
+            det_staged = (stage_fn(image_u8) if stage_fn
+                          else host_shape_unify(image_u8, self._det_size))
+            pred, detection = self._predict_batched(staged, det_staged, image_u8.shape[:2])
+        return {
+            "boxes": detection["boxes"],
+            "labels": detection["labels"],
+            "scores": detection["scores"],
+            "caption_type": pred["caption_type"],
+            "violation_type": pred["violation_type"],
+            "caption": pred["caption"],
+        }
 
-    def _predict_batched(self, staged):
+    def _predict_batched(self, staged, det_staged, size):
         done = threading.Event()
-        slot: list = [None, None]  # [caption result, error]
+        slot: list = [None, None, None]  # [caption result, detection, error]
         with self._cv:
-            self._pending.append((staged, done, slot))
+            self._pending.append((staged, det_staged, size, done, slot))
             self._cv.notify()
         # bounded wait: if the batcher thread ever dies, fail fast instead of
         # hanging every later request on an event nobody will set
         if not done.wait(timeout=300.0):
             raise RuntimeError("predict batcher did not respond within 300 s")
-        if slot[1] is not None:
-            raise slot[1]
-        return slot[0]
+        if slot[2] is not None:
+            raise slot[2]
+        return slot[0], slot[1]
 
     def _drain_loop(self):
         """Wait up to the coalescing window for a FULL batch to form, then drain
@@ -101,12 +134,15 @@ class PredictService:
             try:
                 with self._lock:
                     preds = self._caption_batch([b[0] for b in batch])
-                for (_, ev, sl), p in zip(batch, preds):
+                    dets = (self._detect_batch([b[1] for b in batch], [b[2] for b in batch])
+                            if self._det_size is not None else [None] * len(batch))
+                for (_, _, _, ev, sl), p, d in zip(batch, preds, dets):
                     sl[0] = p
+                    sl[1] = d
                     ev.set()
             except Exception as e:  # noqa: BLE001 — propagate to every waiter, keep serving
-                for _, ev, sl in batch:
-                    sl[1] = e
+                for _, _, _, ev, sl in batch:
+                    sl[2] = e
                     ev.set()
 
 

@@ -160,7 +160,13 @@ def _imports(path):
 
 def test_port_imports_nothing_of_the_jax_package():
     """An AST scan, so imports inside functions count too: no jax, no
-    construction_clip_tpu(.*), no tools/make_offline_assets."""
+    construction_clip_tpu(.*), no tools/make_offline_assets. The detector's
+    modules are among the files scanned."""
+    scanned = {os.path.relpath(p, REPO) for p in _python_files()}
+    port = "construction_clip_tpu_torch"
+    assert {f"{port}/models/resnet.py", f"{port}/models/detection.py",
+            f"{port}/serve/detector.py", f"{port}/infer/detection_eval.py",
+            f"{port}/apps/eval_detection.py"} <= scanned
     bad = []
     for path in _python_files():
         for module in _imports(path):
@@ -429,3 +435,186 @@ def test_product_e2e_synthesis_gives_the_original_images_and_subsets():
             run_product_e2e._round_robin_subset(raw, n, key=key)
     assert product_e2e._round_robin_subset(anns, 40) == \
         run_product_e2e._round_robin_subset(anns, len(anns))
+
+
+# ---- the detector's host copies, and the reference's quirks both packages keep -----------
+
+@pytest.mark.parametrize("hw", [(256, 256), (480, 640), (301, 257), (1080, 1920), (40, 50),
+                                (3, 900)])
+@pytest.mark.parametrize("size", [800, 128])
+def test_letterbox_gives_the_original_arrays(hw, size):
+    img = (np.random.default_rng(hw[1]).random(hw + (3,)) * 255).astype(np.uint8)
+    assert pipeline.letterbox_dims(*hw, size) == j_pipeline.letterbox_dims(*hw, size)
+    got = pipeline.host_letterbox(img, size)
+    assert got.shape == (size, size, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, j_pipeline.host_letterbox(img, size))
+
+
+def _eval_inputs(seed):
+    gen = np.random.default_rng(seed)
+    preds, gts = [], []
+    for _ in range(4):
+        gt = gen.uniform(0, 80, (3, 2))
+        gt_boxes = np.concatenate([gt, gt + gen.uniform(5, 40, (3, 2))], axis=1)
+        gt_labels = gen.integers(1, 4, 3)
+        jitter = gen.normal(0, 3, (5, 4))
+        boxes = np.concatenate([gt_boxes, gt_boxes[:2]]) + jitter
+        labels = np.concatenate([gt_labels, gen.integers(1, 4, 2)])
+        preds.append({"boxes": boxes, "labels": labels, "scores": gen.random(5)})
+        gts.append({"boxes": gt_boxes, "labels": gt_labels})
+    return preds, gts
+
+
+def test_detection_eval_gives_the_original_metrics():
+    """infer/detection_eval.py's copy: the metrics, the AP of a curve, the
+    eval format of fixed-slot detections and the centre-square clip."""
+    from construction_clip_tpu.infer import detection_eval as j_eval
+
+    from construction_clip_tpu_torch.infer import detection_eval
+
+    assert detection_eval.IOU_THRESHOLDS == j_eval.IOU_THRESHOLDS
+    for seed in (0, 1):
+        preds, gts = _eval_inputs(seed)
+        for nc in (4, 6):
+            assert detection_eval.evaluate_detections(preds, gts, num_classes=nc) == \
+                j_eval.evaluate_detections(preds, gts, num_classes=nc)
+    rec, prec = np.asarray([0.1, 0.4, 0.4, 0.9]), np.asarray([1.0, 0.5, 0.7, 0.3])
+    assert detection_eval.average_precision(rec, prec) == j_eval.average_precision(rec, prec)
+
+    class Det:
+        boxes = np.arange(12, dtype=np.float32).reshape(3, 4)
+        labels = np.asarray([2, 1, 0])
+        scores = np.asarray([0.9, 0.2, 0.0], np.float32)
+
+    got, want = detection_eval.detections_to_eval_format(Det, min_score=0.1), \
+        j_eval.detections_to_eval_format(Det, min_score=0.1)
+    for k in ("boxes", "labels", "scores"):
+        np.testing.assert_array_equal(got[k], want[k])
+    boxes = [[0, 0, 50, 50], [100, 10, 150, 60], [-5, 0, 30, 20], [60, 60, 90, 95]]
+    for h, w in ((100, 200), (200, 100), (100, 100)):
+        assert detection_eval.clip_gt_to_center_square(boxes, [1, 2, 3, 4], h, w) == \
+            j_eval.clip_gt_to_center_square(boxes, [1, 2, 3, 4], h, w)
+
+
+class _RawDetector:
+    """A raw detector that answers fixed detections of every label 0..7."""
+    image_size = 64
+    geometry = "letterbox"
+
+    def __init__(self):
+        self.staged = []
+
+    def detect(self, image_u8):
+        return {"boxes": [[i, i, i + 5.0, i + 6.0] for i in range(8)],
+                "labels": list(range(8)), "scores": [0.5 + 0.06 * i for i in range(8)]}
+
+    def detect_batch(self, staged_u8, sizes):
+        return [self.detect(None) for _ in sizes]
+
+    def stage(self, image_u8):
+        self.staged.append(image_u8)
+        return "staged by the inner detector"
+
+
+def test_null_detector_and_threshold_wrapper_give_the_original_dicts():
+    from construction_clip_tpu.serve import detector as j_detector
+
+    from construction_clip_tpu_torch.serve import detector
+
+    img = np.zeros((10, 12, 3), np.uint8)
+    assert detector.NullDetector().detect(img) == j_detector.NullDetector().detect(img)
+    assert detector.NullDetector().detect_batch(None, [(1, 2)] * 3) == \
+        j_detector.NullDetector().detect_batch(None, [(1, 2)] * 3)
+    for threshold in (0.0, 0.7, 0.8):
+        port = detector.ThresholdWrapper(_RawDetector(), threshold=threshold)
+        orig = j_detector.ThresholdWrapper(_RawDetector(), threshold=threshold)
+        assert port.detect(img) == orig.detect(img)
+        assert port.detect_batch(None, [(1, 2)] * 2) == orig.detect_batch(None, [(1, 2)] * 2)
+        assert (port.image_size, port.geometry) == (orig.image_size, orig.geometry) == \
+            (64, "letterbox")
+    assert port.detect(img)["labels"] == ["模板", "施工架", "人員"]   # labels 5-7 at 0.8
+
+
+def test_a_seven_class_head_never_emits_the_eighth_name():
+    """DETECTOR_CLASSES has 8 names, serving defaults to 7 classes (the
+    reference head) and eval to 8, in both packages: a 7-class head's labels
+    are 0..6, so label 7 ("人員") is never emitted. Both detectors on one
+    7-class tree at 64 px, every slot live at threshold 0."""
+    import inspect
+
+    import jax
+    import jax.numpy as jnp
+
+    from construction_clip_tpu.models import detection as j_det
+    from construction_clip_tpu.serve import detector as j_detector
+
+    from construction_clip_tpu_torch import convert
+    from construction_clip_tpu_torch.apps import eval_detection
+    from construction_clip_tpu_torch.models import detection as t_det
+    from construction_clip_tpu_torch.serve import detector
+
+    assert len(labels.DETECTOR_CLASSES) == len(j_labels.DETECTOR_CLASSES) == 8
+    for cls in (detector.TorchDetector, j_detector.JaxDetector):
+        assert inspect.signature(cls).parameters["num_classes"].default == 7
+    assert eval_detection.parse_args(["--json_path", "x"]).num_classes == 8
+    tree = convert.init_fasterrcnn(7, num_classes=7)
+    img = np.random.default_rng(7).random((64, 64, 3)).astype(np.float32)
+    kw = dict(image_size=64, num_classes=7, pre_nms_topk=50, post_nms_topk=20,
+              detections_per_img=30, score_thresh=0.0)
+    got = t_det.fasterrcnn_infer(convert.to_detector_params(tree), torch.from_numpy(img)[None],
+                                 **kw).labels[0].numpy()
+    want = np.asarray(jax.jit(j_det.fasterrcnn_infer, static_argnames=tuple(kw))(
+        tree, jnp.asarray(img), **kw).labels)
+    for lab in (got, want):
+        assert lab.max() <= 6 and (lab > 0).any()
+    wrapped = [detector.ThresholdWrapper(_RawDetector(), threshold=0.0),
+               j_detector.ThresholdWrapper(_RawDetector(), threshold=0.0)]
+    names = [set(w._apply({"boxes": [[0, 0, 1, 1]] * len(got), "labels": [int(v) for v in got],
+                           "scores": [1.0] * len(got)})["labels"]) for w in wrapped]
+    assert names[0] == names[1] and "人員" not in names[0]
+
+
+def test_threshold_wrapper_stage_passes_straight_to_the_inner_detector():
+    """ThresholdWrapper.stage delegates without any check in both packages:
+    the inner detector's answer comes back as it is, whatever it is, and an
+    inner detector without stage() raises AttributeError."""
+    from construction_clip_tpu.serve import detector as j_detector
+
+    from construction_clip_tpu_torch.serve import detector
+
+    img = np.ones((5, 7, 3), np.uint8)
+    for mod in (detector, j_detector):
+        inner = _RawDetector()
+        assert mod.ThresholdWrapper(inner).stage(img) == "staged by the inner detector"
+        assert inner.staged[0] is img
+        with pytest.raises(AttributeError):
+            mod.ThresholdWrapper(mod.NullDetector()).stage(img)
+
+
+def test_eval_scores_a_band_object_under_letterbox_as_jax():
+    """eval_detection stages by letterbox but clips ground truth to the
+    centre square: on a 100 x 300 image an object in the left band is
+    excluded from the ground truth, and the detection of it, which the
+    letterbox staging lets the detector make, is a false positive, in both
+    packages alike (the port's evaluate_image against the JAX app's loop)."""
+    from construction_clip_tpu.infer import detection_eval as j_eval
+
+    from construction_clip_tpu_torch.apps import eval_detection
+    from construction_clip_tpu_torch.infer import detection_eval
+
+    band, centre = [10.0, 20.0, 60.0, 80.0], [120.0, 10.0, 180.0, 90.0]
+
+    class Letterboxed:
+        def detect(self, image_u8):
+            return {"boxes": [band, centre], "labels": [2, 1], "scores": [0.9, 0.8]}
+
+    ann = {"boxes": [band, centre], "labels": [2, 1]}
+    img = np.zeros((100, 300, 3), np.uint8)
+    pred, gt, n_out = eval_detection.evaluate_image(Letterboxed(), img, ann)
+    j_boxes, j_labels, j_out = j_eval.clip_gt_to_center_square(ann["boxes"], ann["labels"],
+                                                               100, 300)
+    assert (gt, n_out) == ({"boxes": j_boxes, "labels": j_labels}, j_out) and n_out == 1
+    got = detection_eval.evaluate_detections([pred], [gt], num_classes=3)
+    assert got == j_eval.evaluate_detections([pred], [{"boxes": j_boxes, "labels": j_labels}],
+                                             num_classes=3)
+    assert got["per_class"] == {1: 1.0} and got["AP50"] == 1.0   # class 2: no ground truth left

@@ -351,8 +351,12 @@ def test_serve_app_builds_the_service_on_cpu(int8, rng):
     assert out["caption_type"] in ("violation", "status") and isinstance(out["caption"], str)
 
 
-def test_serve_app_refuses_the_detector():
-    args = serve_app.parse_args(["--enable_detector", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_app.build_service(args, None, None, torch.device("cpu"))
-    assert isinstance(args, argparse.Namespace)
+def test_serve_app_refuses_the_detector(monkeypatch):
+    """The detector is ported: --enable_detector builds it on --device, and a
+    CUDA device that does not work is refused there, with no move to the
+    CPU."""
+    args = serve_app.parse_args(["--enable_detector", "--arch", "tiny", "--device", "cpu"])
+    assert isinstance(args, argparse.Namespace) and args.detector_image_size == 800
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_app.build_service(args, None, None, torch.device("cuda"))
