@@ -229,6 +229,33 @@ Phases, each printing one line (the last line is the JSON verdict):
      images through a load_image hook (one missing), the app's defaults (8
      classes, 512 px, fp32), the ground truth from each image's own top
      detections plus a band object: the metrics JSON, AP50 above 0.
+ 42. Faster R-CNN training (train/detection.make_detection_train_step) at
+     serving width: 800 px, 7 classes, bf16 compute on the fp32 master tree
+     of phase 39's weights made trainable, AdamW with the global-norm clip:
+     10 steps of the default loss at B=4 on 3-5 synthetic boxes an image (the
+     first batch's loss must fall), then 4 tv_faithful steps at B=2, post-NMS
+     512 (finite); the median step, its device time, peak memory, the NMS
+     iterations; no hand kernel launches (no Pallas call on this path).
+ 43. one detection train step in fp32 at 256 px, B=2, on the card (TF32 off)
+     against the CPU from the same tree, for both losses (the RPN samples
+     drawn on the CPU and passed to both; the CPU on the card's ReLU masks):
+     the loss and every gradient leaf within phase 28's bound; the TF32 run
+     beside it as the control.
+ 44. the show-attend-tell trainer at the reference widths (embed 300,
+     attention 256, decoder 512, the fp32 ResNet-50 grid 49 x 2048 at 224):
+     train_attention's loader (a load_image hook), encoder and
+     make_lstm_train_step, B=32, captions of a synthetic Chinese corpus cut
+     to 32 ids, dropout 0.3, 10 steps: the first batch's loss falls; the
+     median step and its device time; no hand kernel launches.
+ 45. eval_attention's per-image function (greedy, max_len 20) on phase 44's
+     params for 4 images, and generate_caption on the 4 at once, card against
+     CPU with TF32 off, eos a token that stops one caption (at step 2 or
+     later where one does) while another runs to max_len: the captions not
+     all equal, the same words, tokens and lengths, alphas within 1e-5;
+     seconds an image.
+Each of phases 42-45 prints its wall seconds. `--only NAME[,NAME]` (the
+names of SUBSETS) runs the device line and those phases alone, without the
+verdict, for a quicker look; the gate is the run without arguments.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -1260,8 +1287,10 @@ def phase_train(name: str, cfg, params_np, batch, steps: int, device) -> dict:
 
 
 def _paths(tree, prefix=""):
-    for key, value in tree.items():
-        if isinstance(value, dict):
+    """The leaves' paths of nested dicts and lists, in tree_leaves' order."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
+        if isinstance(value, (dict, list)):
             yield from _paths(value, f"{prefix}{key}/")
         else:
             yield f"{prefix}{key}"
@@ -3615,7 +3644,420 @@ def phase_eval_detection(device="cuda") -> dict:
     return metrics
 
 
+# ---- detection training and the show-attend-tell captioner (phases 42-45) ---------------
+
+DETECT_TRAIN_BATCH = 4
+DETECT_TV_BATCH = 2
+DETECT_PARITY_SIZE = 256
+DETECT_GT_MAX = 5          # ground truth padded to 5 rows, 3-5 live
+# phase 43's bound on each gradient leaf, |card - CPU| over the CPU leaf's largest
+# element: phase 28's (CAPTION_GRAD_TOL), fp32 with TF32 off
+DETECT_GRAD_TOL = CAPTION_GRAD_TOL
+LSTM_WIDTHS = dict(embed_size=300, attention_dim=256, decoder_dim=512)   # the JAX app's
+LSTM_BATCH, LSTM_MAX_LEN, LSTM_STEPS = 32, 32, 10
+LSTM_EVAL_IMAGES, LSTM_EVAL_MAX_LEN = 4, 20
+LSTM_ALPHA_TOL = 1e-5
+
+
+def detection_batch(gen, n: int, size: int):
+    """n synthetic images [n, size, size, 3] in [0, 1] with 3-5 ground-truth
+    boxes each (sides 6-50% of the image, labels 1..6), padded to
+    DETECT_GT_MAX rows of label 0."""
+    images = gen.random((n, size, size, 3), dtype=np.float32)
+    boxes = np.zeros((n, DETECT_GT_MAX, 4), np.float32)
+    labels = np.zeros((n, DETECT_GT_MAX), np.int64)
+    for i in range(n):
+        for j in range(int(gen.integers(3, DETECT_GT_MAX + 1))):
+            w, h = gen.uniform(0.06, 0.5, 2) * size
+            x, y = gen.uniform(0, size - w), gen.uniform(0, size - h)
+            boxes[i, j] = [x, y, x + w, y + h]
+            labels[i, j] = int(gen.integers(1, DETECTOR_CLASSES_N))
+    return images, boxes, labels
+
+
+def _on_device(images, boxes, labels, device):
+    from construction_clip_tpu_torch.train.detection import DetectionBatch
+
+    return DetectionBatch(*(torch.from_numpy(a).to(device) for a in (images, boxes, labels)))
+
+
+def phase_detection_train(device="cuda") -> dict:
+    """Phase 42: train/detection.make_detection_train_step at serving width
+    (ResNet-50-FPN, 800 px, 7 classes, bf16 compute on the fp32 master tree
+    of detector_tree(39) made trainable; AdamW lr 1e-4 with the global-norm
+    clip at 1): 10 steps of the default loss at B=4, each step's sample from
+    its own seed; the first batch's loss at seed 0 after them must be below
+    step 1's. Then 4 tv_faithful steps at B=2, post-NMS 512: finite. The
+    median step on the host's clock, a step's device time (its kernels
+    under torch.profiler), the peak memory above what was allocated before
+    the first step (the params, the moments and earlier phases' tensors lie
+    below that line), the launches of K1-K10 (none: the JAX step runs no Pallas kernel) and
+    the tv steps' NMS iterations."""
+    from construction_clip_tpu_torch.train import detection as dt
+
+    tree = detector_tree()
+    gen = np.random.default_rng(42)
+    kw = dict(image_size=DETECTOR_SIZE, num_classes=DETECTOR_CLASSES_N,
+              compute_dtype=torch.bfloat16)
+    out = {}
+    for name, bsz, steps in (("default", DETECT_TRAIN_BATCH, 10),
+                             ("tv_faithful", DETECT_TV_BATCH, 4)):
+        params = convert.to_detector_params(tree, device=device, trainable=True)
+        tx = make_adamw(1e-4, warmup_steps=0, total_steps=1000, grad_clip=1.0)
+        state = TrainState.create(params, tx)
+        stats: dict = {}
+        step = dt.make_detection_train_step(tx, tv_faithful=name == "tv_faithful",
+                                            stats=stats, **kw)
+        batch = _on_device(*detection_batch(gen, bsz, DETECTOR_SIZE), device)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        reset_launches()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, i)
+            losses.append(float(m["loss"]))   # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = launches()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"detection {name}: loss not finite: {losses}")
+        if any(counts.values()):
+            raise AssertionError(f"detection {name}: a hand kernel launched: {counts}")
+        res = {"batch": bsz, "image_size": DETECTOR_SIZE, "losses": losses,
+               "median_step_ms": statistics.median(times[1:]), "first_step_ms": times[0],
+               "peak_gib_above_start": peak, "allocated_at_start_gib": base / 2 ** 30,
+               "launches": counts}
+        if name == "default":
+            with torch.no_grad():
+                after = float(dt.detection_loss(state.params, batch, 0, **kw))
+            res["step1_batch_loss_after"] = after
+            if not after < losses[0]:
+                raise AssertionError(f"detection loss did not fall: {losses[0]} -> {after}")
+            res["anchors_per_image"] = sum(3 * (-(-DETECTOR_SIZE // s)) ** 2
+                                           for s in (4, 8, 16, 32, 64))
+        else:
+            its = stats["nms_iterations"]
+            res["nms_iterations"] = {"min": min(its), "max": max(its),
+                                     "median": statistics.median(its), "calls": len(its)}
+        res["step_device_ms"] = sum(kernel_device_ms(
+            lambda: step(state, batch, 0), reps=2).values())
+        say(f"detection_train_{name}", **res)
+        out[name] = res
+        del params, state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_detection_train_parity(device="cuda") -> dict:
+    """Phase 43: one train step's fp32 loss and gradients at 256 px, B=2, on
+    the card (TF32 off in cuBLAS and cuDNN) against the port on the CPU, from
+    the same tree, for the default loss (its RPN samples drawn on the CPU
+    and passed to both) and for tv_faithful. ReLU's derivative steps at 0:
+    the CPU run takes the card run's ReLU masks (relu_masks), the signs its
+    own forward gives otherwise counted. Each leaf's largest difference over
+    the CPU leaf's largest element must be within DETECT_GRAD_TOL; the same
+    steps with TF32 on, beside them, are the control."""
+    from construction_clip_tpu_torch.train import detection as dt
+
+    tree = detector_tree()
+    gen = np.random.default_rng(43)
+    arrays = detection_batch(gen, 2, DETECT_PARITY_SIZE)
+    kw = dict(image_size=DETECT_PARITY_SIZE, num_classes=DETECTOR_CLASSES_N)
+    names = list(_paths(tree))
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    def cpu_sampler(labels, seed, image):
+        return tuple(t.to(labels.device) for t in dt.rpn_sampler(labels.cpu(), seed, image))
+
+    def run(dev, loss_name, record, replay=None, tf32=False):
+        params = convert.to_detector_params(tree, device=dev, trainable=True)
+        batch = _on_device(*arrays, dev)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            t0 = time.perf_counter()
+            with relu_masks(record, replay):
+                if loss_name == "default":
+                    loss = dt.detection_loss(params, batch, 0, sampler=cpu_sampler, **kw)
+                else:
+                    loss = sum(dt.tv_detection_losses(
+                        params, batch.images, batch.gt_boxes, batch.gt_labels,
+                        pre_nms_topk=1024, post_nms_topk=512, **kw).values()).mean()
+                grads = torch.autograd.grad(loss, tree_leaves(params))
+            return float(loss.detach()), [g.cpu() for g in grads], time.perf_counter() - t0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+    def errors(a, b):
+        return {n: float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for n, x, y in zip(names, a[1], b[1])}
+
+    report = {}
+    for loss_name in ("default", "tv_faithful"):
+        card_masks, cpu_masks = [], []
+        card = run(device, loss_name, card_masks)
+        cpu = run("cpu", loss_name, cpu_masks, replay=card_masks)
+        tf32 = run(device, loss_name, [], tf32=True)
+        errs, control = errors(card, cpu), errors(tf32, cpu)
+        worst, control_worst = max(errs, key=errs.get), max(control, key=control.get)
+        res = {"loss_card": card[0], "loss_cpu": cpu[0],
+               "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+               "worst_leaf": worst, "worst_leaf_err": errs[worst], "tol": DETECT_GRAD_TOL,
+               "errors_by_leaf": {n: errs[n] for n in sorted(errs, key=errs.get)[-4:]},
+               "relu_elements": sum(m.numel() for m in card_masks),
+               "relu_signs_the_cpu_gives_otherwise": sum(
+                   int((a != b).sum()) for a, b in zip(card_masks, cpu_masks)),
+               "tf32_worst_leaf": control_worst, "tf32_worst_leaf_err": control[control_worst],
+               "tf32_loss_rel_err": abs(tf32[0] - cpu[0]) / abs(cpu[0]),
+               "card_s": card[2], "cpu_s": cpu[2]}
+        say(f"detection_train_parity_{loss_name}", batch=2, image_size=DETECT_PARITY_SIZE,
+            leaves=len(names), **res)
+        if res["loss_rel_err"] > 1e-5 or res["worst_leaf_err"] > DETECT_GRAD_TOL:
+            raise AssertionError(f"detection step {loss_name}, card against CPU: {res}")
+        report[loss_name] = res
+    return report
+
+
+def lstm_corpus(gen, n: int, *, chars: int = 3000, lo: int = 8, hi: int = 30):
+    """n synthetic Chinese captions: lengths lo..hi characters drawn
+    Zipf-like (weight 1/rank) from `chars` CJK characters, spaces between
+    words of 2-4 characters."""
+    pool = [chr(0x4E00 + i) for i in gen.permutation(20000)[:chars]]
+    p = 1.0 / np.arange(1, chars + 1)
+    p /= p.sum()
+    caps = []
+    for _ in range(n):
+        text = "".join(pool[i] for i in gen.choice(chars, size=int(gen.integers(lo, hi + 1)),
+                                                   p=p))
+        cuts = np.cumsum(gen.integers(2, 5, size=len(text)))
+        caps.append(" ".join(text[a:b] for a, b in zip(np.r_[0, cuts], cuts) if a < len(text)))
+    return caps
+
+
+def phase_lstm_train(device="cuda") -> dict:
+    """Phase 44: train_attention's step at the reference widths (embed 300,
+    attention 256, decoder 512, encoder 2048), B=32, captions cut to 32 ids,
+    dropout 0.3, Adam lr 3e-4: the app's building blocks (its vocabulary,
+    TorchImageTextLoader with a load_image hook over 320 synthetic images,
+    the fp32 ResNet-50 encode at 224, make_lstm_train_step) for one epoch of
+    10 steps; the first batch's loss (dropout off) after them must be below
+    its loss before. The median step and its device time (encode and step,
+    their kernels under torch.profiler), peak memory; no hand kernel
+    launches. Returns what phase 45 reads."""
+    import types
+
+    from construction_clip_tpu_torch.apps import train_attention as app
+    from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
+    from construction_clip_tpu_torch.data.vocabulary import Vocabulary
+    from construction_clip_tpu_torch.models.lstm_captioner import (caption_lm_loss,
+                                                                   captioner_forward)
+    from construction_clip_tpu_torch.train.lstm import make_lstm_train_step
+    from construction_clip_tpu_torch.train.state import adam
+
+    gen = np.random.default_rng(44)
+    n = LSTM_BATCH * LSTM_STEPS
+    texts = lstm_corpus(gen, n)
+    vocab = Vocabulary(5)
+    vocab.build_vocabulary(texts)
+    # a colour tint each, so that the images differ beyond their noise and the
+    # captioner's greedy captions differ from image to image (phase 45)
+    images = {f"{i}.jpg": (im * (0.25 + 0.75 * gen.random(3))).astype(np.uint8)
+              for i, im in enumerate(synthetic_images(
+                  gen, [(256, 256)] * (n // 4) + [(300, 400)] * (n - n // 4)))}
+    files = sorted(images, key=lambda f: int(f.split(".")[0]))
+
+    class Dataset:
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return files[i], texts[i]
+
+    def tokenize(batch_texts):
+        return np.asarray([vocab.encode_caption(t, LSTM_MAX_LEN) for t in batch_texts],
+                          dtype=np.int32)
+
+    loader = TorchImageTextLoader(Dataset(), tokenize, batch_size=LSTM_BATCH, device=device,
+                                  load_image=lambda path: images[os.path.basename(path)])
+    args = types.SimpleNamespace(**LSTM_WIDTHS)
+    enc_params = app.load_encoder(None, device)
+    encode = app.make_encoder(enc_params)
+    tx = adam(3e-4)
+    state = TrainState.create(app.init_captioner(args, len(vocab), device), tx)
+    step = make_lstm_train_step(tx, dropout_rate=app.DROPOUT)
+    first = None
+
+    def first_loss():
+        with torch.no_grad():
+            logits, _ = captioner_forward(state.params.tree(), first["features"],
+                                          first["tokens"].long())
+            return float(caption_lm_loss(logits, first["tokens"]))
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times, encode_ms = [], [], []
+    for batch in loader:
+        t0 = time.perf_counter()
+        feats = encode(batch["images"])
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        if first is None:   # its step's time, which includes this, is left out below
+            first = {"features": feats, "tokens": batch["tokens"]}
+            before = first_loss()
+        state, m = step(state, {"features": feats, "tokens": batch["tokens"]}, state.step)
+        losses.append(float(m["loss"]))   # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    after = first_loss()
+    if len(losses) != LSTM_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"lstm: {len(losses)} steps, losses {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"lstm: a hand kernel launched: {counts}")
+    if not after < before:
+        raise AssertionError(f"lstm: the first batch's loss did not fall: {before} -> {after}")
+    feats, toks = first["features"], first["tokens"]
+    device_ms = sum(kernel_device_ms(lambda: step(state, {"features": encode(batch["images"]),
+                                                          "tokens": toks}, 0),
+                                     reps=2).values())
+    encode_device_ms = sum(kernel_device_ms(lambda: encode(batch["images"]), reps=2).values())
+    res = {"vocab": len(vocab), "captions": n, "batch": LSTM_BATCH, "max_len": LSTM_MAX_LEN,
+           **LSTM_WIDTHS, "encoder_dim": int(feats.shape[-1]), "grid": int(feats.shape[1]),
+           "losses": losses, "first_batch_loss_before": before, "first_batch_loss_after": after,
+           "median_step_ms": statistics.median(times[1:]),
+           "median_encode_ms": statistics.median(encode_ms[1:]),
+           "step_device_ms": device_ms, "encode_device_ms": encode_device_ms,
+           "peak_gib_above_start": peak, "launches": counts}
+    say("lstm_train", **res)
+    return {"params": state.params, "enc_params": enc_params, "vocab": vocab,
+            "images": [images[f] for f in files[:LSTM_EVAL_IMAGES]]}
+
+
+def stop_token(toks) -> tuple:
+    """toks [B, max_len], a greedy decode that never stopped -> (token,
+    row, step): a token that `row` first emits at `step` and some other row
+    never emits, at step 1 or later where there is one, else at step 0. As
+    eos it stops that row while another runs to max_len, so the decode's
+    per-row stop (tokens 0 after it, the lengths, the loop's end) does real
+    work. Raises where no token does that, as where every row repeats one
+    caption."""
+    toks = np.asarray(toks)
+    for step in [*range(1, toks.shape[1]), 0]:
+        for row in range(toks.shape[0]):
+            t = int(toks[row, step])
+            if t not in toks[row, :step] and any(t not in other for other in toks):
+                return t, row, step
+    raise AssertionError(f"lstm eval: no token stops one caption while another runs on: "
+                         f"{toks.tolist()}")
+
+
+def phase_lstm_eval(trained: dict, device="cuda") -> dict:
+    """Phase 45: eval_attention's per-image function (make_captioner: the
+    fp32 ResNet-50 grid, generate_caption at max_len 20) on phase 44's
+    params for 4 staged images, and generate_caption on the 4 grids at once,
+    on the card and on the CPU from the same params, TF32 off. The 4
+    captions must not all be equal, and eos is a token that one of them
+    emits (at step 2 or later where one does) while another never does
+    (stop_token): each
+    call's words, tokens and lengths equal, the alphas within
+    LSTM_ALPHA_TOL. Seconds an image on the card."""
+    import types
+
+    from construction_clip_tpu_torch.apps import eval_attention
+    from construction_clip_tpu_torch.apps.train_attention import make_encoder
+    from construction_clip_tpu_torch.data.pipeline import host_shape_unify
+    from construction_clip_tpu_torch.models.lstm_captioner import generate_caption
+
+    vocab, params = trained["vocab"], as_tree(trained["params"])
+    cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+    cpu_enc = tree_map(lambda t: t.cpu(), trained["enc_params"])
+    staged = [host_shape_unify(im, eval_attention.STAGE_SIZE) for im in trained["images"]]
+    batch = torch.from_numpy(np.stack(staged))
+    sos = vocab.stoi["<SOS>"]
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        feats = make_encoder(trained["enc_params"])(batch.to(device))
+        raw, _, _ = generate_caption(params, feats, sos_id=sos, eos_id=-1,
+                                     max_len=LSTM_EVAL_MAX_LEN)
+        raw = raw.cpu().numpy()
+        if len({tuple(r) for r in raw}) < 2:
+            raise AssertionError(f"lstm eval: every image gives one caption: {raw.tolist()}")
+        eos, row, step = stop_token(raw)
+        view = types.SimpleNamespace(stoi={**vocab.stoi, "<EOS>": eos}, itos=vocab.itos)
+        card_out = generate_caption(params, feats, sos_id=sos, eos_id=eos,
+                                    max_len=LSTM_EVAL_MAX_LEN)
+        card = eval_attention.make_captioner(trained["enc_params"], params, view,
+                                             max_len=LSTM_EVAL_MAX_LEN)
+        card(staged[0])   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [card(u8) for u8 in staged]
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    cpu = eval_attention.make_captioner(cpu_enc, cpu_params, view, max_len=LSTM_EVAL_MAX_LEN)
+    want = [cpu(u8) for u8 in staged]
+    cpu_out = generate_caption(cpu_params, make_encoder(cpu_enc)(batch), sos_id=sos,
+                               eos_id=eos, max_len=LSTM_EVAL_MAX_LEN)
+    (g_tok, g_len, g_alpha), (w_tok, w_len, w_alpha) = (
+        [t.cpu().numpy() for t in out] for out in (card_out, cpu_out))
+    alpha_err = max([float(np.abs(g[1] - w[1]).max()) for g, w in zip(got, want)]
+                    + [float(np.abs(g_alpha - w_alpha).max())])
+    res = {"images": len(staged), "max_len": LSTM_EVAL_MAX_LEN, "eos": eos,
+           "eos_row": row, "eos_step": step, "lengths": g_len.tolist(),
+           "distinct_captions": len({tuple(r) for r in raw}),
+           "words": [len(g[0]) for g in got], "captions": [" ".join(g[0]) for g in got],
+           "tokens_equal": (all(g[0] == w[0] for g, w in zip(got, want))
+                            and np.array_equal(g_tok, w_tok) and np.array_equal(g_len, w_len)),
+           "max_alpha_err": alpha_err, "alpha_tol": LSTM_ALPHA_TOL,
+           "s_per_image": seconds / len(staged)}
+    say("lstm_eval", **res)
+    if not res["tokens_equal"] or alpha_err > LSTM_ALPHA_TOL:
+        raise AssertionError(f"lstm eval, card against CPU: {res}")
+    if not (g_len.min() <= step + 1 and g_len.max() == LSTM_EVAL_MAX_LEN):
+        raise AssertionError(f"lstm eval: eos {eos} did not stop row {row} at step {step} "
+                             f"while another ran on: lengths {g_len.tolist()}")
+    return res
+
+
+# phases 42-45 in order, each (its number, a function of the state they share): phase 45
+# reads phase 44's params and trains them itself when it runs without phase 44.
+# `python3 chip_smoke.py --only NAME[,NAME]` runs named ones, for a quicker look: the
+# device line, then these phases alone, and no verdict; without --only every phase runs
+SUBSETS = {"detection_train": ("42", lambda ctx: phase_detection_train()),
+           "detection_train_parity": ("43", lambda ctx: phase_detection_train_parity()),
+           "lstm_train": ("44", lambda ctx: ctx.update(trained=phase_lstm_train())),
+           "lstm_eval": ("45", lambda ctx: phase_lstm_eval(ctx.pop("trained", None)
+                                                           or phase_lstm_train()))}
+
+
+def run_phases(names: list) -> None:
+    ctx: dict = {}
+    for name in names:
+        t0 = time.perf_counter()
+        SUBSETS[name][1](ctx)
+        say(f"{name}_wall", phases=SUBSETS[name][0], seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+
+
+def run_subsets(names: list) -> None:
+    unknown = [n for n in names if n not in SUBSETS]
+    if unknown:
+        raise SystemExit(f"--only: unknown {unknown}; the subsets are {sorted(SUBSETS)}")
+    phase_device()
+    run_phases(names)
+    print(json.dumps({"ok": True, "subsets": names}), flush=True)
+
+
 def main() -> None:
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--only":
+            raise SystemExit("usage: chip_smoke.py [--only NAME[,NAME...]]")
+        return run_subsets(sys.argv[2].split(","))
     info = phase_device()
     phase_build()
     results: dict = {}
@@ -3757,6 +4199,8 @@ def main() -> None:
                          cfgs, clip_tok, lm_tok, tree, serve5)
     torch.cuda.empty_cache()
     phase_eval_detection()
+    torch.cuda.empty_cache()
+    run_phases(list(SUBSETS))
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

@@ -16,10 +16,11 @@ JAX quantizers' bits on the same weights.
 
 The detector's tree is the exception: `to_detector_params` permutes its
 convolutions from the JAX tree's HWIO to OIHW (channels-last) once, when the
-weights are carried across.
+weights are carried across, and `from_detector_params` permutes them back.
 
-`init_clip`, `init_gpt2`, `init_clipcap`, `init_t5`, `init_clipcap_t5` and
-`init_fasterrcnn` build random trees at the JAX initialisers' shapes and scales from a numpy seed, for
+`init_clip`, `init_gpt2`, `init_clipcap`, `init_t5`, `init_clipcap_t5`,
+`init_fasterrcnn`, `init_resnet50` and `init_lstm_captioner` build random
+trees at the JAX initialisers' shapes and scales from a numpy seed, for
 machines without JAX.
 They draw other numbers than jax.random: for parity with the JAX package, make
 the tree there and copy it with `to_params`. Given `SHAPES` for the seed, they
@@ -308,16 +309,19 @@ def init_fasterrcnn(seed, *, num_classes: int = 8, fpn_channels: int = 256,
     }
 
 
-def to_detector_params(tree, *, dtype=None, device=None) -> dict:
+def to_detector_params(tree, *, dtype=None, device=None, trainable: bool = False) -> dict:
     """A detector tree in the JAX layout (`init_fasterrcnn` of either package,
     `models/detection.from_torchvision_state_dict`, leaves numpy or JAX
-    arrays) -> the port's: nested dicts and lists of frozen tensors on
-    `device`, floating leaves in `dtype` where given.
+    arrays) -> the port's: nested dicts and lists of tensors on `device`,
+    floating leaves in `dtype` where given; frozen for serving, or with
+    `trainable` leaf tensors that require grad (train/detection.py trains
+    every leaf, BatchNorm's scale and shift included).
 
     This is the one place the port transposes weights: every 4-D leaf (a
     convolution, HWIO in the JAX tree) is permuted to torch's OIHW and kept
-    in channels-last memory, the layout cuDNN's NHWC kernels read, once here
-    and never per call. Linear weights stay [in, out]."""
+    in channels-last memory, the layout cuDNN's NHWC kernels read forward
+    and backward, once here and never per call. Linear weights stay [in,
+    out]. `from_detector_params` is the inverse."""
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
@@ -326,6 +330,63 @@ def to_detector_params(tree, *, dtype=None, device=None) -> dict:
         t = _tensor(node, dtype, device)
         if t.dim() == 4:
             t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        if trainable and t.is_floating_point():
+            t.requires_grad_()
         return t
 
     return convert(tree)
+
+
+def from_detector_params(params) -> dict:
+    """The port's detector tree (or a tree of its gradients) -> the JAX
+    layout in numpy: 4-D leaves from OIHW back to HWIO, every other leaf as
+    it is, floating leaves in fp32. `train/checkpoint.save_params_npz` of it
+    writes what the JAX package's `load_params_npz` reads."""
+    if isinstance(params, dict):
+        return {k: from_detector_params(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [from_detector_params(v) for v in params]
+    t = params.detach()
+    t = (t.float() if t.is_floating_point() else t).cpu()
+    if t.dim() == 4:
+        t = t.permute(2, 3, 1, 0)
+    return np.ascontiguousarray(t.numpy())
+
+
+# ---- the show-attend-tell captioner (models/lstm_captioner.py) -------------------------
+
+def _uniform(rng, shape, bound, dtype):
+    if isinstance(rng, _Shapes):
+        return np.broadcast_to(np.zeros((), dtype), shape)
+    return rng.uniform(-bound, bound, shape).astype(dtype)
+
+
+def init_lstm_captioner(seed, *, vocab_size: int, embed_size: int = 300,
+                        attention_dim: int = 256, encoder_dim: int = 2048,
+                        decoder_dim: int = 512, dtype=np.float32, embeddings=None) -> dict:
+    """Numpy tree at construction_clip_tpu.models.lstm_captioner.
+    init_lstm_captioner's shapes and scales: torch nn.Linear's U(+-1/sqrt(in))
+    for each linear's weight and bias, the LSTM's U(+-1/sqrt(decoder_dim)),
+    the embedding N(0, 0.1) unless `embeddings` is given."""
+    rng = _rng(seed)
+
+    def lin(i, o):
+        bound = 1.0 / i ** 0.5
+        return {"w": _uniform(rng, (i, o), bound, dtype), "b": _uniform(rng, (o,), bound, dtype)}
+
+    lstm_in, bound = embed_size + encoder_dim, 1.0 / decoder_dim ** 0.5
+    return {
+        "embedding": np.asarray(embeddings, dtype) if embeddings is not None else
+        _normal(rng, (vocab_size, embed_size), 0.1, dtype),
+        "att_W": lin(decoder_dim, attention_dim),
+        "att_U": lin(encoder_dim, attention_dim),
+        "att_A": lin(attention_dim, 1),
+        "init_h": lin(encoder_dim, decoder_dim),
+        "init_c": lin(encoder_dim, decoder_dim),
+        # torch LSTMCell's gates (i, f, g, o), stored input-major: w_ih [in, 4H]
+        "w_ih": _uniform(rng, (lstm_in, 4 * decoder_dim), bound, dtype),
+        "b_ih": _uniform(rng, (4 * decoder_dim,), bound, dtype),
+        "w_hh": _uniform(rng, (decoder_dim, 4 * decoder_dim), bound, dtype),
+        "b_hh": _uniform(rng, (4 * decoder_dim,), bound, dtype),
+        "fcn": lin(decoder_dim, vocab_size),
+    }

@@ -17,14 +17,20 @@ from torch import nn
 
 
 def tree_map(fn: Callable, tree):
+    """fn over the leaves of nested dicts and lists (the detector's stages and
+    FPN levels are lists); a tuple is a leaf."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

@@ -19,6 +19,8 @@ from construction_clip_tpu_torch.ops.preprocess import normalize_u8
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)   # the ResNet-50 encoder's (show-attend-tell)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def resize_shorter_side_shape(h: int, w: int, size: int) -> tuple[int, int]:

@@ -73,13 +73,20 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def resize_bilinear(x, out_hw) -> np.ndarray:
+    """A 2-D map resized to out_hw (H, W) bilinearly with half-pixel centres,
+    as jax.image.resize(..., "bilinear") does (antialiased when it shrinks)."""
+    x = torch.from_numpy(np.ascontiguousarray(_to_numpy(x)))[None, None]
+    shrink = out_hw[0] < x.shape[-2] or out_hw[1] < x.shape[-1]
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
+                         antialias=shrink)[0, 0].numpy()
+
+
 def image_relevance_map(r_image_row, grid: int, *, out_size: int = 224) -> np.ndarray:
     """R_image[b, 0] (the CLS row) over the grid x grid patches -> [out_size,
-    out_size] in [0, 1], resized bilinearly with half-pixel centres as
-    jax.image.resize does (antialiased when it shrinks, as jax.image.resize)."""
-    rel = _to_numpy(r_image_row)[1: 1 + grid * grid].reshape(1, 1, grid, grid)
-    rel = F.interpolate(torch.from_numpy(rel), size=(out_size, out_size), mode="bilinear",
-                        align_corners=False, antialias=out_size < grid)[0, 0].numpy()
+    out_size] in [0, 1] (resize_bilinear)."""
+    rel = _to_numpy(r_image_row)[1: 1 + grid * grid].reshape(grid, grid)
+    rel = resize_bilinear(rel, (out_size, out_size))
     lo, hi = rel.min(), rel.max()
     return (rel - lo) / (hi - lo + 1e-8)
 

@@ -1,13 +1,15 @@
-"""ResNet-50 pieces (inference only, frozen), the port of
-construction_clip_tpu/models/resnet.py: 7x7/2 stem, max-pool, bottleneck
-stages [3, 4, 6, 3], BatchNorm in inference form (running statistics folded
-into scale/shift when weights are converted).
+"""ResNet-50, the port of construction_clip_tpu/models/resnet.py: 7x7/2 stem,
+max-pool, bottleneck stages [3, 4, 6, 3], BatchNorm in inference form
+(running statistics folded into scale/shift when weights are converted; the
+detector's training trains the scale and shift, train/detection.py).
+`resnet50_features` is the show-attend-tell captioner's frozen encoder.
 
 Activations are logical NCHW tensors in `torch.channels_last` memory (NHWC
 bytes, the layout cuDNN runs its NHWC kernels on); convolution weights are
 OIHW, permuted once from the JAX tree's HWIO when the weights are carried
-across (`models/detection.detection_params`). `from_torchvision_state_dict`
-gives the JAX package's tree (HWIO), array for array.
+across (`convert.to_detector_params`, which takes any tree of this layout).
+`from_torchvision_state_dict` gives the JAX package's tree (HWIO), array for
+array.
 """
 
 from __future__ import annotations
@@ -45,6 +47,17 @@ def stem(params, images):
     -inf, as the JAX package's reduce_window does)."""
     x = torch.relu(_bn(_conv(images, params["stem"]["conv"], stride=2), params["stem"]["bn"]))
     return F.max_pool2d(x, 3, 2, padding=1)
+
+
+def resnet50_features(params, images):
+    """images [B, H, W, 3] (normalized floats) -> [B, (H/32)*(W/32), 2048],
+    the grid's rows in the JAX package's order (row-major over H, W)."""
+    x = stem(params, images.permute(0, 3, 1, 2))   # NCHW over NHWC bytes: channels-last
+    for s, blocks in enumerate(params["stages"]):
+        for b, bp in enumerate(blocks):
+            x = _bottleneck(x, bp, 2 if (s > 0 and b == 0) else 1)
+    b, c = x.shape[:2]
+    return x.permute(0, 2, 3, 1).reshape(b, -1, c)
 
 
 def from_torchvision_state_dict(sd, *, eps: float = 1e-5) -> dict:

@@ -22,20 +22,16 @@ training attention is plain math on both sides (models/gpt2.py).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from construction_clip_tpu_torch.core.configs import ClipCapConfig, GPT2Config
-from construction_clip_tpu_torch.core.params import as_tree, tree_leaves, tree_map
+from construction_clip_tpu_torch.core.params import as_tree, tree_leaves
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models.clipcap.model import (
     caption_loss_parts, clipcap_forward)
+from construction_clip_tpu_torch.train.grads import token_mean_grads
 from construction_clip_tpu_torch.train.state import TrainState, apply_gradients
 
 BATCH_KEYS = ("tokens", "prefix", "attribute")
-
-
-def _parallel(dp) -> bool:
-    return dp is not None and dp.world > 1
 
 
 def loss_and_grads(trainable, frozen_gpt, ccfg: ClipCapConfig, gcfg: GPT2Config, batch, *,
@@ -51,18 +47,7 @@ def loss_and_grads(trainable, frozen_gpt, ccfg: ClipCapConfig, gcfg: GPT2Config,
                              policy=policy)
     total, count = caption_loss_parts(logits, batch["tokens"], ccfg)
     del logits
-    if _parallel(dp):
-        count = count.detach().clone()
-        dist.all_reduce(count, group=dp.group)
-    loss = total / count.clamp(min=1.0)
-    grads = list(torch.autograd.grad(loss, tree_leaves(trainable)))
-    loss = loss.detach()
-    if _parallel(dp):
-        grads = [g.contiguous() for g in grads]
-        for g in grads + [loss]:
-            dist.all_reduce(g, group=dp.group)
-    it = iter(grads)
-    return loss, tree_map(lambda _: next(it), trainable)
+    return token_mean_grads(total, count, trainable, dp)
 
 
 def make_caption_train_step(ccfg: ClipCapConfig, gcfg: GPT2Config, tx, *,

@@ -89,12 +89,22 @@ def restore_state(directory: str, state: TrainState, *, step: Optional[int] = No
 
 
 def _flat(tree, prefix=""):
-    for key, value in tree.items():
+    """(key, leaf) of nested dicts and lists, the JAX package's keys: a list
+    item's key is its index ("backbone/stages/0/1/conv1")."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
         name = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list)):
             yield from _flat(value, name + "/")
         else:
             yield name, value
+
+
+def _numpy(v) -> np.ndarray:
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    v = v.detach()
+    return (v.float() if v.is_floating_point() else v).cpu().numpy()
 
 
 def save_params_npz(path: str, params, dp=None) -> None:
@@ -105,9 +115,7 @@ def save_params_npz(path: str, params, dp=None) -> None:
             save_params_npz(path, params)
         dp.barrier()
         return
-    np.savez(path, **{k: v.detach().float().cpu().numpy() if v.is_floating_point()
-                      else v.detach().cpu().numpy()
-                      for k, v in _flat(as_tree(params))})
+    np.savez(path, **{k: _numpy(v) for k, v in _flat(as_tree(params))})
 
 
 def load_params_npz(path: str, template) -> dict:
@@ -129,7 +137,10 @@ def load_params_npz(path: str, template) -> dict:
             return arr.astype(want.dtype)
 
         def walk(node, prefix):
-            return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict) else
-                    load(f"{prefix}{k}", np.asarray(v)) for k, v in node.items()}
+            if isinstance(node, list):
+                return [walk(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+            if isinstance(node, dict):
+                return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+            return load(prefix[:-1], np.asarray(node))
 
         return walk(template, "")

@@ -18,19 +18,15 @@ backward: the fused block (K1, K3) at T <= 256, flash attention (K4, K5) above.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from construction_clip_tpu_torch.core.configs import CLIPConfig
-from construction_clip_tpu_torch.core.params import as_tree, tree_leaves, tree_map
+from construction_clip_tpu_torch.core.params import as_tree, tree_leaves
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models.clip.model import encode_image, encode_text
 from construction_clip_tpu_torch.ops.collectives import all_gather
 from construction_clip_tpu_torch.parallel.infonce import global_infonce, local_infonce
+from construction_clip_tpu_torch.train.grads import is_parallel, mean_grads
 from construction_clip_tpu_torch.train.state import TrainState, apply_gradients
-
-
-def _parallel(dp) -> bool:
-    return dp is not None and dp.world > 1
 
 
 def _accuracy(logits):
@@ -41,7 +37,7 @@ def _accuracy(logits):
 def _loss_and_accuracy(params, cfg, images, tokens, policy, dp=None):
     img_f = encode_image(params, cfg, images, policy=policy, normalize=True)
     txt_f = encode_text(params, cfg, tokens, policy=policy, normalize=True)
-    if _parallel(dp):
+    if is_parallel(dp):
         return global_infonce(img_f, txt_f, params["logit_scale"], dp)
     loss, logits = local_infonce(img_f, txt_f, params["logit_scale"])
     return loss, _accuracy(logits)
@@ -55,14 +51,8 @@ def loss_and_grads(params, cfg: CLIPConfig, images, tokens, *,
     batch, the same on every rank."""
     params = as_tree(params)
     loss, acc = _loss_and_accuracy(params, cfg, images, tokens, policy, dp)
-    grads = list(torch.autograd.grad(loss, tree_leaves(params)))
-    if _parallel(dp):
-        grads = [g.contiguous() for g in grads]
-        for g in grads:
-            dist.all_reduce(g, group=dp.group)
-        torch._foreach_div_(grads, float(dp.world))
-    it = iter(grads)
-    return loss.detach(), acc, tree_map(lambda _: next(it), params)
+    loss, grads = mean_grads(loss, params, dp)
+    return loss, acc, grads
 
 
 def _on(batch, device):
@@ -104,7 +94,7 @@ def make_eval_step(cfg: CLIPConfig, *, policy: Policy = DEFAULT_POLICY, device=N
     def eval_step(params, batch):
         params = as_tree(params)
         images, tokens = _on(batch, device or tree_leaves(params)[0].device)
-        if not _parallel(dp):
+        if not is_parallel(dp):
             return _loss_and_accuracy(params, cfg, images, tokens, policy)[1]
         img_f = all_gather(encode_image(params, cfg, images, policy=policy, normalize=True), dp)
         txt_f = all_gather(encode_text(params, cfg, tokens, policy=policy, normalize=True), dp)

@@ -158,3 +158,9 @@ def make_adamw(lr: float = 1e-5, *, warmup_steps: int = 5000, total_steps: int =
     if grad_clip is None:
         return adamw
     return chain(clip_by_global_norm(grad_clip), adamw)
+
+
+def adam(lr: float) -> FusedOptimizer:
+    """optax.adam(lr): the fused_adamw pass at a constant lr, no weight decay
+    (the show-attend-tell apps' optimizer)."""
+    return fused_adamw(lambda step: lr)

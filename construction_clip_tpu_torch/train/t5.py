@@ -18,8 +18,8 @@ Data-parallel (`dp`, core/mesh.py, with more than one rank), as the JAX step
 under shard_map over the "data" axis: each rank's loss is its own rows' NLL
 sum over the GLOBAL count of valid tokens (all_reduced outside autograd), and
 the gradients and the loss are SUMMED over the ranks (JAX's psum), so that
-any mix of padding over the ranks gives the one-process step. Every rank
-then applies the same in-place AdamW (train/state.py).
+any mix of padding over the ranks gives the one-process step
+(train/grads.token_mean_grads). Every rank then applies the same in-place AdamW (train/state.py).
 
 No hand kernel runs here, as no Pallas kernel runs in the JAX step: T5's
 training attention is plain math on both sides (models/t5.py), and its LM
@@ -29,20 +29,16 @@ head is a matmul (K8 serves cached decode steps only).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from construction_clip_tpu_torch.core.configs import ClipCapConfig, T5Config
-from construction_clip_tpu_torch.core.params import as_tree, tree_leaves, tree_map
+from construction_clip_tpu_torch.core.params import as_tree, tree_leaves
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models.clipcap.t5_model import (
     clipcap_t5_forward, t5_caption_loss_parts)
+from construction_clip_tpu_torch.train.grads import token_mean_grads
 from construction_clip_tpu_torch.train.state import TrainState, apply_gradients
 
 BATCH_KEYS = ("input_ids", "attention_mask", "prefix")
-
-
-def _parallel(dp) -> bool:
-    return dp is not None and dp.world > 1
 
 
 def loss_and_grads(trainable, frozen_t5, ccfg: ClipCapConfig, tcfg: T5Config, batch, *,
@@ -59,18 +55,7 @@ def loss_and_grads(trainable, frozen_t5, ccfg: ClipCapConfig, tcfg: T5Config, ba
                                 clip_embed=batch["prefix"], policy=policy)
     total, count = t5_caption_loss_parts(logits, batch["input_ids"], ccfg)
     del logits, cast, params
-    if _parallel(dp):
-        count = count.detach().clone()
-        dist.all_reduce(count, group=dp.group)
-    loss = total / count.clamp(min=1.0)
-    grads = list(torch.autograd.grad(loss, tree_leaves(trainable)))
-    loss = loss.detach()
-    if _parallel(dp):
-        grads = [g.contiguous() for g in grads]
-        for g in grads + [loss]:
-            dist.all_reduce(g, group=dp.group)
-    it = iter(grads)
-    return loss, tree_map(lambda _: next(it), trainable)
+    return token_mean_grads(total, count, trainable, dp)
 
 
 def make_t5_caption_train_step(ccfg: ClipCapConfig, tcfg: T5Config, tx, *,

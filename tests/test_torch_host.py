@@ -16,10 +16,11 @@ from construction_clip_tpu.data import datasets as j_datasets
 from construction_clip_tpu.data import labels as j_labels
 from construction_clip_tpu.data import pipeline as j_pipeline
 from construction_clip_tpu.data import schema as j_schema
+from construction_clip_tpu.data import vocabulary as j_vocabulary
 from construction_clip_tpu.infer import precompute as j_precompute
 from construction_clip_tpu.infer import score as j_score
 from construction_clip_tpu_torch.data import clip_tokenizer, datasets, labels, offline_assets
-from construction_clip_tpu_torch.data import pipeline, schema
+from construction_clip_tpu_torch.data import pipeline, schema, vocabulary
 from construction_clip_tpu_torch.infer import precompute, score
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,6 +76,27 @@ def _corpus(tmp_path):
     path.write_text(json.dumps({"type": "captions", "annotations": anns}, ensure_ascii=False),
                     encoding="utf-8")
     return str(path)
+
+
+def test_vocabulary_gives_the_original_ids():
+    """The show-attend-tell vocabulary (data/vocabulary.py's copy): the same
+    tokens, admitted words and ids, padded captions and decodes, over mixed
+    CJK and Latin text at two frequency thresholds."""
+    texts = ["工地 邊緣 未設置 護欄", "Worker on the EDGE", "工地 墜落", "the edge 開口",
+             "worker worker 護欄", "", "墜落 墜落 the"]
+    for text in texts:
+        assert vocabulary.tokenize(text) == j_vocabulary.tokenize(text)
+    for threshold in (1, 2):
+        port, orig = vocabulary.Vocabulary(threshold), j_vocabulary.Vocabulary(threshold)
+        port.build_vocabulary(texts)
+        orig.build_vocabulary(texts)
+        assert port.itos == orig.itos and port.stoi == orig.stoi and len(port) == len(orig)
+        for text in texts + ["unseen 字"]:
+            assert port.numericalize(text) == orig.numericalize(text)
+            for max_len in (4, 12):
+                ids = port.encode_caption(text, max_len)
+                assert ids == orig.encode_caption(text, max_len)
+                assert port.decode(ids) == orig.decode(ids)
 
 
 def test_load_annotations_gives_the_original_records(tmp_path):
@@ -166,7 +188,10 @@ def test_port_imports_nothing_of_the_jax_package():
     port = "construction_clip_tpu_torch"
     assert {f"{port}/models/resnet.py", f"{port}/models/detection.py",
             f"{port}/serve/detector.py", f"{port}/infer/detection_eval.py",
-            f"{port}/apps/eval_detection.py"} <= scanned
+            f"{port}/apps/eval_detection.py", f"{port}/data/vocabulary.py",
+            f"{port}/models/lstm_captioner.py", f"{port}/train/lstm.py",
+            f"{port}/train/detection.py", f"{port}/apps/train_attention.py",
+            f"{port}/apps/eval_attention.py"} <= scanned
     bad = []
     for path in _python_files():
         for module in _imports(path):
@@ -178,7 +203,8 @@ def test_port_imports_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("app", ["train_clip", "predict_t5", "serve", "predict_zeroshot",
                                  "parse_corpus", "train_clipcap", "predict",
-                                 "train_clipcap_t5", "product_e2e", "train_clip_caption"])
+                                 "train_clipcap_t5", "product_e2e", "train_clip_caption",
+                                 "train_attention", "eval_attention"])
 def test_apps_refuse_a_missing_cuda_device(app, monkeypatch):
     """--device defaults to cuda; without a usable CUDA device the app stops
     at once and names --device cpu, instead of running on the CPU."""
