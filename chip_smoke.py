@@ -253,7 +253,37 @@ Phases, each printing one line (the last line is the JSON verdict):
      later where one does) while another runs to max_len: the captions not
      all equal, the same words, tokens and lengths, alphas within 1e-5;
      seconds an image.
-Each of phases 42-45 prints its wall seconds. `--only NAME[,NAME]` (the
+ 46. (none: the native JPEG loader's phase needs libjpeg's header and
+     library, which the card's machine lacks; tests/test_torch_native_loader.py
+     holds the loader on the CPU.)
+ 47. rematerialisation (models/blocks.apply_stack(remat=...)): ViT-L/14
+     contrastive training at full width and depth, bf16, B=36 (4 class-balanced
+     groups of 9), 3 make_train_step steps from the same params on one batch for
+     remat False, True and each of the 8 named policies: the median step, the
+     launches of K1, K3, K4 and K5, the peak memory of steps 2-3 (step 1 also
+     allocates AdamW's moments), and, for one more forward and backward
+     without the optimizer, the memory the graph keeps for the backward and
+     that pass's peak; the device time of a step under torch.profiler for
+     False, True and save_preact. Before the steps, one loss_and_grads from
+     the same params: every policy's gradients are bit-equal to no remat's
+     (no remat's own second call is first shown bit-equal to its first: the
+     kernels are deterministic), so a recompute that read stale statistics
+     or lost a term fails here before AdamW's first step, which normalises a
+     gradient to about lr times its sign, could hide it. The first step's
+     loss equals no remat's; full remat's step
+     peak, pass peak and kept memory are below no remat's, and each policy's
+     kept memory lies strictly between, its pass peak between and its step
+     peak not above no remat's;
+     with True K4 launches twice as often (the image tower re-runs its
+     forward) and K1 as often (JAX remats the image tower only, and the text
+     tower holds ViT-L/14's K1 launches). Then ViT-B/32 one step each way at
+     B=36: K1 launches 12 times more with True (the image tower's 12 blocks
+     re-run). K1 and K4 repeat their bits on a second call (the checkpoint
+     recomputes them in the backward). Then one fp32 step with remat True and
+     save_preact at a small config (image tower on the flash route, text
+     tower on K1's) on the card with TF32 off against the CPU: the loss and
+     every gradient leaf within phase 28's bound.
+Each of phases 42-47 prints its wall seconds. `--only NAME[,NAME]` (the
 names of SUBSETS) runs the device line and those phases alone, without the
 verdict, for a quicker look; the gate is the run without arguments.
 Any failed check raises, so the script exits nonzero and prints no verdict.
@@ -287,7 +317,7 @@ sys.path.insert(0, REPO)
 
 from construction_clip_tpu_torch import convert  # noqa: E402
 from construction_clip_tpu_torch.core.configs import (  # noqa: E402
-    CLIPConfig, ClipCapConfig, GPT2Config, T5Config)
+    CLIPConfig, ClipCapConfig, GPT2Config, T5Config, TextConfig, VisionConfig)
 from construction_clip_tpu_torch.core.mesh import (  # noqa: E402
     replicate, shard_batch, spawn_ranks)
 from construction_clip_tpu_torch.core.params import as_tree, tree_leaves, tree_map  # noqa: E402
@@ -302,12 +332,13 @@ from construction_clip_tpu_torch.infer.caption import CaptionPipeline  # noqa: E
 from construction_clip_tpu_torch.infer.decode import greedy_decode  # noqa: E402
 from construction_clip_tpu_torch.infer.precompute import make_embed_classify_fn  # noqa: E402
 from construction_clip_tpu_torch.models import blocks, gpt2  # noqa: E402
-from construction_clip_tpu_torch.models.clip.model import encode_image  # noqa: E402
+from construction_clip_tpu_torch.models.clip.model import encode_image, encode_text  # noqa: E402
+from construction_clip_tpu_torch.parallel.infonce import local_infonce  # noqa: E402
 from construction_clip_tpu_torch.models.clipcap.model import map_prefix  # noqa: E402
 from construction_clip_tpu_torch.ops import _build  # noqa: E402
 from construction_clip_tpu_torch.ops.attention import use_impl  # noqa: E402
 from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
-    fused_attention_block, fused_attention_block_plain)
+    fused_attention_block, fused_attention_block_fwd, fused_attention_block_plain)
 from construction_clip_tpu_torch.ops.attention_block import (  # noqa: E402
     fused_attention_block_bwd, fused_attention_block_bwd_plain)
 from construction_clip_tpu_torch.ops.collectives import (  # noqa: E402
@@ -4024,15 +4055,231 @@ def phase_lstm_eval(trained: dict, device="cuda") -> dict:
     return res
 
 
-# phases 42-45 in order, each (its number, a function of the state they share): phase 45
-# reads phase 44's params and trains them itself when it runs without phase 44.
+# phase 47: rematerialisation at ViT-L/14, bf16, B=36 (4 groups of 9)
+REMAT_POLICIES = (False, True, "dots", "save_qkv", "save_mlp_hidden", "save_qkv_attn_out",
+                  "save_qkv_mlp", "save_attn_preact", "save_preact", "save_big")
+REMAT_STEPS = 3
+REMAT_LR = 1e-4
+REMAT_PROFILED = (False, True, "save_preact")   # a step's device time under the profiler
+REMAT_KERNELS = ("fused_attention_block", "fused_attention_block_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd")
+# a small CLIP for the fp32 card-against-CPU step: the image tower's T = 17^2 + 1 = 290
+# takes the flash route (K4/K5), the text tower's T = 16 K1's (K1/K3)
+REMAT_PARITY_CFG = CLIPConfig(
+    vision=VisionConfig(image_size=34, patch_size=2, width=128, layers=2, heads=2,
+                        embed_dim=64),
+    text=TextConfig(vocab_size=512, context_length=16, width=128, layers=2, heads=2,
+                    embed_dim=64))
+
+
+def _remat_run(cfg, params_np, batch, remat, steps, device, first_grads=None) -> dict:
+    """One loss_and_grads, then `steps` bf16 make_train_step(remat=...) steps
+    on one batch: losses, step times, launches of the steps, and the peak
+    memory of the steps after the first (the first step also allocates
+    AdamW's moments, which would hide the activations), with the memory held
+    before them (params, moments, and no remat's gradients, which every run
+    holds then), and the largest difference of a gradient leaf from
+    `first_grads` (no remat's) or, without them, from a second call's.
+    Returns (that, the gradients' leaves, or None with `first_grads`)."""
+    params = convert.to_params(params_np, device=device, trainable=True)
+
+    def grads():
+        out = contrastive.loss_and_grads(params, cfg, batch["images"], batch["tokens"],
+                                         policy=BF16_POLICY, remat=remat)[2]
+        return [g.detach() for g in tree_leaves(out)]
+
+    got = grads()
+    against = grads() if first_grads is None else first_grads
+    grad_diff = max(float((g - h).abs().max()) for g, h in zip(got, against))
+    del against
+    if first_grads is not None:
+        got = None
+    tx = make_adamw(REMAT_LR, warmup_steps=0, total_steps=1000)
+    state = TrainState.create(params, tx)
+    step = contrastive.make_train_step(cfg, tx, policy=BF16_POLICY, device=device, remat=remat)
+    reset_launches()
+    losses, times, base = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))   # waits for the step
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+    counts = launches()
+    out = {"remat": remat, "losses": losses, "median_step_ms": statistics.median(times) * 1e3,
+           "launches": {n: counts[n] for n in REMAT_KERNELS},
+           ("grad_max_diff" if first_grads is not None else "grad_repeat_max_diff"): grad_diff}
+    if steps > 1:
+        out.update(held_gib=base / 2 ** 30, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   peak_above_held_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                   **_remat_memory(state.params, cfg, batch, remat))
+    if remat in REMAT_PROFILED:
+        out["step_device_ms"] = sum(kernel_device_ms(lambda: step(state, batch),
+                                                     reps=2).values())
+    del state, step, params
+    torch.cuda.empty_cache()
+    return out, got
+
+
+def _remat_memory(params, cfg, batch, remat) -> dict:
+    """The memory the loss's graph keeps for the backward (allocated after
+    the forward, above before it: the saved activations and the bf16 casts
+    of the params) and the peak of the forward and backward above the same
+    point, without the optimizer step, whose temporaries set a step's peak
+    once remat has cut the activations."""
+    params = as_tree(params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    img = encode_image(params, cfg, batch["images"], policy=BF16_POLICY, normalize=True,
+                       remat=remat)
+    txt = encode_text(params, cfg, batch["tokens"], policy=BF16_POLICY, normalize=True)
+    loss, _ = local_infonce(img, txt, params["logit_scale"])
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del grads, loss, img, txt
+    return {"kept_for_backward_gib": kept / 2 ** 30, "fwd_bwd_peak_gib": peak / 2 ** 30}
+
+
+def phase_remat(device="cuda") -> dict:
+    """Phase 47 (see the module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_tok, _ = tokenizers(tmp)
+    cfg = CLIPConfig.vit_l_14()
+    params_np = convert.init_clip(2, cfg)
+    batch = class_balanced_batch(cfg, clip_tok, 4, 10, device)
+    runs, first_grads = {}, None
+    for remat in REMAT_POLICIES:
+        out, got = _remat_run(cfg, params_np, batch, remat, REMAT_STEPS, device, first_grads)
+        first_grads = first_grads if got is None else got
+        runs[str(remat)] = out
+        say("remat_vit_l_14", batch=int(batch["tokens"].shape[0]), **out)
+    del first_grads, got, params_np
+    torch.cuda.empty_cache()
+    none, full = runs["False"], runs["True"]
+    for key, out in runs.items():
+        if not all(np.isfinite(out["losses"])):
+            raise AssertionError(f"remat {key}: loss not finite: {out['losses']}")
+        if out["losses"][0] != none["losses"][0]:
+            raise AssertionError(f"remat {key}: first loss {out['losses'][0]} is not no "
+                                 f"remat's {none['losses'][0]}")
+        diff = out["grad_repeat_max_diff" if key == "False" else "grad_max_diff"]
+        if diff != 0:
+            raise AssertionError(f"remat {key}: gradients differ from no remat's first "
+                                 f"call's by up to {diff}")
+        if key not in ("False", "True") and not (
+                full["kept_for_backward_gib"] < out["kept_for_backward_gib"]
+                < none["kept_for_backward_gib"]
+                and full["fwd_bwd_peak_gib"] <= out["fwd_bwd_peak_gib"]
+                <= none["fwd_bwd_peak_gib"]
+                and out["peak_gib"] <= none["peak_gib"]):
+            raise AssertionError(f"remat {key}: memory not between full remat's and no "
+                                 f"remat's: {out}, {full}, {none}")
+    for what in ("peak_gib", "fwd_bwd_peak_gib", "kept_for_backward_gib"):
+        if not full[what] < none[what]:
+            raise AssertionError(f"full remat's {what} {full[what]} is not below no "
+                                 f"remat's {none[what]}")
+    k_none, k_full = none["launches"], full["launches"]
+    if min(k_none.values()) <= 0 or k_full["flash_attention_fwd"] != 2 * k_none[
+            "flash_attention_fwd"] or any(k_full[n] != k_none[n] for n in REMAT_KERNELS
+                                          if n != "flash_attention_fwd"):
+        raise AssertionError(f"ViT-L/14 launches: no remat {k_none}, full remat {k_full}")
+
+    # ViT-B/32: the image tower's blocks are K1's, so full remat re-runs K1
+    cfg_b = CLIPConfig.vit_b_32()
+    params_b = convert.init_clip(0, cfg_b)
+    batch_b = class_balanced_batch(cfg_b, clip_tok, 4, 9, device)
+    k1 = {str(r): _remat_run(cfg_b, params_b, batch_b, r, 1, device)[0]["launches"]
+          for r in (False, True)}
+    if k1["True"]["fused_attention_block"] != k1["False"]["fused_attention_block"] + \
+            cfg_b.vision.layers or k1["True"]["fused_attention_block_bwd"] != \
+            k1["False"]["fused_attention_block_bwd"]:
+        raise AssertionError(f"ViT-B/32 K1/K3 launches under remat: {k1}")
+    del params_b, batch_b
+
+    # the kernels the checkpoint re-runs give their bits again
+    rng = np.random.default_rng(47)
+    x, ln, attn = _block_inputs(rng, 36, 50, 768, torch.bfloat16, device)
+    args = (x, ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"],
+            attn["b_out"])
+    k1_same = torch.equal(fused_attention_block_fwd(*args, n_heads=12),
+                          fused_attention_block_fwd(*args, n_heads=12))
+    q, k, v = (torch.from_numpy(rng.standard_normal((36, 16, 257, 64), np.float32)).to(
+        device, torch.bfloat16) for _ in range(3))
+    k4_same = torch.equal(flash_attention_fwd(q, k, v, is_causal=False, scale=0.125),
+                          flash_attention_fwd(q, k, v, is_causal=False, scale=0.125))
+    if not (k1_same and k4_same):
+        raise AssertionError(f"a second call differs: K1 {k1_same}, K4 {k4_same}")
+
+    parity = remat_parity(device)
+    out = {"runs": runs, "vit_b_32_launches": k1, "k1_repeats_bits": k1_same,
+           "k4_repeats_bits": k4_same, "parity": parity}
+    say("remat", peak_gib={k: out["peak_gib"] for k, out in runs.items()},
+        kept_for_backward_gib={k: out["kept_for_backward_gib"] for k, out in runs.items()},
+        vit_b_32_launches=k1, k1_repeats_bits=k1_same, k4_repeats_bits=k4_same)
+    return out
+
+
+def remat_parity(device) -> dict:
+    """One fp32 step's loss and gradients with remat True and save_preact on
+    the card (TF32 off) against the CPU, at REMAT_PARITY_CFG; each leaf's
+    error as phase 11 measures it, held to CAPTION_GRAD_TOL."""
+    cfg = REMAT_PARITY_CFG
+    params_np = convert.init_clip(47, cfg)
+    rng = np.random.default_rng(470)
+    images = rng.standard_normal((4, 34, 34, 3)).astype(np.float32)
+    tokens = rng.integers(1, 511, (4, 16)).astype(np.int32)
+    tokens[:, -1] = 511                                   # the EOT, at the argmax
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {}
+    try:
+        for remat in (True, "save_preact"):
+            got = {}
+            for dev in (device, "cpu"):
+                params = convert.to_params(params_np, device=dev, trainable=True)
+                reset_launches()
+                loss, _, grads = contrastive.loss_and_grads(
+                    params, cfg, torch.from_numpy(images).to(dev),
+                    torch.from_numpy(tokens).to(dev), remat=remat)
+                got[dev] = (float(loss), [g.detach().cpu() for g in tree_leaves(grads)],
+                            launches())
+            (lk, gk, ck), (lc, gc, _) = got[device], got["cpu"]
+            if min(ck[n] for n in REMAT_KERNELS) <= 0:
+                raise AssertionError(f"remat parity {remat}: kernels not all launched: {ck}")
+            total = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in gc])))
+            worst = max(float(torch.linalg.vector_norm(a - b)
+                              / (torch.linalg.vector_norm(b) + 1e-6 * total))
+                        for a, b in zip(gk, gc))
+            report[str(remat)] = {"loss_card": lk, "loss_cpu": lc,
+                                  "loss_rel_err": abs(lk - lc) / abs(lc),
+                                  "worst_leaf_err": worst, "tol": CAPTION_GRAD_TOL,
+                                  "launches": {n: ck[n] for n in REMAT_KERNELS}}
+            if report[str(remat)]["loss_rel_err"] > 1e-5 or worst > CAPTION_GRAD_TOL:
+                raise AssertionError(f"remat parity {remat}: {report[str(remat)]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    say("remat_parity", **report)
+    return report
+
+
+# phases 42-45 and 47 in order, each (its number, a function of the state they share):
+# phase 45 reads phase 44's params and trains them itself when it runs without phase 44.
 # `python3 chip_smoke.py --only NAME[,NAME]` runs named ones, for a quicker look: the
 # device line, then these phases alone, and no verdict; without --only every phase runs
 SUBSETS = {"detection_train": ("42", lambda ctx: phase_detection_train()),
            "detection_train_parity": ("43", lambda ctx: phase_detection_train_parity()),
            "lstm_train": ("44", lambda ctx: ctx.update(trained=phase_lstm_train())),
            "lstm_eval": ("45", lambda ctx: phase_lstm_eval(ctx.pop("trained", None)
-                                                           or phase_lstm_train()))}
+                                                           or phase_lstm_train())),
+           "remat": ("47", lambda ctx: phase_remat())}
 
 
 def run_phases(names: list) -> None:

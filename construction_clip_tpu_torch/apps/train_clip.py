@@ -9,7 +9,8 @@ counterpart of apps/train_clip.py), on one device or data-parallel:
 Same flags and defaults as apps/train_clip.py, except that --resume names a
 checkpoint directory of this package (train/checkpoint.py), --checkpoint takes
 the .npz that either package writes or a .pt state dict (OpenAI's or HF's,
-apps/common.load_clip), and --native_loader is not ported. It
+apps/common.load_clip). --native_loader decodes JPEGs with the port's C++
+libjpeg ingest (data/native_loader.py). It
 trains on --device: `cuda` (the default; an error where no CUDA device works)
 or `cpu`; each step runs the port's kernels on the card (train/contrastive.py). Every epoch is a
 resumable unit: `<output_dir>/<prefix>_comb<N>/step_<epoch>.pt`, and a rerun
@@ -61,7 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--resume", default=None, help="checkpoint dir of this package")
     p.add_argument("--log_dir", default="log")
-    p.add_argument("--native_loader", action="store_true", help="not ported")
+    p.add_argument("--native_loader", action="store_true",
+                   help="decode JPEGs with the C++ libjpeg ingest "
+                        "(construction_clip_tpu_torch/native/)")
     p.add_argument("--watchdog_timeout", type=float, default=600.0,
                    help="seconds without step progress before a stall is logged")
     add_device_flag(p)
@@ -70,8 +73,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.native_loader:
-        raise SystemExit("--native_loader is not ported to construction_clip_tpu_torch")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         return train(args)
@@ -152,11 +153,17 @@ def fit(args, dp, make_dataset, *, items_per_batch: int, run_name: str):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     say(f"device: {device} ({name}), {world} data-parallel rank(s)")
 
+    if args.native_loader:
+        from construction_clip_tpu_torch.data.native_loader import load_image_native
+
+        load = lambda f: load_image_native(os.path.join(args.image_path, f), 256)
+    else:
+        load = lambda f: default_load_image(os.path.join(args.image_path, f))
+
     def make_loader(ds):
         return TorchImageTextLoader(
             ds, lambda texts: tokenizer.tokenize(texts, cfg.text.context_length),
-            batch_size=items_per_batch, device=device, dp=dp,
-            load_image=lambda f: default_load_image(os.path.join(args.image_path, f)))
+            batch_size=items_per_batch, device=device, dp=dp, load_image=load)
 
     train_loader, test_loader = make_loader(make_dataset("train")), make_loader(
         make_dataset("test"))

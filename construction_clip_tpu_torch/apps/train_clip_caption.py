@@ -11,8 +11,9 @@ Same flags and defaults as apps/train_clip_caption.py (--key violation_list,
 --batch_size 8 a device, --output_prefix clip_cap, the symmetric InfoNCE,
 AdamW at 1e-5 with 5000 warmup steps), except that --resume names a
 checkpoint directory of this package, --checkpoint takes the .npz that
-either package writes or a .pt state dict, and --native_loader is not
-ported. The training loop is apps/train_clip.py's (`fit`): it trains on
+either package writes or a .pt state dict. --native_loader decodes JPEGs
+with the port's C++ libjpeg ingest (data/native_loader.py). The training
+loop is apps/train_clip.py's (`fit`): it trains on
 --device (`cuda`, the default, or `cpu`), makes every epoch a resumable
 unit under `<output_dir>/<output_prefix>/`, and writes
 `<output_prefix>_latest.npz` at the end. Under `torchrun` each rank takes
@@ -51,15 +52,15 @@ def parse_args(argv=None):
     p.add_argument("--output_prefix", default="clip_cap")
     p.add_argument("--resume", default=None, help="checkpoint dir of this package")
     p.add_argument("--log_dir", default="log")
-    p.add_argument("--native_loader", action="store_true", help="not ported")
+    p.add_argument("--native_loader", action="store_true",
+                   help="decode JPEGs with the C++ libjpeg ingest "
+                        "(construction_clip_tpu_torch/native/)")
     add_device_flag(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.native_loader:
-        raise SystemExit("--native_loader is not ported to construction_clip_tpu_torch")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         return train(args)

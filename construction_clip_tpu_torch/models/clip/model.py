@@ -38,10 +38,12 @@ def _l2_normalize(x):
 
 
 def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_POLICY,
-                 normalize: bool = False, return_probs: bool = False, probs_probe=None):
+                 normalize: bool = False, return_probs: bool = False, probs_probe=None,
+                 remat=False):
     """images: [B, H, W, 3] float, already preprocessed. Returns [B, embed_dim];
     with return_probs, (features, the blocks' probabilities [L, B, H, T, T]).
-    probs_probe: apply_stack's differentiation port, [L, B, H, T, T] zeros."""
+    probs_probe: apply_stack's differentiation port, [L, B, H, T, T] zeros.
+    remat: apply_stack's, for the image tower's blocks."""
     v = cfg.vision
     p = policy.cast_to_compute(params["vision"])
     x = patchify(images.to(policy.compute_dtype), v.patch_size)
@@ -50,7 +52,7 @@ def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_PO
     x = torch.cat([cls, x], dim=1) + p["pos_emb"]
     x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
     x = apply_stack(p["blocks"], x, n_heads=v.heads, act=_act(cfg), return_probs=return_probs,
-                    probs_probe=probs_probe)
+                    probs_probe=probs_probe, remat=remat)
     x, probs = x if return_probs else (x, None)
     x = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
     feats = policy.cast_to_output(x @ p["proj"])
@@ -77,9 +79,11 @@ def encode_text(params, cfg: CLIPConfig, tokens, *, policy: Policy = DEFAULT_POL
     return (feats, probs) if return_probs else feats
 
 
-def clip_forward(params, cfg: CLIPConfig, images, tokens, *, policy: Policy = DEFAULT_POLICY):
-    """(logits_per_image [B_i, B_t], logits_per_text [B_t, B_i])."""
-    img = encode_image(params, cfg, images, policy=policy, normalize=True)
+def clip_forward(params, cfg: CLIPConfig, images, tokens, *, policy: Policy = DEFAULT_POLICY,
+                 remat=False):
+    """(logits_per_image [B_i, B_t], logits_per_text [B_t, B_i]). remat goes to
+    the image tower only, as in the JAX package."""
+    img = encode_image(params, cfg, images, policy=policy, normalize=True, remat=remat)
     txt = encode_text(params, cfg, tokens, policy=policy, normalize=True)
     logits_per_image = torch.exp(params["logit_scale"]) * img @ txt.T
     return logits_per_image, logits_per_image.T

@@ -43,14 +43,16 @@ def map_prefix(mapper_params, ccfg: ClipCapConfig, gcfg: GPT2Config, clip_embed,
 
 
 def clipcap_forward(params, ccfg: ClipCapConfig, gcfg: GPT2Config, *, tokens, clip_embed,
-                    attribute_tokens, policy: Policy = DEFAULT_POLICY):
+                    attribute_tokens, policy: Policy = DEFAULT_POLICY, remat=False):
     """Training forward: fp32 logits [B, P + A + T, V] over the concatenated
-    [prefix ‖ wte(attribute) ‖ wte(tokens)] through the uncached GPT-2."""
+    [prefix ‖ wte(attribute) ‖ wte(tokens)] through the uncached GPT-2
+    (remat: gpt2_forward's, per layer)."""
     prefix = map_prefix(params["mapper"], ccfg, gcfg, clip_embed, policy=policy)
     attr_emb = gpt2_lib.embed_tokens(params["gpt"], attribute_tokens, policy=policy)
     tok_emb = gpt2_lib.embed_tokens(params["gpt"], tokens, policy=policy)
     embeds = torch.cat([prefix.to(tok_emb.dtype), attr_emb, tok_emb], dim=1)
-    return gpt2_lib.gpt2_forward(params["gpt"], gcfg, inputs_embeds=embeds, policy=policy)[0]
+    return gpt2_lib.gpt2_forward(params["gpt"], gcfg, inputs_embeds=embeds, policy=policy,
+                                 remat=remat)[0]
 
 
 def caption_loss_parts(logits, tokens, ccfg: ClipCapConfig, *, ignore_id: int = 0):

@@ -21,9 +21,11 @@ construction_clip_tpu/models/gpt2.py), over the JAX parameter layout
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from construction_clip_tpu_torch.core.configs import GPT2Config
 from construction_clip_tpu_torch.core.params import as_tree, tree_map
@@ -116,6 +118,13 @@ def _proj(lp, h, out):
     return h + _linear(merge_heads(out), lp["attn"]["c_proj_w"], lp["attn"]["c_proj_b"])
 
 
+def _uncached_layer(lp, x, *, cfg, attn_bias):
+    """One layer of an uncached call -> (x, its fp32 attention probabilities)."""
+    q, k, v = _qkv(lp, x, cfg)
+    out, probs = _attn_uncached(q, k, v, attn_bias)
+    return _mlp(lp, _proj(lp, x, out), cfg), probs
+
+
 def _position_embeddings(wpe, start: int, t: int):
     """wpe rows start .. start + t - 1. A position past the table takes its last
     row, as the JAX package's gather clamps out-of-range indices."""
@@ -127,7 +136,7 @@ def _position_embeddings(wpe, start: int, t: int):
 def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
                  attn_bias=None, cache: Optional[KVCache] = None,
                  cache_ancestry=None, policy: Policy = DEFAULT_POLICY,
-                 return_probs: bool = False):
+                 return_probs: bool = False, remat=False):
     """Returns (logits [B, T, V] fp32, cache | None). tokens XOR inputs_embeds.
     With return_probs (uncached calls only), (logits, the layers' fp32
     attention probabilities [L, B, H, T, T]), the decoder attention map's
@@ -138,7 +147,12 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
     ancestry[i, t] (lazy beam reorder, infer/decode.beam_decode). A quantized
     tree is used as the quantizer left it: its bf16 leaves and fp32 scales are
     not cast, so token embeddings are bf16 while `inputs_embeds` take the
-    policy's dtype, as in the JAX package."""
+    policy's dtype, as in the JAX package.
+
+    remat (uncached calls): any true value checkpoints each layer whole, its
+    input alone kept for the backward (JAX's jax.checkpoint of the scan body;
+    GPT-2 takes no selective policy). GPT-2 draws no random numbers, so the
+    RNG state is not saved."""
     p = params if _is_quantized(params) else policy.cast_to_compute(params)
     x = p["wte"][tokens.long()] if inputs_embeds is None else inputs_embeds.to(
         policy.compute_dtype)
@@ -156,14 +170,18 @@ def gpt2_forward(params, cfg: GPT2Config, *, tokens=None, inputs_embeds=None,
     layers = tree_map(lambda z: z.unbind(0), p["blocks"])
     for index in range(cfg.n_layer):
         lp = tree_map(lambda views: views[index], layers)
-        q, k, v = _qkv(lp, x, cfg)
-        if cache is None or t > 1:
-            if cache is not None:
-                cache.k[index, :, :, :t] = k
-                cache.v[index, :, :, :t] = v
-            out, probs = _attn_uncached(q, k, v, attn_bias)
+        if cache is None:
+            layer = functools.partial(_uncached_layer, lp, cfg=cfg, attn_bias=attn_bias)
+            x, probs = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False) \
+                if remat else layer(x)
             if return_probs:
                 all_probs.append(probs)
+            continue
+        q, k, v = _qkv(lp, x, cfg)
+        if t > 1:
+            cache.k[index, :, :, :t] = k
+            cache.v[index, :, :, :t] = v
+            out, _ = _attn_uncached(q, k, v, attn_bias)
         else:
             cache.k[index, :, :, start] = k[:, :, 0]
             cache.v[index, :, :, start] = v[:, :, 0]

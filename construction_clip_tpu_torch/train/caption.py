@@ -35,7 +35,7 @@ BATCH_KEYS = ("tokens", "prefix", "attribute")
 
 
 def loss_and_grads(trainable, frozen_gpt, ccfg: ClipCapConfig, gcfg: GPT2Config, batch, *,
-                   policy: Policy = DEFAULT_POLICY, dp=None):
+                   policy: Policy = DEFAULT_POLICY, dp=None, remat=False):
     """-> (loss, grads): the token-mean caption CE of `batch` and its gradient
     as a tree of `trainable`'s layout (the mapper with `ccfg.only_prefix`,
     else {"mapper", "gpt"}). With `dp`, the batch is this rank's rows and the
@@ -44,14 +44,15 @@ def loss_and_grads(trainable, frozen_gpt, ccfg: ClipCapConfig, gcfg: GPT2Config,
     params = {"mapper": trainable, "gpt": frozen_gpt} if ccfg.only_prefix else trainable
     logits = clipcap_forward(params, ccfg, gcfg, tokens=batch["tokens"],
                              clip_embed=batch["prefix"], attribute_tokens=batch["attribute"],
-                             policy=policy)
+                             policy=policy, remat=remat)
     total, count = caption_loss_parts(logits, batch["tokens"], ccfg)
     del logits
     return token_mean_grads(total, count, trainable, dp)
 
 
 def make_caption_train_step(ccfg: ClipCapConfig, gcfg: GPT2Config, tx, *,
-                            policy: Policy = DEFAULT_POLICY, device=None, dp=None):
+                            policy: Policy = DEFAULT_POLICY, device=None, dp=None,
+                            remat=False):
     """Returns (state, frozen_gpt, batch) -> (state, metrics).
 
     `frozen_gpt`: GPT-2's tree with `ccfg.only_prefix` (cast it to the
@@ -60,14 +61,16 @@ def make_caption_train_step(ccfg: ClipCapConfig, gcfg: GPT2Config, tx, *,
     [B,T] int, "prefix": [B,clip_dim] float, "attribute": [B,A] int}, moved to
     `device` (the params' device when None); with `dp`, this rank's rows of
     the global batch. The params and moments are updated in place; the loss
-    metric is a tensor on the device."""
+    metric is a tensor on the device. remat: GPT-2's per-layer checkpoint
+    (models/gpt2.gpt2_forward), as in the JAX step."""
 
     def step(state: TrainState, frozen_gpt, batch):
         params = as_tree(state.params)
         dev = device or tree_leaves(params)[0].device
         on = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in BATCH_KEYS}
         frozen = policy.cast_to_compute(as_tree(frozen_gpt)) if ccfg.only_prefix else None
-        loss, grads = loss_and_grads(params, frozen, ccfg, gcfg, on, policy=policy, dp=dp)
+        loss, grads = loss_and_grads(params, frozen, ccfg, gcfg, on, policy=policy, dp=dp,
+                                     remat=remat)
         return apply_gradients(state, grads, tx), {"loss": loss}
 
     return step

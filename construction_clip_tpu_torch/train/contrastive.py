@@ -34,8 +34,8 @@ def _accuracy(logits):
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
-def _loss_and_accuracy(params, cfg, images, tokens, policy, dp=None):
-    img_f = encode_image(params, cfg, images, policy=policy, normalize=True)
+def _loss_and_accuracy(params, cfg, images, tokens, policy, dp=None, remat=False):
+    img_f = encode_image(params, cfg, images, policy=policy, normalize=True, remat=remat)
     txt_f = encode_text(params, cfg, tokens, policy=policy, normalize=True)
     if is_parallel(dp):
         return global_infonce(img_f, txt_f, params["logit_scale"], dp)
@@ -44,13 +44,14 @@ def _loss_and_accuracy(params, cfg, images, tokens, policy, dp=None):
 
 
 def loss_and_grads(params, cfg: CLIPConfig, images, tokens, *,
-                   policy: Policy = DEFAULT_POLICY, dp=None):
+                   policy: Policy = DEFAULT_POLICY, dp=None, remat=False):
     """-> (loss, accuracy, grads): the gradient of the symmetric InfoNCE loss
     as a tree of the params' layout. With `dp`, images and tokens are this
     rank's rows, and the loss, accuracy and gradients those of the global
-    batch, the same on every rank."""
+    batch, the same on every rank. remat: the image tower's
+    (models/blocks.apply_stack)."""
     params = as_tree(params)
-    loss, acc = _loss_and_accuracy(params, cfg, images, tokens, policy, dp)
+    loss, acc = _loss_and_accuracy(params, cfg, images, tokens, policy, dp, remat)
     loss, grads = mean_grads(loss, params, dp)
     return loss, acc, grads
 
@@ -61,7 +62,7 @@ def _on(batch, device):
 
 
 def make_train_step(cfg: CLIPConfig, tx, *, policy: Policy = DEFAULT_POLICY, device=None,
-                    dp=None):
+                    dp=None, remat=False):
     """Returns (state, batch) -> (state, metrics).
 
     batch: {"images": [B,H,W,3] float, preprocessed; "tokens": [B,ctx] int},
@@ -70,12 +71,14 @@ def make_train_step(cfg: CLIPConfig, tx, *, policy: Policy = DEFAULT_POLICY, dev
     data/loader.TorchImageTextLoader with `dp`) and the metrics are the
     global batch's. The state's params and optimizer moments are updated in
     place (train/state.py). Metrics are tensors on the device, so a step on
-    one device does not wait for the card."""
+    one device does not wait for the card. remat: the image tower's
+    rematerialisation (models/blocks.apply_stack), as in the JAX step."""
 
     def step(state: TrainState, batch):
         params = as_tree(state.params)
         images, tokens = _on(batch, device or tree_leaves(params)[0].device)
-        loss, acc, grads = loss_and_grads(params, cfg, images, tokens, policy=policy, dp=dp)
+        loss, acc, grads = loss_and_grads(params, cfg, images, tokens, policy=policy, dp=dp,
+                                          remat=remat)
         new_state = apply_gradients(state, grads, tx)
         return new_state, {"loss": loss, "accuracy": acc,
                            "logit_scale": params["logit_scale"].detach()}

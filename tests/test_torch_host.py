@@ -191,7 +191,9 @@ def test_port_imports_nothing_of_the_jax_package():
             f"{port}/apps/eval_detection.py", f"{port}/data/vocabulary.py",
             f"{port}/models/lstm_captioner.py", f"{port}/train/lstm.py",
             f"{port}/train/detection.py", f"{port}/apps/train_attention.py",
-            f"{port}/apps/eval_attention.py"} <= scanned
+            f"{port}/apps/eval_attention.py", f"{port}/data/report_parse.py",
+            f"{port}/data/etl.py", f"{port}/data/corpus.py", f"{port}/data/datasets.py",
+            f"{port}/data/native_loader.py", f"{port}/apps/etl.py"} <= scanned
     bad = []
     for path in _python_files():
         for module in _imports(path):
@@ -375,6 +377,43 @@ def test_train_tokenizer_writes_the_original_json(tmp_path, monkeypatch, capsys)
 
 ZH_TEXTS = ["工地邊緣未設置護欄，有墜落之虞。", "開口未防護一樓 ○○ 樓梯", "a1 機械 123 物料/吊掛",
             "  ", "（鋼筋）「外露」─┼─ 施工架", "Hello 工地 x2", "作業人員未戴安全帽、未繫安全帶"]
+
+
+def _without_docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
+                and ast.get_docstring(node) is not None:
+            node.body = node.body[1:]
+    return ast.dump(tree)
+
+
+def _body(path, port):
+    """The module's AST without docstrings, the port's package name read as
+    the JAX package's."""
+    src = open(path, encoding="utf-8").read()
+    if port:
+        src = src.replace("construction_clip_tpu_torch", "construction_clip_tpu")
+    return _without_docstrings(ast.parse(src))
+
+
+@pytest.mark.parametrize("name", ["report_parse", "etl", "corpus"])
+def test_whole_host_copies_are_the_originals(name):
+    """data/report_parse.py, data/etl.py and data/corpus.py are whole copies:
+    the same code as the JAX package's, imports renamed, docstrings aside."""
+    assert _body(os.path.join(REPO, "construction_clip_tpu_torch", "data", f"{name}.py"), True) \
+        == _body(os.path.join(REPO, "construction_clip_tpu", "data", f"{name}.py"), False)
+
+
+@pytest.mark.parametrize("cls", ["PairGroupDataset", "CaptionPairDataset", "FlickrDataset",
+                                 "CocoCaptionDataset", "PrecomputedCaptionDataset",
+                                 "OriginalClipCapDataset"])
+def test_the_six_datasets_are_the_originals(cls):
+    """Each of data/datasets.py's classes against the JAX module's, by its AST
+    with docstrings dropped."""
+    import inspect
+
+    assert _without_docstrings(ast.parse(inspect.getsource(getattr(datasets, cls)))) == \
+        _without_docstrings(ast.parse(inspect.getsource(getattr(j_datasets, cls))))
 
 
 def test_tokenize_zh_and_its_filter_give_the_original_tokens():

@@ -4,6 +4,7 @@ interpret mode on the JAX side, and the plain versions of K1/K3 and K4/K5 on
 the port's side), the npz interchange, and the port's CLI end to end."""
 
 import functools
+import itertools
 import json
 import os
 import sys
@@ -376,5 +377,71 @@ def test_caption_cli_trains_two_steps_and_its_checkpoint_loads(tmp_path, capsys,
     template = init_clip(jax.random.key(0), JCLIPConfig.tiny_bpe())
     loaded = jckpt.load_params_npz(str(tmp_path / "m" / "clip_cap_latest.npz"), template)
     assert all(np.isfinite(np.asarray(a)).all() for a in jax.tree.leaves(loaded))
-    with pytest.raises(SystemExit, match="native_loader"):
-        train_clip_caption.main(args + ["--native_loader"])
+    # --native_loader: the same run through the C++ JPEG ingest, which builds
+    # wherever the JAX binding does
+    from construction_clip_tpu.data import native_loader as j_native
+    from construction_clip_tpu_torch.data import native_loader
+
+    native = [a if a != str(tmp_path / "m") else str(tmp_path / "m_native") for a in args]
+    train_clip_caption.main(native + ["--native_loader"])
+    assert native_loader.native_available() or not j_native.native_available()
+    assert "saved inference params" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "m_native" / "clip_cap")) == ["step_0.pt", "step_1.pt"]
+
+
+def test_train_clip_cli_runs_with_the_native_loader(tmp_path, capsys, monkeypatch):
+    """train_clip --native_loader runs an epoch, through the port's C++ ingest
+    wherever the JAX binding builds (and through its PIL fallback elsewhere)."""
+    from construction_clip_tpu.data import native_loader as j_native
+    from construction_clip_tpu_torch.apps import train_clip
+    from construction_clip_tpu_torch.data import native_loader
+
+    for mod in ("torch.utils.tensorboard", "tensorboardX"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    _corpus(tmp_path)
+    train_clip.main(["--json_path", str(tmp_path / "all.json"), "--image_path", str(tmp_path),
+                     "--arch", "tiny_bpe", "--precision", "fp32",
+                     "--clip_bpe", str(tmp_path / "merges.txt.gz"), "--combination_num", "3",
+                     "--save_every", "1", "--output_dir", str(tmp_path / "m"),
+                     "--log_dir", str(tmp_path / "log"), "--warmup_steps", "0",
+                     "--groups_per_batch", "25", "--epochs", "1", "--device", "cpu",
+                     "--native_loader"])
+    assert "saved inference params" in capsys.readouterr().out
+    logs = [json.loads(line) for line in open(tmp_path / "log" / "clip_comb3.jsonl")]
+    assert max(r["step"] for r in logs) == 2   # 50 groups, 25 a step
+    assert native_loader.native_available() or not j_native.native_available()
+
+
+def test_native_loader_trains_clip_and_its_batches_are_the_jax_loaders(tmp_path):
+    """The loader train_clip --native_loader builds (TorchImageTextLoader with
+    the port's C++ ingest as load_image) gives the batches of the JAX
+    package's ImageTextLoader with the JAX binding's hook. Skips where the
+    JAX binding has no library, as its needs_native tests do: there both
+    sides would fall back to PIL."""
+    from construction_clip_tpu.data import native_loader as j_native
+    from construction_clip_tpu.data import pipeline as j_pipeline
+    from construction_clip_tpu_torch.data import native_loader
+    from construction_clip_tpu_torch.data.datasets import PairGroupDataset
+    from construction_clip_tpu_torch.data.loader import TorchImageTextLoader
+
+    if not j_native.native_available():
+        pytest.skip("native lib unavailable (no g++/libjpeg)")
+    assert native_loader.native_available()
+    _corpus(tmp_path)
+    ds = PairGroupDataset(str(tmp_path / "all.json"), combination_num=3)
+
+    def tokenize(texts):
+        return np.array([[len(t)] for t in texts], np.int32)
+
+    def hook(module):
+        load = module.make_native_loader(256)
+        return lambda f: load(os.path.join(str(tmp_path), f))
+
+    port = TorchImageTextLoader(ds, tokenize, batch_size=5, load_image=hook(native_loader))
+    orig = j_pipeline.ImageTextLoader(ds, tokenize, batch_size=5, load_image=hook(j_native))
+    got, want = list(itertools.islice(port, 2)), list(itertools.islice(orig, 2))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["images"].shape == (15, 256, 256, 3)
+        for key in ("images", "tokens"):
+            np.testing.assert_array_equal(g[key].numpy(), np.asarray(w[key]))
