@@ -283,9 +283,37 @@ Phases, each printing one line (the last line is the JSON verdict):
      save_preact at a small config (image tower on the flash route, text
      tower on K1's) on the card with TF32 off against the CPU: the loss and
      every gradient leaf within phase 28's bound.
-Each of phases 42-47 prints its wall seconds. `--only NAME[,NAME]` (the
-names of SUBSETS) runs the device line and those phases alone, without the
-verdict, for a quicker look; the gate is the run without arguments.
+ 48. tensor parallelism (parallel/sharding.py, train/contrastive.make_gspmd_train_step):
+     ViT-L/14 (BASELINE config 5) on TP(2) x DP(2), 4 ranks sharing the card
+     (spawned processes, gloo groups, K10 within each data line), bf16, phase
+     26's params and batch (B=18), 2 steps: the losses within DP_LOSS_TOL of
+     phase 26's one-process run and the same on every rank; per rank K4 and K5
+     36 times a step (every block of both towers over the rank's 8 or 6 heads;
+     the TP route takes no K1 or K3), all on the tensor-core route, K10 twice
+     a step; peak memory by rank beside phase 26's DP ranks'. Then ViT-B/32 on
+     TP(4) laid over the same ranks, fp32: the loss and every gradient leaf
+     (gathered) within DP_GRAD_TOL of one process's (phase 25's batch), K4/K5
+     on their SIMT route; a sharded save (gathered, one file), a restore into
+     zeroed shards (params and AdamW's moments bit-equal) and a step equal to
+     the live state's.
+ 49. pipeline parallelism (parallel/pipeline.py, make_caption_train_step_pp):
+     ClipCap at full width (GPT-2 21128x12x768, MLP mapper), the full
+     fine-tune, B=16, 4 ranks sharing the card as PP(4) with 4 microbatches
+     and as PP(2) x DP(2): 3 bf16 AdamW steps with the losses within
+     DP_LOSS_TOL of the one-process make_caption_train_step, and one fp32
+     sgd(1.0) step whose every move (the gradient; the block stack by stage,
+     the tied wte on every stage) is within CAPTION_GRAD_TOL of the
+     one-process step's; no hand kernel launches (plain GPT-2, as in JAX).
+ 50. expert parallelism (parallel/expert.py): the top-1 MoE FFN at GPT-2's
+     widths (768 -> 3072), 8 experts, [16, 64] tokens, fp32, 4 ranks as EP(4)
+     and as EP(2) x DP(2): the output and the gradients against moe_ffn_dense
+     in one process (EP_TOL, DP_GRAD_TOL); at capacity_factor 1.0 the dropped
+     rows exactly zero and the groups' outputs those of the dense reference
+     run on each group alone.
+Each of phases 42-45 and 47 prints its wall seconds; phases 48-50 run in one
+spawn of ranks and print theirs together. `--only NAME[,NAME]` (the names of
+SUBSETS) runs the device line and those phases alone, without the verdict,
+for a quicker look; the gate is the run without arguments.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -303,6 +331,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -517,6 +546,12 @@ RANKS_TIMEOUT_S = 300
 
 def say(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, ensure_ascii=False), flush=True)
+
+
+# the idle time kernel_device_ms leaves inside the profiler's window on either
+# side of the calls: several times the skew seen between the device's
+# timestamps and the host's clock (a few milliseconds)
+PROFILE_MARGIN_S = 0.02
 
 
 def median_ms(fn, windows: int = 21, per_window: int = 10) -> float:
@@ -1037,25 +1072,40 @@ def composed_block(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_heads, causal
     return x + torch.addmm(b_out, o.transpose(1, 2).reshape(-1, d), w_out).view(b, t, d)
 
 
-def kernel_device_ms(fn, reps: int = 20) -> dict:
+def kernel_device_ms(fn, reps: int = 20, once_a_call: bool = False) -> dict:
     """{kernel: device ms a call} of every kernel `fn` launches, summed under
-    torch.profiler over `reps` calls; names without namespaces and arguments."""
+    torch.profiler over `reps` calls; names without namespaces and arguments.
+    once_a_call: `fn` launches each of its kernels once, so the profiler must
+    see each `reps` times.
+
+    The profiler keeps only the device activity whose timestamps, moved onto
+    the host's clock, fall inside its window, and those can be off by a few
+    milliseconds: ranks sharing the H100 saw kernels stamped before their
+    launch, and a window of a few milliseconds of calls lost some or all of
+    them. So the window opens and closes PROFILE_MARGIN_S away from the
+    calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     per: dict = {}
+    seen: dict = {}
     for e in prof.key_averages():
         if e.self_device_time_total > 0:
             found = re.search(r"(\w+(<[^()]*>)?)\(", e.key)
             name = found.group(1) if found else e.key
             per[name] = per.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+            seen[name] = seen.get(name, 0) + e.count
     if not per:
         raise AssertionError("torch.profiler saw no device time")
+    if once_a_call and any(n != reps for n in seen.values()):
+        raise AssertionError(f"torch.profiler saw {seen} launches in {reps} calls")
     return per
 
 
@@ -2178,8 +2228,8 @@ def k10_rank(dp, cases, reps):
             dp.barrier()
             if r == dp.rank:
                 case["kernel_ms"] = median_ms(kernel, 11, 20)
-                if r == 0:   # torch.profiler in one rank: in several, it may see no device time
-                    case["launch_device_ms"] = kernel_device_ms(kernel)
+                if r == 0:   # the kernel line's device time is rank 0's
+                    case["launch_device_ms"] = kernel_device_ms(kernel, once_a_call=True)
         dp.barrier()
         out.append(case)
     delayed = k10_delayed(dp, peers, K10_DELAYED_CALLS)
@@ -2299,6 +2349,7 @@ def phase_dp_train(name: str, cfg, seed: int, batch, world: int, steps: int,
         check_tc_route(f"{name} rank {r}", out["launches"], out["tc_launches"],
                        [n for n in TC_WRAPPERS if n in need])
     counts = {n: sum(out["launches"][n] for out in per_rank) for n in WRAPPERS}
+    peaks = [o["peak_memory_gib"] for o in per_rank]
     say(name, world=world, global_batch=int(batch["tokens"].shape[0]),
         local_batch=per_rank[0]["local_batch"], steps=steps, losses=losses,
         one_process_losses=one_process_losses, loss_rel_errs=rel_errs, loss_tols=tols,
@@ -2306,11 +2357,11 @@ def phase_dp_train(name: str, cfg, seed: int, batch, world: int, steps: int,
         wall_s=wall, setup_s_by_rank=[o["setup_s"] for o in per_rank],
         median_step_ms_by_rank=[statistics.median(o["step_ms"]) for o in per_rank],
         step_ms_rank0=per_rank[0]["step_ms"],
-        peak_memory_gib_by_rank=[o["peak_memory_gib"] for o in per_rank],
+        peak_memory_gib_by_rank=peaks,
         launches_per_rank=per_rank[0]["launches"], launches_all_ranks=counts,
         tc_launches_per_rank=per_rank[0]["tc_launches"],
         note="ranks time-slice one card: no multi-GPU speed")
-    return counts
+    return {"launches": counts, "peak_memory_gib_by_rank": peaks}
 
 
 def dp_parity_rank(dp, cfg, seed, batch):
@@ -4270,8 +4321,570 @@ def remat_parity(device) -> dict:
     return report
 
 
-# phases 42-45 and 47 in order, each (its number, a function of the state they share):
-# phase 45 reads phase 44's params and trains them itself when it runs without phase 44.
+# ---- tensor, pipeline and expert parallelism: ranks that share the card -------------------
+
+TP_AXES = {"data": 2, "model": 2}          # phase 48: ViT-L/14, phase 26's batch
+TP_PARITY_AXES = {"data": 1, "model": 4}   # laid over the same 4 ranks: ViT-B/32 in fp32
+TP_STEPS = 2
+PP_WORLD = 4
+# phase 49's layouts (name, axis sizes, microbatches): PP(4), and PP(2) x DP(2) laid
+# over the same ranks; B=16 (8 rows a data rank), 4 microbatches each
+PP_LAYOUTS = (("pp4", {"pipe": 4}, 4), ("pp2_dp2", {"pipe": 2, "data": 2}, 4))
+PP_STEPS, PP_SEED = 3, 49
+# phase 50: GPT-2's FFN widths, 8 experts, [16, 64] tokens, fp32; EP(4), then EP(2) x
+# DP(2) laid over the same ranks
+EP_LAYOUTS = (("ep4", {"expert": 4}, None), ("ep2_dp2", {"expert": 2, "data": 2}, "data"))
+EP_WIDTHS = (768, 3072, 8)
+EP_TOKENS = (16, 64)
+# the expert-parallel outputs against one process's, relative to the largest element:
+# fp32 products of 768 and 3072 terms summed in another order (batched einsums against
+# the reference's per-token gather)
+EP_TOL = 1e-5
+
+
+def sgd(lr):
+    """optax.sgd: the params move by -lr times the gradients."""
+    from construction_clip_tpu_torch.train.state import GradientTransformation
+
+    return GradientTransformation(
+        lambda params: (), lambda g, s, params=None: (tree_map(lambda x: -lr * x, g), s))
+
+
+def _rank_peak_gib() -> float:
+    """This process's peak of allocated card memory."""
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _reset_peak() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _tp_vit_l_14(mesh, cfg, batch) -> dict:
+    """Phase 48's ViT-L/14 bf16 steps on this rank's shard and rows."""
+    from construction_clip_tpu_torch.parallel.sharding import shard_clip_params
+
+    t0 = time.perf_counter()
+    data = mesh.axis("data")
+    params = shard_clip_params(mesh, convert.to_params(convert.init_clip(2, cfg),
+                                                       trainable=True), cfg).to(mesh.device)
+    local = _rank_batch(data, batch)
+    tx = make_adamw(1e-4, warmup_steps=0, total_steps=1000)
+    state = TrainState.create(params, tx)
+    step = contrastive.make_gspmd_train_step(cfg, tx, mesh, policy=BF16_POLICY,
+                                             device=mesh.device)
+    _reset_peak()
+    mesh.barrier()
+    setup = time.perf_counter() - t0
+    reset_launches()
+    losses, times = [], []
+    for _ in range(TP_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, local)
+        losses.append(float(m["loss"]))   # waits for the step
+        times.append((time.perf_counter() - t1) * 1e3)
+    leaves = tree_leaves(as_tree(state.params))
+    return {"losses": losses, "step_ms": times, "launches": launches(),
+            "tc_launches": tc_launches(), "peak_memory_gib": _rank_peak_gib(),
+            "param_bytes": nbytes(*leaves), "setup_s": setup, "local_batch": len(local["tokens"])}
+
+
+def _tp_parity(mesh, cfg, batch, directory) -> dict:
+    """Phase 48's ViT-B/32 fp32 TP(4) loss_and_grads (the gradients gathered to
+    the full layout on rank 0), then a sharded save, restore and step."""
+    from construction_clip_tpu_torch.core.params import ParamTree
+    from construction_clip_tpu_torch.parallel.sharding import (
+        gather_clip_params, shard_clip_params)
+    from construction_clip_tpu_torch.train import checkpoint
+
+    model = mesh.axis("model")
+    params = shard_clip_params(mesh, convert.to_params(convert.init_clip(0, cfg),
+                                                       trainable=True), cfg).to(mesh.device)
+    images, tokens = batch["images"].to(mesh.device), batch["tokens"].to(mesh.device)
+    reset_launches()
+    loss, acc, grads = contrastive.loss_and_grads(params, cfg, images, tokens, dp=mesh.axis("data"),
+                                                  tp=model)
+    out = {"loss": float(loss), "accuracy": float(acc), "launches": launches(),
+           "simt": {n: WRAPPERS[n].simt_launches for n in ("flash_attention_fwd",
+                                                           "flash_attention_bwd")}}
+    full = gather_clip_params(mesh, grads)
+    if mesh.rank == 0:
+        out["grads"] = [g.cpu().numpy() for g in tree_leaves(full)]
+    del grads, full
+
+    tx = make_adamw(1e-4, warmup_steps=0, total_steps=1000)
+    live = TrainState.create(params, tx)
+    step = contrastive.make_gspmd_train_step(cfg, tx, mesh, device=mesh.device)
+    live, m1 = step(live, {"images": images, "tokens": tokens})
+    t0 = time.perf_counter()
+    checkpoint.save_state(directory, live, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    zeros = ParamTree(tree_map(torch.zeros_like, as_tree(live.params)), trainable=True)
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_state(directory, TrainState.create(zeros, tx), mesh=mesh,
+                                        cfg=cfg)
+    restore_s = time.perf_counter() - t0
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(as_tree(a)),
+                                                     tree_leaves(as_tree(b))))
+
+    out["round_trip"] = {
+        "step": restored.step, "params_equal": same(restored.params, live.params),
+        "moments_equal": same(restored.opt_state["m"], live.opt_state["m"]) and
+        same(restored.opt_state["v"], live.opt_state["v"]),
+        "save_s": save_s, "restore_s": restore_s,
+        "file_gib": sum(os.path.getsize(os.path.join(directory, f))
+                        for f in os.listdir(directory)) / 2 ** 30}
+    restored, m2 = step(restored, {"images": images, "tokens": tokens})
+    live, m2_live = step(live, {"images": images, "tokens": tokens})
+    out["round_trip"].update(losses=[float(m1["loss"]), float(m2["loss"]),
+                                     float(m2_live["loss"])],
+                             resumed_equals_live=same(restored.params, live.params))
+    return out
+
+
+def tp_rank(mesh, spawned, cfg_l, batch_l, cfg_b, batch_b, directory):
+    """One rank of phase 48: ViT-L/14 on TP(2) x DP(2), then ViT-B/32 on TP(4)
+    laid over the same ranks. `spawned`: the parent's clock at the spawn."""
+    from construction_clip_tpu_torch.core.mesh import create_mesh
+
+    out = {"coords": mesh.coords, "started_s": time.time() - spawned}
+    if dict(mesh.shape) != TP_AXES:
+        raise ValueError(f"phase 48 runs on a {TP_AXES} mesh, not {mesh.shape}")
+    out["vit_l_14"] = _tp_vit_l_14(mesh, cfg_l, batch_l)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp4 = create_mesh(TP_PARITY_AXES, device=mesh.device)
+    out["parity"] = _tp_parity(tp4, cfg_b, {k: torch.from_numpy(v) for k, v in batch_b.items()},
+                               directory)
+    tp4.close()
+    out["parity_s"] = time.perf_counter() - t0
+    return out
+
+
+def tensor_parallel_job(clip_tok, one_process: dict, dp_peaks: list | None) -> dict:
+    """Phase 48 as a job of run_parallel_jobs: ViT-L/14 (BASELINE config 5) on TP(2) x DP(2), 4 ranks sharing
+    the card, bf16, phase 26's batch (B=18) and params (seed 2), TP_STEPS steps:
+    the losses within DP_LOSS_TOL of the one-process run `one_process` and the
+    same on every rank; per rank K4 and K5 launch 36 times a step (24 image
+    blocks and 12 text blocks, the tensor-parallel route takes no K1 or K3),
+    all on the tensor-core route, and K10 twice a step within its data line;
+    peak memory by rank beside phase 26's DP ranks' (`dp_peaks`). Then
+    ViT-B/32 on TP(4) over the same ranks in fp32: the loss and every
+    gradient leaf (gathered) within DP_GRAD_TOL of one process's on the same
+    batch (phase 25's); then a sharded save, restore into zeroed shards and a
+    step: the restored params and moments bit-equal, the resumed step's loss
+    and params the live state's."""
+    cfg_l, cfg_b = CLIPConfig.vit_l_14(), CLIPConfig.vit_b_32()
+    batch_l = class_balanced_batch(cfg_l, clip_tok, 2, 10, "cuda")   # phase 26's
+    batch_b = class_balanced_batch(cfg_b, clip_tok, 4, 11, "cuda")   # phase 25's
+    params = convert.to_params(convert.init_clip(0, cfg_b), device="cuda", trainable=True)
+    loss, acc, grads = contrastive.loss_and_grads(params, cfg_b, batch_b["images"],
+                                                  batch_b["tokens"])
+    want = [g.detach() for g in tree_leaves(grads)]
+    names = list(_paths(as_tree(params)))
+    want_loss = float(loss)
+    del params, grads
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="cct_tp_ckpt_")
+    return {"rank": (tp_rank, (cfg_l, _host_batch(batch_l), cfg_b, _host_batch(batch_b),
+                               directory)),
+            "check": lambda per_rank, wall: _tp_check(
+                per_rank, wall, cfg_l, batch_l, batch_b, one_process, dp_peaks, names, want,
+                want_loss),
+            "cleanup": lambda: shutil.rmtree(directory, ignore_errors=True)}
+
+
+def _tp_check(per_rank, wall, cfg_l, batch_l, batch_b, one_process, dp_peaks, names, want,
+              want_loss) -> None:
+    """Phase 48's checks of its ranks' results against the one-process runs."""
+    runs = [r["vit_l_14"] for r in per_rank]
+    losses = runs[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_process["losses"])]
+    tols = [DP_LOSS_TOL["first"]] + [DP_LOSS_TOL["later"]] * (TP_STEPS - 1)
+    if not all(np.isfinite(losses)) or any(e > t for e, t in zip(rel, tols)) or \
+            any(r["losses"] != losses for r in runs):
+        raise AssertionError(f"tensor_parallel: losses {[r['losses'] for r in runs]} against "
+                             f"the one-process {one_process['losses']}: {rel}, tols {tols}")
+    flash = ("flash_attention_fwd", "flash_attention_bwd")
+    for i, r in enumerate(runs):
+        per_step = cfg_l.vision.layers + cfg_l.text.layers
+        if any(r["launches"][n] != per_step * TP_STEPS for n in flash) or \
+                r["launches"]["all_gather"] != 2 * TP_STEPS or \
+                r["launches"]["fused_attention_block"] or r["launches"]["fused_attention_block_bwd"]:
+            raise AssertionError(f"tensor_parallel rank {i}: launches {r['launches']}")
+        check_tc_route(f"tensor_parallel rank {i}", r["launches"], r["tc_launches"], flash)
+    say("tensor_parallel", axes=TP_AXES, world=4, model="vit_l_14", policy="bf16",
+        global_batch=int(batch_l["tokens"].shape[0]), local_batch=runs[0]["local_batch"],
+        steps=TP_STEPS, losses=losses, one_process_losses=one_process["losses"],
+        loss_rel_errs=rel, loss_tols=tols, wall_s=wall,
+        rank_started_s=[r["started_s"] for r in per_rank],
+        parity_part_s=[r["parity_s"] for r in per_rank],
+        setup_s_by_rank=[r["setup_s"] for r in runs],
+        step_ms_by_rank=[r["step_ms"] for r in runs],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in runs],
+        dp_peak_memory_gib_by_rank=dp_peaks,
+        one_process_peak_memory_gib=one_process.get("peak_memory_gib"),
+        param_gib_by_rank=[r["param_bytes"] / 2 ** 30 for r in runs],
+        full_param_gib=sum(a.nbytes for a in tree_leaves(
+            convert.init_clip(convert.SHAPES, cfg_l))) / 2 ** 30,
+        launches_per_rank=runs[0]["launches"], tc_launches_per_rank=runs[0]["tc_launches"],
+        coords=[r["coords"] for r in per_rank],
+        note="ranks time-slice one card: no multi-GPU speed")
+
+    parity = [r["parity"] for r in per_rank]
+    errs = {n: float((torch.from_numpy(g).to(w.device) - w).abs().max() / w.abs().max())
+            for n, g, w in zip(names, parity[0]["grads"], want)}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(parity[0]["loss"] - want_loss) / abs(want_loss)
+    trip = [p["round_trip"] for p in parity]
+    report = {"axes": TP_PARITY_AXES, "model": "vit_b_32", "policy": "fp32",
+              "batch": int(batch_b["tokens"].shape[0]), "loss_ranks": parity[0]["loss"],
+              "loss_one_process": want_loss, "loss_rel_err": loss_err, "worst_leaf": worst,
+              "worst_leaf_err": errs[worst], "tol": DP_GRAD_TOL, "leaves": len(names),
+              "launches_per_rank": parity[0]["launches"], "simt_launches": parity[0]["simt"],
+              "round_trip": trip[0]}
+    if loss_err > 1e-5 or errs[worst] > DP_GRAD_TOL or \
+            any(p["loss"] != parity[0]["loss"] for p in parity) or \
+            any(p["launches"]["flash_attention_fwd"] <= 0 or
+                p["launches"]["flash_attention_bwd"] <= 0 for p in parity):
+        raise AssertionError(f"tensor_parallel fp32 parity: {report}")
+    if any(not (t["step"] == 1 and t["params_equal"] and t["moments_equal"] and
+                t["resumed_equals_live"] and t["losses"][1] == t["losses"][2]) for t in trip):
+        raise AssertionError(f"tensor_parallel: sharded checkpoint round trip {trip}")
+    say("tensor_parallel_parity", **report)
+
+
+def _stage_moves(params0, params1) -> dict:
+    """Each leaf's move from params0 to params1 (sgd(1.0): its gradient), by path."""
+    with torch.no_grad():
+        return {n: (a - b) for n, a, b in zip(_paths(params0), tree_leaves(params0),
+                                              tree_leaves(params1))}
+
+
+def _caption_rows(layout, batch, device):
+    rows = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    return shard_batch(layout.axis("data"), rows) if "data" in layout.shape else rows
+
+
+def pp_rank(mesh, spawned, ccfg, gcfg, batches, ref_path):
+    """One rank of phase 49: per layout, PP_STEPS bf16 AdamW steps of
+    make_caption_train_step_pp, then one fp32 sgd(1.0) step whose moves are
+    held against the one-process moves in `ref_path` (this stage's layers of
+    the block stack, the rest whole)."""
+    from construction_clip_tpu_torch.core.mesh import create_mesh
+    from construction_clip_tpu_torch.train.caption import (
+        make_caption_train_step_pp, shard_clipcap_params_pp)
+
+    started = time.time() - spawned
+    tree = convert.init_clipcap(PP_SEED, ccfg, gcfg)
+    ref = torch.load(ref_path, map_location="cpu", mmap=True, weights_only=True)
+    out = {}
+    for name, axes, micro in PP_LAYOUTS:
+        t_layout = time.perf_counter()
+        layout = mesh if axes == dict(mesh.shape) else create_mesh(axes, device=mesh.device)
+        pipe = layout.axis("pipe")
+
+        def fresh(tx):
+            params = shard_clipcap_params_pp(layout, convert.to_params(tree, trainable=True))
+            return TrainState.create(params.to(mesh.device), tx)
+
+        tx = make_adamw(1e-4, warmup_steps=1, total_steps=100)
+        state = fresh(tx)
+        step = make_caption_train_step_pp(ccfg, gcfg, tx, layout, microbatches=micro,
+                                          policy=BF16_POLICY, device=mesh.device)
+        _reset_peak()
+        layout.barrier()
+        reset_launches()
+        losses, times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, _caption_rows(layout, batch, mesh.device))
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts, peak = launches(), _rank_peak_gib()
+        del state, step
+        torch.cuda.empty_cache()
+
+        state = fresh(sgd(1.0))
+        start = tree_map(torch.clone, as_tree(state.params))
+        step = make_caption_train_step_pp(ccfg, gcfg, sgd(1.0), layout, microbatches=micro,
+                                          device=mesh.device)
+        state, m = step(state, _caption_rows(layout, batches[0], mesh.device))
+        moves = _stage_moves(start, as_tree(state.params))
+        floor = 1e-6 * max(float(r.abs().max()) for r in ref.values())
+        errs = {}
+        for n, got in moves.items():
+            want = ref[n]
+            if "/blocks/" in n:
+                rows = want.shape[0] // pipe.world
+                want = want[pipe.rank * rows:(pipe.rank + 1) * rows]
+            want = want.to(mesh.device)
+            errs[n] = float((got - want).abs().max()) / (float(want.abs().max()) + floor)
+        out[name] = {"coords": layout.coords, "started_s": started,
+                     "layout_s": time.perf_counter() - t_layout, "losses": losses,
+                     "step_ms": times,
+                     "peak_memory_gib": peak, "launches": counts, "fp32_loss": float(m["loss"]),
+                     "errors": errs, "microbatches": micro}
+        del state, step, start, moves
+        torch.cuda.empty_cache()
+        if layout is not mesh:
+            layout.close()
+    return out
+
+
+def pipeline_parallel_job() -> dict:
+    """Phase 49 as a job of run_parallel_jobs: ClipCap at full width (GPT-2 21128x12x768, the MLP mapper),
+    the full fine-tune at B=16 through make_caption_train_step_pp, 4 ranks
+    sharing the card, in PP_LAYOUTS: PP_STEPS bf16 AdamW steps with the
+    losses within DP_LOSS_TOL of the one-process make_caption_train_step on
+    the same params and batches, the same on every rank; one fp32 sgd(1.0)
+    step whose every move (the gradient) is within CAPTION_GRAD_TOL of the
+    one-process step's (phase 28's measure: each leaf's largest difference
+    over its largest element plus 1e-6 of any leaf's largest), the block
+    stack's leaves by stage; no K1-K10 launch (GPT-2's training attention is
+    plain torch, as in JAX)."""
+    from construction_clip_tpu_torch.train.caption import make_caption_train_step
+
+    gcfg, ccfg = GPT2Config(), ClipCapConfig(only_prefix=False)
+    archive = caption_archive(np.random.default_rng(PP_SEED), 16 * PP_STEPS, ccfg, gcfg)
+    batches = [{k: v[i * 16:(i + 1) * 16] for k, v in archive.items()}
+               for i in range(PP_STEPS)]
+    tree = convert.init_clipcap(PP_SEED, ccfg, gcfg)
+    tx = make_adamw(1e-4, warmup_steps=1, total_steps=100)
+    state = TrainState.create(convert.to_params(tree, device="cuda", trainable=True), tx)
+    step = make_caption_train_step(ccfg, gcfg, tx, policy=BF16_POLICY, device="cuda")
+    one_process = []
+    for batch in batches:
+        state, m = step(state, None, batch)
+        one_process.append(float(m["loss"]))
+    del state, step
+    state = TrainState.create(convert.to_params(tree, device="cuda", trainable=True), sgd(1.0))
+    start = tree_map(torch.clone, as_tree(state.params))
+    state, m = make_caption_train_step(ccfg, gcfg, sgd(1.0), device="cuda")(state, None,
+                                                                            batches[0])
+    fp32_loss = float(m["loss"])
+    ref = {n: v.cpu() for n, v in _stage_moves(start, as_tree(state.params)).items()}
+    del state, start, tree
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="cct_pp_ref_")
+    ref_path = os.path.join(tmp, "moves.pt")
+    torch.save(ref, ref_path)
+    return {"rank": (pp_rank, (ccfg, gcfg, batches, ref_path)),
+            "check": lambda per_rank, wall: _pp_check(per_rank, wall, one_process, fp32_loss),
+            "cleanup": lambda: shutil.rmtree(tmp, ignore_errors=True)}
+
+
+def _pp_check(per_rank, wall, one_process, fp32_loss) -> None:
+    """Phase 49's checks of its ranks' results against the one-process steps."""
+    tols = [DP_LOSS_TOL["first"]] + [DP_LOSS_TOL["later"]] * (PP_STEPS - 1)
+    for name, axes, micro in PP_LAYOUTS:
+        runs = [r[name] for r in per_rank]
+        losses = runs[0]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_process)]
+        errs = {}
+        for r in runs:
+            for n, e in r["errors"].items():
+                errs[n] = max(errs.get(n, 0.0), e)
+        worst = max(errs, key=errs.get)
+        fp32_err = abs(runs[0]["fp32_loss"] - fp32_loss) / fp32_loss
+        report = {"axes": axes, "microbatches": micro, "world": PP_WORLD, "batch": 16,
+                  "steps": PP_STEPS, "losses": losses, "one_process_losses": one_process,
+                  "loss_rel_errs": rel, "loss_tols": tols, "fp32_loss": runs[0]["fp32_loss"],
+                  "fp32_loss_one_process": fp32_loss, "fp32_loss_rel_err": fp32_err,
+                  "worst_leaf": worst, "worst_leaf_err": errs[worst], "tol": CAPTION_GRAD_TOL,
+                  "wte_err": errs["gpt/wte"], "step_ms_by_rank": [r["step_ms"] for r in runs],
+                  "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in runs],
+                  "rank_started_s": [r["started_s"] for r in runs],
+                  "layout_s_by_rank": [r["layout_s"] for r in runs],
+                  "coords": [r["coords"] for r in runs]}
+        if any(e > t for e, t in zip(rel, tols)) or not all(np.isfinite(losses)) or \
+                any(r["losses"] != losses for r in runs) or fp32_err > 1e-5 or \
+                errs[worst] > CAPTION_GRAD_TOL:
+            raise AssertionError(f"pipeline_parallel {name}: {report}")
+        if any(any(r["launches"].values()) for r in runs):
+            raise AssertionError(f"pipeline_parallel {name}: a hand kernel launched: "
+                                 f"{[r['launches'] for r in runs]}")
+        say(f"pipeline_parallel_{name}", wall_s=wall, **report,
+            note="ranks time-slice one card: no multi-GPU speed")
+
+
+def ep_rank(mesh, spawned, params_np, x_np, tgt_np):
+    """One rank of phase 50: per layout, its group's expert-parallel output
+    and the reduced gradients (capacity_factor E), then the output at
+    capacity_factor 1.0."""
+    from construction_clip_tpu_torch.core.mesh import create_mesh
+    from construction_clip_tpu_torch.parallel import expert
+
+    started = time.time() - spawned
+    full = {k: torch.from_numpy(v).to(mesh.device) for k, v in params_np.items()}
+    x, tgt = (torch.from_numpy(a).to(mesh.device) for a in (x_np, tgt_np))
+    n_experts = params_np["router"].shape[-1]
+    out = {}
+    for name, axes, dp_axis in EP_LAYOUTS:
+        t_layout = time.perf_counter()
+        layout = mesh if axes == dict(mesh.shape) else create_mesh(axes, device=mesh.device)
+        local = {k: v.requires_grad_() for k, v in expert.shard_experts(layout, full).items()}
+        xg = expert.shard_tokens(layout, x, dp_axis=dp_axis)
+        tg = expert.shard_tokens(layout, tgt, dp_axis=dp_axis)
+        reset_launches()
+        t0 = time.perf_counter()
+        y = expert.moe_ffn_ep(local, xg, layout, capacity_factor=float(n_experts),
+                              dp_axis=dp_axis)
+        loss = ((y - tg) ** 2).sum() / tgt.numel()
+        grads = dict(zip(local, torch.autograd.grad(loss, list(local.values()))))
+        expert.reduce_grads(grads, layout, dp_axis=dp_axis)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            tight = expert.moe_ffn_ep(local, xg, layout, capacity_factor=1.0, dp_axis=dp_axis)
+        out[name] = {"group": expert.token_group(layout, "expert", dp_axis)[0],
+                     "expert_coord": layout.coords["expert"], "y": y.detach().cpu().numpy(),
+                     "tight": tight.cpu().numpy(), "launches": launches(),
+                     "grads": {k: g.cpu().numpy() for k, g in grads.items()},
+                     "forward_backward_ms": ms, "started_s": started}
+        if layout is not mesh:
+            layout.close()
+        out[name]["layout_s"] = time.perf_counter() - t_layout
+    return out
+
+
+def expert_parallel_job() -> dict:
+    """Phase 50 as a job of run_parallel_jobs: the top-1 MoE FFN at GPT-2's widths (768 -> 3072), 8 experts,
+    [16, 64] tokens, fp32, 4 ranks sharing the card in EP_LAYOUTS: the groups'
+    outputs at capacity_factor E within EP_TOL of moe_ffn_dense in one process
+    (run over 128-token chunks: no token drops there, so a chunk routes as the
+    whole does), the gradients of a mean squared error (router on every rank,
+    each rank's expert shard) within DP_GRAD_TOL of each leaf's largest
+    element; at capacity_factor 1.0 the dropped rows exactly zero, some
+    dropped and some kept, the kept rows within EP_TOL of the dense output,
+    and each group's whole output within EP_TOL of moe_ffn_dense run on that
+    group alone at the group's capacity (the same drops). No hand kernel
+    launches (einsums and gelu_new, as in JAX)."""
+    from construction_clip_tpu_torch.parallel import expert
+
+    d, f, e = EP_WIDTHS
+    params_np = expert.init_moe(50, d, f, e)
+    gen = np.random.default_rng(50)
+    x_np = gen.standard_normal(EP_TOKENS + (d,)).astype(np.float32)
+    tgt_np = gen.standard_normal(x_np.shape).astype(np.float32)
+    params = {k: torch.from_numpy(v).cuda().requires_grad_() for k, v in params_np.items()}
+    tokens = torch.from_numpy(x_np).cuda().reshape(-1, d)
+    tgt = torch.from_numpy(tgt_np).cuda().reshape(-1, d)
+    t0 = time.perf_counter()
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+    dense = []
+    for xc, tc in zip(tokens.split(128), tgt.split(128)):
+        yc = expert.moe_ffn_dense(params, xc[None])[0]
+        part = ((yc - tc) ** 2).sum() / tgt.numel()
+        for k, g in zip(params, torch.autograd.grad(part, list(params.values()))):
+            grads[k] += g
+        dense.append(yc.detach())
+    dense = torch.cat(dense)
+    dense_s = time.perf_counter() - t0
+    return {"rank": (ep_rank, (params_np, x_np, tgt_np)),
+            "check": lambda per_rank, wall: _ep_check(per_rank, wall, params, tokens, grads,
+                                                      dense, dense_s),
+            "cleanup": lambda: None}
+
+
+def _ep_check(per_rank, wall, params, tokens, grads, dense, dense_s) -> None:
+    """Phase 50's checks of its ranks' results against the one-process run."""
+    from construction_clip_tpu_torch.parallel import expert
+
+    d, f, e = EP_WIDTHS
+    scale = float(dense.abs().max())
+    for name, axes, dp_axis in EP_LAYOUTS:
+        runs = sorted((r[name] for r in per_rank), key=lambda r: r["group"])
+        n_groups = len(runs)
+        s = tokens.shape[0] // n_groups
+        capacity = -(-s // e)
+        y = torch.from_numpy(np.concatenate([r["y"] for r in runs])).cuda()
+        tight = torch.from_numpy(np.concatenate([r["tight"] for r in runs])).cuda()
+        fwd_err = float((y - dense).abs().max()) / scale
+        grad_errs = {}
+        ed = axes["expert"]
+        for r in runs:
+            for k, g in r["grads"].items():
+                want = grads[k] if k == "router" else \
+                    grads[k][r["expert_coord"] * (e // ed):(r["expert_coord"] + 1) * (e // ed)]
+                err = float((torch.from_numpy(g).cuda() - want).abs().max() /
+                            want.abs().max())
+                grad_errs[k] = max(grad_errs.get(k, 0.0), err)
+        dropped = (tight == 0).all(dim=-1)
+        with torch.inference_mode():
+            groups = torch.cat([expert.moe_ffn_dense(
+                params, tokens[i * s:(i + 1) * s][None], capacity=capacity)[0]
+                for i in range(n_groups)])
+        kept_err = float((tight[~dropped] - dense[~dropped]).abs().max()) / scale
+        group_err = float((tight - groups).abs().max()) / scale
+        same_drops = bool((dropped == (groups == 0).all(dim=-1)).all())
+        report = {"axes": axes, "world": 4, "tokens": list(EP_TOKENS), "widths": [d, f],
+                  "experts": e, "group_tokens": s, "capacity_at_1": capacity,
+                  "forward_err": fwd_err, "tol": EP_TOL, "grad_errs": grad_errs,
+                  "grad_tol": DP_GRAD_TOL, "dropped_rows": int(dropped.sum()),
+                  "kept_rows_err": kept_err, "group_dense_err": group_err,
+                  "drops_equal_the_groups_dense": same_drops,
+                  "forward_backward_ms_by_rank": [r["forward_backward_ms"] for r in runs],
+                  "rank_started_s": [r["started_s"] for r in runs],
+                  "layout_s_by_rank": [r["layout_s"] for r in runs],
+                  "dense_reference_s": dense_s, "wall_s": wall}
+        if fwd_err > EP_TOL or max(grad_errs.values()) > DP_GRAD_TOL or \
+                not dropped.any() or dropped.all() or kept_err > EP_TOL or \
+                group_err > EP_TOL or not same_drops:
+            raise AssertionError(f"expert_parallel {name}: {report}")
+        if any(any(r["launches"].values()) for r in runs):
+            raise AssertionError(f"expert_parallel {name}: a hand kernel launched")
+        say(f"expert_parallel_{name}", **report)
+
+
+def parallel_rank(mesh, spawned, jobs):
+    """One rank of phases 48-50: each job's rank function in turn, in one
+    process (one CUDA start and one set of gloo connections for them all),
+    on the spawn's TP_AXES mesh, each job laying its other layouts over the
+    same ranks. `spawned`: the parent's clock at the spawn."""
+    out = []
+    for fn, args in jobs:
+        out.append(fn(mesh, spawned, *args))
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel_jobs(jobs: list) -> dict:
+    """Phases 48-50's jobs (their one-process references made first) in one
+    spawn of 4 ranks sharing the card, then each job's checks."""
+    try:
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(parallel_rank, 4, (time.time(), [j["rank"] for j in jobs]),
+                               device="cuda:0", timeout=RANKS_TIMEOUT_S, axes=TP_AXES)
+        wall = time.perf_counter() - t0
+        for i, job in enumerate(jobs):
+            job["check"]([r[i] for r in per_rank], wall)
+    finally:
+        for job in jobs:
+            job["cleanup"]()
+    return {"wall_s": wall}
+
+
+def tensor_parallel_inputs(ctx: dict) -> tuple:
+    """Phase 48's inputs: the CLIP tokenizer, phase 26's one-process ViT-L/14
+    run (made here when phase 26 did not run) and phase 26's ranks' peaks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_tok, _ = tokenizers(tmp)
+    if "vit_l_14_b18" not in ctx:
+        cfg_l = CLIPConfig.vit_l_14()
+        ctx["vit_l_14_b18"] = phase_train("vit_l_14_b18", cfg_l, convert.init_clip(2, cfg_l),
+                                          class_balanced_batch(cfg_l, clip_tok, 2, 10, "cuda"),
+                                          2, "cuda")
+        torch.cuda.empty_cache()
+    return clip_tok, ctx["vit_l_14_b18"], ctx.get("dp_peaks")
+
+
+# phases 42-45 and 47-50 in order, each (its number, a function of the state they share):
+# phase 45 reads phase 44's params and trains them itself when it runs without phase 44;
+# phase 48 reads phase 26's runs, and makes the one-process run itself without them.
+# Phases 48-50 (PARALLEL) return their jobs, which run_phases runs in one spawn of ranks.
 # `python3 chip_smoke.py --only NAME[,NAME]` runs named ones, for a quicker look: the
 # device line, then these phases alone, and no verdict; without --only every phase runs
 SUBSETS = {"detection_train": ("42", lambda ctx: phase_detection_train()),
@@ -4279,15 +4892,29 @@ SUBSETS = {"detection_train": ("42", lambda ctx: phase_detection_train()),
            "lstm_train": ("44", lambda ctx: ctx.update(trained=phase_lstm_train())),
            "lstm_eval": ("45", lambda ctx: phase_lstm_eval(ctx.pop("trained", None)
                                                            or phase_lstm_train())),
-           "remat": ("47", lambda ctx: phase_remat())}
+           "remat": ("47", lambda ctx: phase_remat()),
+           "tensor_parallel": ("48", lambda ctx: tensor_parallel_job(
+               *tensor_parallel_inputs(ctx))),
+           "pipeline_parallel": ("49", lambda ctx: pipeline_parallel_job()),
+           "expert_parallel": ("50", lambda ctx: expert_parallel_job())}
+PARALLEL = ("tensor_parallel", "pipeline_parallel", "expert_parallel")
 
 
-def run_phases(names: list) -> None:
-    ctx: dict = {}
-    for name in names:
+def run_phases(names: list, ctx: dict | None = None) -> None:
+    """The named phases in order, each with its wall line; then the named
+    ones of PARALLEL, their jobs in one spawn of ranks, with one wall line."""
+    ctx = {} if ctx is None else ctx
+    for name in [n for n in names if n not in PARALLEL]:
         t0 = time.perf_counter()
         SUBSETS[name][1](ctx)
         say(f"{name}_wall", phases=SUBSETS[name][0], seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    parallel = [n for n in names if n in PARALLEL]
+    if parallel:
+        t0 = time.perf_counter()
+        run_parallel_jobs([SUBSETS[name][1](ctx) for name in parallel])
+        say("parallel_wall", phases=",".join(SUBSETS[n][0] for n in parallel),
+            seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
 
 
@@ -4395,7 +5022,7 @@ def main() -> None:
     dp_counts = phase_dp_train("dp_train_vit_b_32", cfgs[0], 0, batch, K10_WORLD, 5,
                                need=("fused_attention_block", "fused_attention_block_bwd"),
                                one_process_losses=vit_b_32_default["losses"][:5])
-    counts["all_gather"] = dp_counts["all_gather"]
+    counts["all_gather"] = dp_counts["launches"]["all_gather"]
     batch = class_balanced_batch(cfgs[0], clip_tok, 4, 11, "cuda")
     phase_dp_parity(cfgs[0], 0, batch, K10_WORLD)
     batch = class_balanced_batch(cfg_l, clip_tok, 2, 10, "cuda")
@@ -4405,11 +5032,14 @@ def main() -> None:
     one_process = phase_train("vit_l_14_b18", cfg_l, convert.init_clip(2, cfg_l), batch, 2,
                               "cuda")
     torch.cuda.empty_cache()
-    phase_dp_train("dp_train_vit_l_14", cfg_l, 2, batch, 2, 2,
-                   need=("flash_attention_fwd", "flash_attention_bwd",
-                         "fused_attention_block", "fused_attention_block_bwd"),
-                   one_process_losses=one_process["losses"], must_fall=False)
-    del one_process, batch
+    dp26 = phase_dp_train("dp_train_vit_l_14", cfg_l, 2, batch, 2, 2,
+                          need=("flash_attention_fwd", "flash_attention_bwd",
+                                "fused_attention_block", "fused_attention_block_bwd"),
+                          one_process_losses=one_process["losses"], must_fall=False)
+    # phase 48 holds its tensor-parallel ranks to this run and beside these ranks
+    parallel_ctx = {"vit_l_14_b18": one_process,
+                    "dp_peaks": dp26["peak_memory_gib_by_rank"]}
+    del batch
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4447,7 +5077,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_eval_detection()
     torch.cuda.empty_cache()
-    run_phases(list(SUBSETS))
+    run_phases(list(SUBSETS), parallel_ctx)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

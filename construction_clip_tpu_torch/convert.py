@@ -1,7 +1,8 @@
 """Parameters for the port.
 
 `to_params` turns a JAX package parameter tree (from `init_clip`, `init_clipcap`,
-`init_gpt2`, `init_t5` or `init_clipcap_t5`, or a checkpoint) into a ParamTree.
+`init_gpt2`, `init_t5`, `init_clipcap_t5` or `parallel/expert.init_moe`, or a
+checkpoint) into a ParamTree.
 The port keeps the JAX layout, so this is a plain copy of each leaf; leaves may
 be numpy arrays or anything `np.asarray` takes (a JAX array included, without
 this module importing jax). A quantized leaf {"q": int8, "s": scale} (the T5

@@ -24,6 +24,20 @@ Function saves only its inputs, as the JAX block's custom_vjp does, so
 nothing of it is recomputed. `create_selective_checkpoint_contexts` would not
 do: it decides by ATen op, and the port's kernels are launched through ctypes
 inside autograd Functions, out of a dispatch mode's sight.
+
+Tensor parallelism (`tp`, the mesh's "model" line; parallel/sharding.py)
+takes a route of its own through the same chain of stages, when the block's
+params are this rank's shard of a line of more than one rank: LN1, then `copy_to_model` (identity forward,
+all-reduce backward), the column-parallel QKV product over the rank's
+heads, `mha` over those heads (K4 forward and K5 backward on the card,
+ops/attention.py), the row-parallel out product and `reduce_from_model`
+(all-reduce forward, identity backward), and only then the replicated
+b_out, once, and the residual; the MLP half likewise (column-parallel w_fc,
+the activation, row-parallel w_proj, the reduce, b_proj). The stage names
+are those of the one-device chain, so remat's policies mean what they mean
+there; a checkpointed piece re-runs its all-reduce in the backward, on every
+rank of the line in the same order. K1, K3 and K9 hold the whole block with
+its residual, so the route takes none of them.
 """
 
 from __future__ import annotations
@@ -40,18 +54,21 @@ from construction_clip_tpu_torch.ops.activations import quick_gelu
 from construction_clip_tpu_torch.ops.attention import (
     merge_heads, mha, resolve_impl, split_heads)
 from construction_clip_tpu_torch.ops.norms import layer_norm
+from construction_clip_tpu_torch.parallel.sharding import (
+    copy_to_model, local_heads, reduce_from_model)
 
 USE_FUSED_MLP = False   # construction_clip_tpu/models/blocks.py:104, off there too
 
 
 def apply_block(params, x, *, n_heads: int, act: Callable, bias=None,
                 is_causal: bool = False, ln_eps: float = 1e-5, return_probs: bool = False,
-                probs_probe=None):
+                probs_probe=None, tp=None):
     """One block; with return_probs, (x, the fp32 probabilities [B, H, T, T]).
-    It runs the block's chain of stages (_block_chain) uncut; remat cuts it."""
+    It runs the block's chain of stages (_block_chain) uncut; remat cuts it.
+    tp: the "model" line whose shard `params` is (the tensor-parallel route)."""
     probs = [] if return_probs else None
     x = _run_chain(params, x, None, n_heads=n_heads, act=act, bias=bias, is_causal=is_causal,
-                   ln_eps=ln_eps, probs=probs, probs_probe=probs_probe)
+                   ln_eps=ln_eps, probs=probs, probs_probe=probs_probe, tp=tp)
     return (x, probs[0]) if return_probs else x
 
 
@@ -96,14 +113,21 @@ REMAT_POLICIES = {
 
 
 def _block_chain(params, x, *, n_heads, act, bias, is_causal, ln_eps, probs=None,
-                 probs_probe=None):
+                 probs_probe=None, tp=None):
     """The block as (stages, fused_attention): stages are (name, fn, reads_x1)
     in order, fn mapping the previous stage's value, or with reads_x1 the
     stream x1 after the attention half, to this stage's value. Without the
     probes the attention half is K1 where _takes_k1 says so, and K1 gives
     attn_out with the residual in it (x1 = attn_out, else x1 = x + attn_out).
     "*_dot" are the library GEMMs' products before their bias. `probs`, a
-    list, receives the attention's fp32 probabilities; `probs_probe` is mha's."""
+    list, receives the attention's fp32 probabilities; `probs_probe` is mha's.
+    With `tp` over more than one rank, the tensor-parallel chain (_tp_chain);
+    a line of one rank holds the whole block, which takes the chain below."""
+    if tp is not None and tp.world > 1:
+        if probs is not None or probs_probe is not None:
+            raise ValueError("the tensor-parallel block takes no probes")
+        return _tp_chain(params, x, n_heads=n_heads, act=act, bias=bias,
+                         is_causal=is_causal, ln_eps=ln_eps, tp=tp), False
     a = params["attn"]
     fused = probs is None and probs_probe is None and _takes_k1(x, n_heads, bias)
     if fused:
@@ -129,6 +153,39 @@ def _block_chain(params, x, *, n_heads, act, bias, is_causal, ln_eps, probs=None
             ("attn_out", lambda y: y + a["b_out"], False),
         ]
     return stages + _mlp_stages(params, x, act, ln_eps), fused
+
+
+def _tp_chain(params, x, *, n_heads, act, bias, is_causal, ln_eps, tp):
+    """The chain over this rank's shard of the block (parallel/sharding.py):
+    local heads, the partial products reduced over `tp` before the
+    replicated biases."""
+    if bias is not None:
+        raise ValueError("the tensor-parallel block takes no attention bias")
+    a, m = params["attn"], params["mlp"]
+    heads = local_heads(n_heads, tp, a["w_qkv"], x.shape[-1])
+
+    def core(qkv):
+        q, k, v = (split_heads(z, heads) for z in qkv.chunk(3, dim=-1))
+        return merge_heads(mha(q, k, v, is_causal=is_causal))
+
+    def ln(name):
+        return lambda h: copy_to_model(layer_norm(h, params[name]["scale"],
+                                                  params[name]["bias"], eps=ln_eps), tp)
+
+    return [
+        ("ln_1", ln("ln_1"), False),
+        ("qkv_dot", lambda h: h @ a["w_qkv"], False),
+        ("qkv", lambda y: y + a["b_qkv"], False),
+        ("merged", core, False),
+        ("attn_out_dot", lambda h: reduce_from_model(h @ a["w_out"], tp), False),
+        ("attn_out", lambda y: y + a["b_out"], False),
+        ("ln_2", ln("ln_2"), True),
+        ("mlp_preact_dot", lambda h: h @ m["w_fc"], False),
+        ("mlp_preact", lambda y: y + m["b_fc"], False),
+        ("mlp_hidden", act, False),
+        ("mlp_out_dot", lambda h: reduce_from_model(h @ m["w_proj"], tp), False),
+        ("mlp_out", lambda y: y + m["b_proj"], False),
+    ]
 
 
 def _mlp_stages(params, x1, act, ln_eps):
@@ -192,7 +249,7 @@ def _run_chain(params, x, names, **kw):
 
 def apply_stack(stacked_params, x, *, n_heads: int, act: Callable, bias=None,
                 is_causal: bool = False, ln_eps: float = 1e-5, return_probs: bool = False,
-                probs_probe=None, remat=False):
+                probs_probe=None, remat=False, tp=None):
     """Apply the L stacked blocks in order. The layers are views from one
     `unbind` per leaf, whose backward stacks the L gradients in one op (a view
     per layer would each scatter into a zeroed copy of the whole stack).
@@ -217,7 +274,12 @@ def apply_stack(stacked_params, x, *, n_heads: int, act: Callable, bias=None,
     inside a pallas_call; on the plain attention route (impl "plain", or an
     attention bias) the attention core's own two products are recomputed
     too. The towers draw no random numbers, so the checkpoints do not save
-    the RNG state. Remat does not combine with return_probs or probs_probe."""
+    the RNG state. Remat does not combine with return_probs or probs_probe.
+
+    tp: the mesh's "model" line, whose shard of the blocks `stacked_params`
+    is (parallel/sharding.shard_clip_params): over more than one rank every
+    block takes the tensor-parallel route, and `n_heads` stays the tower's
+    whole count."""
     if remat and (return_probs or probs_probe is not None):
         raise ValueError("remat does not combine with return_probs or probs_probe")
     # the stage names kept besides the layer input (None: no remat); an unknown
@@ -227,7 +289,7 @@ def apply_stack(stacked_params, x, *, n_heads: int, act: Callable, bias=None,
     probs = []
     for index in range(stacked_params["ln_1"]["scale"].shape[0]):
         lp = tree_map(lambda views: views[index], layers)
-        kw = dict(n_heads=n_heads, act=act, bias=bias, is_causal=is_causal, ln_eps=ln_eps)
+        kw = dict(n_heads=n_heads, act=act, bias=bias, is_causal=is_causal, ln_eps=ln_eps, tp=tp)
         if names is not None:
             x = _run_chain(lp, x, names, **kw)
             continue

@@ -39,11 +39,12 @@ def _l2_normalize(x):
 
 def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_POLICY,
                  normalize: bool = False, return_probs: bool = False, probs_probe=None,
-                 remat=False):
+                 remat=False, tp=None):
     """images: [B, H, W, 3] float, already preprocessed. Returns [B, embed_dim];
     with return_probs, (features, the blocks' probabilities [L, B, H, T, T]).
     probs_probe: apply_stack's differentiation port, [L, B, H, T, T] zeros.
-    remat: apply_stack's, for the image tower's blocks."""
+    remat: apply_stack's, for the image tower's blocks. tp: apply_stack's, the
+    "model" line whose shard `params` is (parallel/sharding.py)."""
     v = cfg.vision
     p = policy.cast_to_compute(params["vision"])
     x = patchify(images.to(policy.compute_dtype), v.patch_size)
@@ -52,7 +53,7 @@ def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_PO
     x = torch.cat([cls, x], dim=1) + p["pos_emb"]
     x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
     x = apply_stack(p["blocks"], x, n_heads=v.heads, act=_act(cfg), return_probs=return_probs,
-                    probs_probe=probs_probe, remat=remat)
+                    probs_probe=probs_probe, remat=remat, tp=tp)
     x, probs = x if return_probs else (x, None)
     x = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
     feats = policy.cast_to_output(x @ p["proj"])
@@ -61,16 +62,17 @@ def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_PO
 
 
 def encode_text(params, cfg: CLIPConfig, tokens, *, policy: Policy = DEFAULT_POLICY,
-                normalize: bool = False, return_probs: bool = False, probs_probe=None):
+                normalize: bool = False, return_probs: bool = False, probs_probe=None,
+                tp=None):
     """tokens: [B, context_length] int. Returns [B, embed_dim], taken at
-    argmax(tokens), the EOT position; return_probs and probs_probe as in
+    argmax(tokens), the EOT position; return_probs, probs_probe and tp as in
     encode_image."""
     t = cfg.text
     p = policy.cast_to_compute(params["text"])
     tokens = tokens.long()
     x = p["tok_emb"][tokens] + p["pos_emb"][: tokens.shape[1]]
     x = apply_stack(p["blocks"], x, n_heads=t.heads, act=_act(cfg), is_causal=True,
-                    return_probs=return_probs, probs_probe=probs_probe)
+                    return_probs=return_probs, probs_probe=probs_probe, tp=tp)
     x, probs = x if return_probs else (x, None)
     x = layer_norm(x, p["ln_final"]["scale"], p["ln_final"]["bias"])
     x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
@@ -80,10 +82,10 @@ def encode_text(params, cfg: CLIPConfig, tokens, *, policy: Policy = DEFAULT_POL
 
 
 def clip_forward(params, cfg: CLIPConfig, images, tokens, *, policy: Policy = DEFAULT_POLICY,
-                 remat=False):
+                 remat=False, tp=None):
     """(logits_per_image [B_i, B_t], logits_per_text [B_t, B_i]). remat goes to
-    the image tower only, as in the JAX package."""
-    img = encode_image(params, cfg, images, policy=policy, normalize=True, remat=remat)
-    txt = encode_text(params, cfg, tokens, policy=policy, normalize=True)
+    the image tower only, as in the JAX package; tp to both."""
+    img = encode_image(params, cfg, images, policy=policy, normalize=True, remat=remat, tp=tp)
+    txt = encode_text(params, cfg, tokens, policy=policy, normalize=True, tp=tp)
     logits_per_image = torch.exp(params["logit_scale"]) * img @ txt.T
     return logits_per_image, logits_per_image.T

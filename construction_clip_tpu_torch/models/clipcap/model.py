@@ -19,6 +19,7 @@ from construction_clip_tpu_torch.core.configs import ClipCapConfig, GPT2Config
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models import gpt2 as gpt2_lib
 from construction_clip_tpu_torch.models.blocks import apply_stack
+from construction_clip_tpu_torch.ops.norms import layer_norm
 
 MAPPER_HEADS = 8   # the transformer mapper's heads (reference train.py:234-248)
 
@@ -53,6 +54,32 @@ def clipcap_forward(params, ccfg: ClipCapConfig, gcfg: GPT2Config, *, tokens, cl
     embeds = torch.cat([prefix.to(tok_emb.dtype), attr_emb, tok_emb], dim=1)
     return gpt2_lib.gpt2_forward(params["gpt"], gcfg, inputs_embeds=embeds, policy=policy,
                                  remat=remat)[0]
+
+
+def clipcap_forward_pp(params, ccfg: ClipCapConfig, gcfg: GPT2Config, *, tokens, clip_embed,
+                       attribute_tokens, mesh, microbatches: int,
+                       policy: Policy = DEFAULT_POLICY, remat=False, dp_axis=None):
+    """clipcap_forward with GPT-2's block stack pipelined over the mesh's
+    "pipe" line (parallel/pipeline.py): `params` is this stage's tree
+    (parallel/pipeline.shard_stages: its layers of the blocks, the rest
+    whole), and the mapper, embeddings, head and loss run on every stage.
+    The same embed path, block function and head as clipcap_forward, so the
+    logits and gradients are the one-device ones. The rows are this rank's
+    (dp_axis: pipelined_blocks')."""
+    from construction_clip_tpu_torch.parallel.pipeline import pipelined_blocks
+
+    prefix = map_prefix(params["mapper"], ccfg, gcfg, clip_embed, policy=policy)
+    attr_emb = gpt2_lib.embed_tokens(params["gpt"], attribute_tokens, policy=policy)
+    tok_emb = gpt2_lib.embed_tokens(params["gpt"], tokens, policy=policy)
+    embeds = torch.cat([prefix.to(tok_emb.dtype), attr_emb, tok_emb], dim=1)
+    # gpt2_forward's uncached preamble: cast, add wpe
+    p = policy.cast_to_compute(params["gpt"])
+    x = embeds.to(policy.compute_dtype)
+    x = x + gpt2_lib._position_embeddings(p["wpe"], 0, x.shape[1])
+    x = pipelined_blocks(p["blocks"], x, None, gcfg, mesh, microbatches=microbatches,
+                         remat=remat, dp_axis=dp_axis)
+    x = layer_norm(x, p["ln_f"]["scale"], p["ln_f"]["bias"], eps=gcfg.layer_norm_epsilon)
+    return gpt2_lib._lm_logits(p, x)
 
 
 def caption_loss_parts(logits, tokens, ccfg: ClipCapConfig, *, ignore_id: int = 0):

@@ -11,6 +11,14 @@ package's does.
 Data-parallel (`dp`, core/mesh.py), the replicas are equal, so only rank 0
 writes, and every rank waits at a barrier until the file is there; every
 rank restores from it.
+
+Tensor-parallel (`mesh`, a core/mesh.Mesh whose "model" line shards the
+CLIP tree, parallel/sharding.py), `save_state` gathers the params and every
+tree of the params' layout in the optimizer state (AdamW's moments) to the
+full layout over the model line, and the rank at the mesh's origin (rank 0
+of its data line and of its model line) writes: the file is the one-device
+format, which one process or any layout restores. `restore_state(...,
+mesh=)` slices the full trees for the rank's place again.
 """
 
 from __future__ import annotations
@@ -39,12 +47,53 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _map_param_trees(opt_state, params, fn):
+    """opt_state with fn applied to each tree of the params' layout in it (a
+    dict with the params' keys, AdamW's m and v); other leaves as they are."""
+    if isinstance(opt_state, dict):
+        if _same_layout(opt_state, params):
+            return fn(opt_state)
+        return {k: _map_param_trees(v, params, fn) for k, v in opt_state.items()}
+    if isinstance(opt_state, (tuple, list)):
+        return type(opt_state)(_map_param_trees(v, params, fn) for v in opt_state)
+    return opt_state
+
+
+def _in_order(tree, like):
+    """`tree` with its dicts' keys in `like`'s order (leaves are matched by
+    key, as a file's trees may list them in another order)."""
+    if isinstance(like, dict):
+        return {k: _in_order(tree[k], like[k]) for k in like}
+    return tree
+
+
+def _same_layout(tree, params) -> bool:
+    if isinstance(params, dict):
+        return isinstance(tree, dict) and set(tree) == set(params) and \
+            all(_same_layout(tree[k], params[k]) for k in params)
+    return isinstance(tree, torch.Tensor) and tree.shape == params.shape
+
+
 def save_state(directory: str, state: TrainState, *, step: Optional[int] = None,
-               max_to_keep: int = 5, dp=None) -> int:
+               max_to_keep: int = 5, dp=None, mesh=None) -> int:
     """Save a TrainState under `step` (its own step when None), keeping the
     newest `max_to_keep`. Returns the step used. With `dp`, rank 0 writes and
-    every rank leaves once it has."""
+    every rank leaves once it has. With `mesh`, the state is this rank's
+    tensor-parallel shard: it is gathered to the full layout (collective over
+    the model line), the mesh's rank 0 writes, and every rank leaves once it
+    has."""
     step = state.step if step is None else int(step)
+    if mesh is not None:
+        from construction_clip_tpu_torch.parallel.sharding import gather_clip_params
+
+        params = as_tree(state.params)
+        full = TrainState(step=state.step, params=gather_clip_params(mesh, params),
+                          opt_state=_map_param_trees(
+                              state.opt_state, params, lambda t: gather_clip_params(mesh, t)))
+        if mesh.rank == 0:
+            save_state(directory, full, step=step, max_to_keep=max_to_keep)
+        mesh.barrier()
+        return step
     if dp is not None:
         if dp.rank == 0:
             save_state(directory, state, step=step, max_to_keep=max_to_keep)
@@ -62,20 +111,33 @@ def save_state(directory: str, state: TrainState, *, step: Optional[int] = None,
     return step
 
 
-def restore_state(directory: str, state: TrainState, *, step: Optional[int] = None
-                  ) -> TrainState:
+def restore_state(directory: str, state: TrainState, *, step: Optional[int] = None,
+                  mesh=None, cfg=None) -> TrainState:
     """Load a checkpoint into `state`'s params (in place, on their device) and
-    return the TrainState with its optimizer state and step. step=None -> latest."""
+    return the TrainState with its optimizer state and step. step=None -> latest.
+    With `mesh` (and the CLIP config `cfg`), `state` is this rank's
+    tensor-parallel shard: the file's full trees are sliced for the rank's
+    place (parallel/sharding.shard_clip_params) first."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
     saved = torch.load(os.path.join(directory, f"step_{step}.pt"), map_location="cpu",
                        weights_only=True)
+    if mesh is not None:
+        from construction_clip_tpu_torch.parallel.sharding import shard_clip_params
+
+        full = saved["params"]
+        saved["params"] = shard_clip_params(mesh, full, cfg)
+        saved["opt_state"] = _map_param_trees(saved["opt_state"], full,
+                                              lambda t: shard_clip_params(mesh, t, cfg))
     params = as_tree(state.params)
     with torch.no_grad():
-        for dst, src in zip(tree_leaves(params), tree_leaves(saved["params"])):
+        for dst, src in zip(tree_leaves(params), tree_leaves(_in_order(saved["params"], params))):
             dst.copy_(src)
     device = tree_leaves(params)[0].device
+    # the moments leaf by leaf beside the params, whatever order the file's keys have
+    saved["opt_state"] = _map_param_trees(saved["opt_state"], saved["params"],
+                                          lambda t: _in_order(t, params))
 
     def to_device(x):
         if isinstance(x, torch.Tensor):

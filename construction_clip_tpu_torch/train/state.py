@@ -6,10 +6,16 @@ the parameters and their moments IN PLACE under `torch.no_grad()`: one pass
 over each leaf, and no second copy of the parameters or of the optimizer state.
 `apply_gradients` therefore returns a TrainState that shares its tensors with
 the one it was given.
+
+A step whose gradients are shards (tensor- or pipeline-parallel) applies
+them under `global_norm_rule`, so that `clip_by_global_norm` takes the norm
+of the whole tree and not of the rank's part of it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, Callable
 
@@ -119,13 +125,30 @@ def _unflatten(tree, leaves: list):
     return tree_map(lambda _: next(it), tree)
 
 
+_NORM_RULE = contextvars.ContextVar("global_norm_rule", default=None)
+
+
+@contextlib.contextmanager
+def global_norm_rule(norm_fn: Callable):
+    """Within it, clip_by_global_norm takes the global norm from
+    norm_fn(grads): a sharded step's rule, which sums the shards' squares
+    over their line (parallel/sharding.sharded_global_norm)."""
+    token = _NORM_RULE.set(norm_fn)
+    try:
+        yield
+    finally:
+        _NORM_RULE.reset(token)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax.clip_by_global_norm: scale every leaf by max_norm / ||g|| when the
-    global norm exceeds max_norm."""
+    global norm exceeds max_norm (the norm by global_norm_rule's function
+    within one)."""
 
     def update(grads, state, params=None):
         leaves = tree_leaves(grads)
-        norm = torch.linalg.vector_norm(torch.stack(
+        rule = _NORM_RULE.get()
+        norm = rule(grads) if rule is not None else torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g.float()) for g in leaves]))
         clipped = [torch.where(norm < max_norm, g, g / norm.to(g.dtype) * max_norm)
                    for g in leaves]
