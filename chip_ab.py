@@ -7,6 +7,7 @@ A, each run in a process of its own, so that both meet the same card and host.
     python3 chip_ab.py train   path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py kernels path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py k10     path/to/checkout_a path/to/checkout_b
+    python3 chip_ab.py sass    path/to/checkout_a path/to/checkout_b
 
 serve: phase 5 (ViT-B/32 + GPT-2 12x768 beam 3 in bf16 through
 TorchPredictService, 10 requests from 4 threads). serve_int8: phase 16 (the
@@ -25,10 +26,17 @@ image tower (models/clip/quant.encode_image_int8, 12 K7 launches) at B=8, on
 inputs drawn from one numpy seed in both trees; then a
 digest (sha256 of the bytes) of the outputs of K3 (bf16 and fp32), K1 and K9
 in fp32 and K7 (bf16 and fp32) on inputs of another seed, so that equal
-digests show the two trees' bits equal; last, K6's device and wrapper time at
-[8,224,224,3] and [256,224,224,3] into bf16 and fp32, each with the digest of
-its output. k10: phase 23 (K10 with 4 ranks time-slicing the card: each case's
-wrapper time a call, the kernel alone, the plain version's time).
+digests show the two trees' bits equal (bf16 too for the tensor-core routes
+of K1, K4 and K5); then K6's device and wrapper time at [8,224,224,3] and
+[256,224,224,3] into bf16 and fp32, each with the digest of its output; last,
+K4 and K5 at [9,16,257,64] bf16 and K1 and K3 at GPT-2's transformer mapper
+([16,30,768], 8 heads of 96) bf16, each with the tensor-core launches it made.
+k10: phase 23 (K10 with 4 ranks time-slicing the card: each case's wrapper
+time a call, the kernel alone, the plain version's time). sass: each
+checkout builds its kernels; then the SASS of every tensor-core attention
+pass at head width 64 (K1, K3, K4/K5, K7: attention_tc.cuh's kernels, which
+a template may name differently in the two trees) is compared instruction by
+instruction, addresses and encodings aside.
 
 Each checkout builds its own kernels. Prints each run's JSON lines with the
 checkout they came from, then the card's name and power limit.
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -73,7 +82,8 @@ cfg = cs.CLIPConfig.vit_b_32()
 batch = cs.class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
 cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
-    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits", "ab_k6"),
+    "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits", "ab_k6",
+                 "ab_k45", "ab_dh96"),
                 r"""
 cs.phase_build()
 rng = np.random.default_rng(2)
@@ -185,6 +195,15 @@ for dtype in (torch.bfloat16, torch.float32):
     out = k7(x, ln, qattn, n_heads=12)
     cs.say("ab_bits", kernel="K7", dtype=str(dtype), digest=digest(out),
            attention_route="tc" if getattr(k7, "tc_launches", 0) != before else "simt")
+x, ln, attn = cs._block_inputs(rng, 8, 50, 768, torch.bfloat16, "cuda")
+cs.say("ab_bits", kernel="K1", dtype="torch.bfloat16", shape=[8, 50, 768], digest=digest(
+    cs.fused_attention_block(x, ln, attn, n_heads=12)))
+q, k, v, go = (torch.from_numpy(rng.standard_normal((9, 16, 257, 64)).astype(np.float32))
+               .cuda().bfloat16() for _ in range(4))
+cs.say("ab_bits", kernel="K4", dtype="torch.bfloat16", digest=digest(
+    cs.flash_attention_fwd(q, k, v, is_causal=False, scale=0.125)))
+cs.say("ab_bits", kernel="K5", dtype="torch.bfloat16", digest=digest(
+    *cs.flash_attention_bwd(q, k, v, go, is_causal=True, scale=0.125)))
 from construction_clip_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
 rng = np.random.default_rng(4)
 for shape in ((8, 224, 224, 3), (256, 224, 224, 3)):
@@ -198,6 +217,25 @@ for shape in ((8, 224, 224, 3), (256, 224, 224, 3)):
                ms=cs.median_ms(k6), share_of_bound=cs.bound(cs.nbytes(u8, k6()), {})["bound_ms"]
                / device_ms, digest=digest(k6()))
     del u8
+rng = np.random.default_rng(5)
+q, k, v, go = (torch.from_numpy(rng.standard_normal((9, 16, 257, 64)).astype(np.float32))
+               .cuda().bfloat16() for _ in range(4))
+for name, fn in (("K4", lambda: cs.flash_attention_fwd(q, k, v, is_causal=False, scale=0.125)),
+                 ("K5", lambda: cs.flash_attention_bwd(q, k, v, go, is_causal=False,
+                                                       scale=0.125))):
+    cs.say("ab_k45", kernel=name, shape=[9, 16, 257, 64], device_ms=cs.graph_ms(fn),
+           ms=cs.median_ms(fn))
+x, ln, attn = cs._block_inputs(rng, 16, 30, 768, torch.bfloat16, "cuda")
+g = torch.from_numpy(rng.standard_normal((16, 30, 768)).astype(np.float32)).cuda().bfloat16()
+args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"])
+for name, wrapper, fn in (
+        ("K1", cs.fused_attention_block, lambda: cs.fused_attention_block(x, ln, attn, n_heads=8)),
+        ("K3", cs.fused_attention_block_bwd,
+         lambda: cs.fused_attention_block_bwd(x, g, *args, n_heads=8))):
+    before = wrapper.tc_launches
+    fn()
+    cs.say("ab_dh96", kernel=name, shape=[16, 30, 768], heads=8, device_ms=cs.graph_ms(fn),
+           ms=cs.median_ms(fn, 11, 3), tc_launches=wrapper.tc_launches - before)
 """),
     "k10": (("k10",), r"""
 cs.phase_build()
@@ -206,10 +244,71 @@ cs.phase_k10({})
 }
 
 
+# the tensor-core attention passes (attention_tc.cuh's, and K4's forward) by
+# source, as parts of their SASS function names; where a tree's pass is a
+# template on the head width, its instantiation at 64
+SASS_KERNELS = {"flash_attention.cu": ("tc_fwd", "tc_stats", "tc_dqILb0", "tc_dkv"),
+                "attention_block_bwd.cu": ("tc_stats", "tc_dqILb1", "tc_dkv"),
+                "attention_block.cu": ("tc_block_fwd",),
+                "attention_block_int8.cu": ("tc_block_fwd",)}
+SASS_BUILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from construction_clip_tpu_torch.ops import _build
+_build.load_library()
+for src in _build.sources():
+    print(src.name, _build.library_path(src), _build.find_nvcc())
+"""
+
+
+def sass_functions(cuobjdump: str, lib: str) -> dict:
+    """{mangled name: [instruction text]} of a library's SASS, without
+    addresses, encodings or symbol names."""
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            funcs[name] = []
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            text = re.sub(r"/\*.*?\*/", "", line).strip().rstrip(";").strip()
+            funcs[name].append(re.sub(r"_Z\w+", "<sym>", text))
+    return funcs
+
+
+def sass(a: str, b: str) -> None:
+    libs = {}
+    for root in (a, b):
+        run = subprocess.run([sys.executable, "-c", SASS_BUILD, root], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            sys.exit(f"{root}: exit {run.returncode}\n{run.stderr[-12000:]}")
+        libs[root] = {line.split()[0]: line.split()[1:] for line in run.stdout.splitlines()}
+    for source, parts in SASS_KERNELS.items():
+        lib_a, nvcc = libs[a][source]
+        cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+        fa = sass_functions(cuobjdump, lib_a)
+        fb = sass_functions(cuobjdump, libs[b][source][0])
+        for part in parts:
+            na, nb = ([n for n in f if part in n and "Li96E" not in n] for f in (fa, fb))
+            if len(na) != 1 or len(nb) != 1:
+                sys.exit(f"{source} {part}: functions {na} / {nb}")
+            ia, ib = fa[na[0]], fb[nb[0]]
+            print(json.dumps({"phase": "ab_sass", "source": source, "kernel": part,
+                              "instructions": [len(ia), len(ib)], "equal": ia == ib,
+                              "differing": sum(x != y for x, y in zip(ia, ib))
+                              + abs(len(ia) - len(ib))}), flush=True)
+
+
 def main() -> None:
     phase = sys.argv[1]
-    keep, body = RUNS[phase]
     a, b = (os.path.abspath(p) for p in sys.argv[2:4])
+    if phase == "sass":
+        sass(a, b)
+        return
+    keep, body = RUNS[phase]
     for root in (a, b, b, a):
         run = subprocess.run([sys.executable, "-c", PRELUDE + body, root], cwd=root,
                              capture_output=True, text=True, timeout=900)

@@ -34,9 +34,11 @@ Phases, each printing one line (the last line is the JSON verdict):
      versions at the ViT-L/14 image tower's shape, a causal text shape, T=1024
      causal and T=65, bf16 on the tensor-core route and fp32 on the SIMT
      route (each route's launch counter must move); the tensor-core
-     instructions (HGMMA/IGMMA/HMMA) and registers of each K1/K3/K4/K5/K7/K9
-     kernel in the built libraries (a tensor-core kernel without HGMMA, or
-     K7's int8 GEMM without IGMMA, fails the run); the
+     instructions (HGMMA/IGMMA/HMMA), registers and local memory of each
+     K1/K3/K4/K5/K7/K9 kernel in the built libraries (a tensor-core kernel
+     without HGMMA, K7's int8 GEMM without IGMMA, or a missing head-width-96
+     instantiation of K1's and K3's attention passes, or one that spills to
+     local memory, fails the run), the dh-96 instantiations on a line; the
      wrapper times and, for bf16, the device times (CUDA-graph
      replays) of K4, K5 and scaled_dot_product_attention's forward and
      backward, and of each of K5's three launches (torch.profiler).
@@ -172,20 +174,22 @@ Phases, each printing one line (the last line is the JSON verdict):
      batches of 8: the records carry the JAX app's keys; K8 launches steps +
      1 times a batch and K1 launches; s per batch and tokens/s.
  33. K1 and K3 at head width 96 ([16,30,768], 8 heads: GPT-2's transformer
-     mapper in predict, clip_length 10 + prefix 20 rows), bf16 and fp32, on
-     the SIMT route (the tensor-core route takes dh 64), against their plain
-     versions at phases 3 and 7's tolerances; times, device times (CUDA-graph
-     replays), bounds, and the composed library block's forward and backward
-     device times beside them.
+     mapper in predict, clip_length 10 + prefix 20 rows) against their plain
+     versions at phases 3 and 7's tolerances: bf16 on the tensor-core route
+     (both counters move, a second call gives the same bits) and fp32 on the
+     SIMT route; times, device times (CUDA-graph replays), bounds, the
+     composed library block's forward and backward device times beside them,
+     and in bf16 the SIMT C entries' device times at the same shape, which
+     the tensor-core route's must be below.
  34. phase 27 with the transformer mapper (8 blocks, clip_length 10, 8 heads
      of 96, ReLU; GPT-2 base, prefix 20, attribute 20, B=16, 10 steps in each
      mode on phase 27's archive): K1 and K3 launch 8 times a step, on the
-     SIMT route; the first batch's loss falls in each mode; then
+     tensor-core route; the first batch's loss falls in each mode; then
      phase 28's fp32 card-against-CPU steps (CAPTION_GRAD_TOL, its TF32
      control) with this mapper, the CPU runs on the card's ReLU masks, the
      signs the CPU gives otherwise counted and its own-mask reading beside.
  35. phase 29 with --mapping_type transformer on phase 34's npz: K1 launches
-     12 times (image tower, tensor cores) and 8 times (mapper, SIMT) a batch;
+     20 times a batch (12 image tower, 8 mapper), all on the tensor cores;
      the fp32 greedy captions on the kernel path against the plain path.
  36. explainability at full width (ViT-B/32, GPT-2 base, phase 27's npz),
      fp32: apps/predict.make_explain on 4 staged 256x256 images captioned
@@ -1206,14 +1210,18 @@ TC_KERNELS = {"flash_attention.cu": ("tc_fwd", "tc_stats", "tc_dq", "tc_dkv"),
               "mlp_residual.cu": ("gemm_tc",),
               "attention_block_int8.cu": ("gemm_s8", "tc_block_fwd")}
 INT_KERNELS = ("gemm_s8",)   # integer wgmma: IGMMA in the SASS, not HGMMA
+# K1's and K3's attention passes at head width 96 (GPT-2's transformer mapper):
+# template instantiations whose mangled names carry the width as "Li96E"
+DH96_KERNELS = {"attention_block.cu": ("tc_block_fwd",),
+                "attention_block_bwd.cu": ("tc_stats", "tc_dq", "tc_dkv")}
 
 
 def tensor_core_counts(source: str) -> dict:
-    """{kernel: {"HGMMA": n, "IGMMA": n, "HMMA": n, "registers": n}}: the
-    tensor-core instructions (wgmma in floats and integers, mma.sync) of each
-    kernel in the built library of
-    `source`, from `cuobjdump -sass`, and its registers a thread, from
-    `cuobjdump -res-usage` (None where that output does not say)."""
+    """{kernel: {"HGMMA": n, "IGMMA": n, "HMMA": n, "registers": n, "local": n}}:
+    the tensor-core instructions (wgmma in floats and integers, mma.sync) of
+    each kernel in the built library of `source`, from `cuobjdump -sass`, and
+    its registers and local-memory bytes (spills) a thread, from `cuobjdump
+    -res-usage` (None where that output does not say)."""
     src = next(p for p in _build.sources() if p.name == source)
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
 
@@ -1226,7 +1234,8 @@ def tensor_core_counts(source: str) -> dict:
         found = re.search(r"Function : (\S+)", line)
         if found:
             kernel = found.group(1)
-            counts[kernel] = {"HGMMA": 0, "IGMMA": 0, "HMMA": 0, "registers": None}
+            counts[kernel] = {"HGMMA": 0, "IGMMA": 0, "HMMA": 0, "registers": None,
+                              "local": None}
         elif kernel:
             for name in ("HGMMA", "IGMMA", "HMMA"):
                 counts[kernel][name] += name in line
@@ -1237,6 +1246,8 @@ def tensor_core_counts(source: str) -> dict:
             kernel = found.group(1)
         elif kernel in counts and "REG:" in line:
             counts[kernel]["registers"] = int(re.search(r"REG:(\d+)", line).group(1))
+            local = re.search(r"LOCAL:(\d+)", line)
+            counts[kernel]["local"] = int(local.group(1)) if local else None
     return counts
 
 
@@ -1252,7 +1263,10 @@ def k5_pass_device_ms(bwd) -> dict:
 
 def phase_tensor_cores() -> None:
     """Every kernel of a tensor-core route runs wgmma (HGMMA in its SASS;
-    IGMMA for K7's int8 GEMMs)."""
+    IGMMA for K7's int8 GEMMs); K1's and K3's attention passes are built at
+    head width 96 too, and those instantiations keep everything in registers
+    (no local memory)."""
+    dh96 = {}
     for source, names in TC_KERNELS.items():
         counts = tensor_core_counts(source)
         say("tensor_core_instructions", source=source, counts=counts)
@@ -1262,6 +1276,14 @@ def phase_tensor_cores() -> None:
             if not got or min(got) <= 0:
                 raise AssertionError(f"{source} {name}: a kernel without {op} in the build: "
                                      f"{counts}")
+        for name in DH96_KERNELS.get(source, ()):
+            found = {k: c for k, c in counts.items() if name in k and "Li96E" in k}
+            if not found or any(c["HGMMA"] <= 0 or c["local"] != 0 for c in found.values()):
+                raise AssertionError(f"{source} {name}: no dh-96 instantiation with HGMMA and "
+                                     f"no local memory: {found}")
+            dh96[f"{source}:{name}"] = [{op: c[op] for op in ("HGMMA", "registers", "local")}
+                                        for c in found.values()]
+    say("tensor_core_dh96", kernels=dh96)
 
 
 def phase_flash(results: dict) -> None:
@@ -3039,7 +3061,7 @@ def phase_predict_t5(clip_np, t5_npz: str, cfgs, clip_tok, lm_tok, device="cuda"
 # ---- K1/K3 at dh 96, the transformer mappers, explainability, train_clip_caption -----------
 
 # GPT-2's transformer mapper in predict: batch 16, clip_length 10 + prefix 20 rows,
-# width 768 in 8 heads of 96 (the SIMT route: the tensor-core route takes dh 64)
+# width 768 in 8 heads of 96 (bf16: the tensor-core route; fp32: the SIMT route)
 DH96_SHAPE = (16, 30, 768, 8)
 # the transformer mappers of phases 34, 35 (GPT-2) and 38 (mT5): 8 blocks over
 # clip_length 10 rows, the clip length predict and predict_t5 build
@@ -3055,11 +3077,52 @@ EXPLAIN_IMAGES = 4
 CLIP_CAPTION_BATCH, CLIP_CAPTION_STEPS = 8, 10   # the JAX app's --batch_size, a device
 
 
+def simt_block_entries(x, g, args, h):
+    """K1's and K3's SIMT C entries called directly on the card at x's shape
+    (the chain that bf16 at dh 96 took before it had a tensor-core route), with
+    the wrappers' scratch: -> (fwd, bwd), each returning what its wrapper
+    would. Used to time the earlier route beside the tensor cores; the port
+    itself reaches the entries only through `route`."""
+    lib = _build.load_library()
+    b, t, d = x.shape
+    dev, dtype, code = x.device, x.dtype, _build.dtype_code(x.dtype)
+    scale = (d // h) ** -0.5
+    qkv = torch.empty((b * t, 3 * d), dtype=dtype, device=dev)
+    merged = torch.empty((b * t, d), dtype=dtype, device=dev)
+    out = torch.empty_like(x)
+    work_t = torch.empty(4 * b * t * d, dtype=dtype, device=dev)
+    work_f = torch.empty(lib.cct_attention_block_bwd_work_floats(b, t, d, h),
+                         dtype=torch.float32, device=dev)
+    grads = (torch.empty_like(x), torch.empty((b, t, 3 * d), dtype=dtype, device=dev),
+             torch.empty((b, t, d), dtype=dtype, device=dev),
+             torch.empty(d, dtype=torch.float32, device=dev),
+             torch.empty(d, dtype=torch.float32, device=dev))
+
+    def fwd():
+        _build.check(lib.cct_attention_block_fwd(
+            code, x.data_ptr(), *(a.data_ptr() for a in args), qkv.data_ptr(),
+            merged.data_ptr(), out.data_ptr(), b, t, d, h, 0, 1e-5, scale,
+            torch.cuda.current_stream().cuda_stream), "K1's SIMT entry")
+        return out
+
+    def bwd():
+        _build.check(lib.cct_attention_block_bwd(
+            code, x.data_ptr(), g.data_ptr(), *(a.data_ptr() for a in args[:5]),
+            work_t.data_ptr(), work_f.data_ptr(), *(o.data_ptr() for o in grads), b, t, d, h, 0,
+            1e-5, scale, torch.cuda.current_stream().cuda_stream), "K3's SIMT entry")
+        return grads
+
+    return fwd, bwd
+
+
 def phase_dh96(results: dict) -> None:
-    """Phase 33: K1 and K3 at DH96_SHAPE, bf16 and fp32, against their plain
-    versions, on the SIMT route; times, device times (CUDA-graph replays),
-    the bound and the composed library block's device time (its forward
-    beside K1, its autograd backward beside K3)."""
+    """Phase 33: K1 and K3 at DH96_SHAPE against their plain versions, bf16
+    on the tensor-core route (both counters move, a second call gives the same
+    bits) and fp32 on the SIMT route; times, device times (CUDA-graph
+    replays), the bound and the composed library block's device time (its
+    forward beside K1, its autograd backward beside K3); in bf16 also the SIMT
+    C entries at the same shape, checked against the plain versions, whose
+    device times the tensor-core route's must be below."""
     from construction_clip_tpu_torch.ops.attention_block import route, supported
 
     b, t, d, h = DH96_SHAPE
@@ -3071,8 +3134,10 @@ def phase_dh96(results: dict) -> None:
         args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"],
                 attn["b_out"])
         what = f"{[b, t, d]} h={h} {dtype}"
-        if not supported(x, h) or route(dtype, d // h) != "simt":
-            raise AssertionError(f"dh 96 {what}: not on K1/K3's SIMT route")
+        on_tc = dtype == torch.bfloat16
+        want_route = "tc" if on_tc else "simt"
+        if not supported(x, h) or route(dtype, d // h) != want_route:
+            raise AssertionError(f"dh 96 {what}: not on K1/K3's {want_route} route")
 
         def fwd():
             return fused_attention_block(x, ln, attn, n_heads=h)
@@ -3092,28 +3157,45 @@ def phase_dh96(results: dict) -> None:
         got_f, got_b = fwd(), bwd()
         torch.cuda.synchronize()
         counts, tc = launches(), tc_launches()
-        if (counts["fused_attention_block"], counts["fused_attention_block_bwd"]) != (1, 1) or \
-                tc["fused_attention_block"] or tc["fused_attention_block_bwd"]:
+        pair = (counts["fused_attention_block"], counts["fused_attention_block_bwd"])
+        tc_pair = (tc["fused_attention_block"], tc["fused_attention_block_bwd"])
+        if pair != (1, 1) or tc_pair != ((1, 1) if on_tc else (0, 0)):
             raise AssertionError(f"dh 96 {what}: launches {counts}, tensor-core {tc}")
+        if on_tc and not (torch.equal(fwd(), got_f) and
+                          all(torch.equal(a, c) for a, c in zip(bwd(), got_b))):
+            raise AssertionError(f"dh 96 {what}: a second call gave other bits")
         m = b * t
-        k1 = compare(got_f, fused_attention_block_plain(x, *args, n_heads=h),
-                     *K1_TOL[dtype], what=f"K1 {what}")
-        k1.update(route="simt", ms=median_ms(fwd), device_ms=graph_ms(fwd),
+        want_f = fused_attention_block_plain(x, *args, n_heads=h)
+        want_b = fused_attention_block_bwd_plain(x, g, *args[:5], n_heads=h)
+        k1 = compare(got_f, want_f, *K1_TOL[dtype], what=f"K1 {what}")
+        k1.update(route=want_route, ms=median_ms(fwd), device_ms=graph_ms(fwd),
                   plain_ms=median_ms(lambda: fused_attention_block_plain(x, *args, n_heads=h)),
                   composed_device_ms=graph_ms(lambda: composed(x, *args)),
                   **bound(nbytes(x, *args, x),
                           {dtype: 2 * m * d * 4 * d + attention_ops(b, h, t, d // h, 2)}))
-        say("k1_dh96", shape=[b, t, d], heads=h, dtype=str(dtype), **k1)
-        per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"K3 {what} {n}") for n, a, w in
-               zip(names, got_b, fused_attention_block_bwd_plain(x, g, *args[:5], n_heads=h))}
+        per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"K3 {what} {n}")
+               for n, a, w in zip(names, got_b, want_b)}
         k3 = _merge(per)
-        k3.update(route="simt", ms=median_ms(bwd, 11, 3), device_ms=graph_ms(bwd),
+        k3.update(route=want_route, ms=median_ms(bwd, 11, 3), device_ms=graph_ms(bwd),
                   plain_ms=median_ms(lambda: fused_attention_block_bwd_plain(
                       x, g, *args[:5], n_heads=h), 11, 3),
                   block_backward_device_ms=backward_device_ms(fused_block, (x, *args), g),
                   composed_backward_device_ms=backward_device_ms(composed, (x, *args), g),
                   **bound(nbytes(x, g, *args[:5], *got_b),
                           {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}))
+        if on_tc:
+            simt_f, simt_b = simt_block_entries(x, g, args, h)
+            compare(simt_f(), want_f, *K1_TOL[dtype], what=f"K1's SIMT entry {what}")
+            for n, a, w in zip(names, simt_b(), want_b):
+                compare_scaled(a, w, GRAD_TOL[dtype], f"K3's SIMT entry {what} {n}")
+            k1["simt_entry_device_ms"] = graph_ms(simt_f)
+            k3["simt_entry_device_ms"] = graph_ms(simt_b)
+            for k, kernel in (("K1", k1), ("K3", k3)):
+                if not kernel["device_ms"] < kernel["simt_entry_device_ms"]:
+                    raise AssertionError(f"dh 96 {what}: {k} on the tensor cores "
+                                         f"{kernel['device_ms']} ms, not below its SIMT "
+                                         f"entry's {kernel['simt_entry_device_ms']} ms")
+        say("k1_dh96", shape=[b, t, d], heads=h, dtype=str(dtype), **k1)
         say("k3_dh96", shape=[b, t, d], heads=h, dtype=str(dtype),
             scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **k3)
         results[str(dtype)] = {"k1": k1, "k3": k3}

@@ -22,10 +22,11 @@ jax.random.key(567). --gpt_checkpoint starts GPT-2 from a HF state dict (.pt
 or .bin, models/gpt2.from_hf_state_dict), as the JAX app does. --mapping_type
 transformer trains the transformer mapper (--num_layers blocks over
 --prefix_length_clip projected rows and the prefix constant; at GPT-2's width
-768 with 8 heads, dh 96: K1 and K3 on their SIMT route). predict and serve
-build it with --prefix_length_clip 10 and 8 layers, as the JAX apps do, so a
-checkpoint trained at this app's default --prefix_length_clip 20 does not
-load there (in either package: its mapper/proj is [clip_dim, 20 x 768]).
+768 with 8 heads, dh 96: K1 and K3 on their tensor-core route in bf16).
+predict and serve build it with --prefix_length_clip 10 and 8 layers, as the
+JAX apps do, so a checkpoint trained at this app's default
+--prefix_length_clip 20 does not load there (in either package: its
+mapper/proj is [clip_dim, 20 x 768]).
 
 Every epoch is a resumable unit, `<out_dir>/<prefix>/step_<epoch>.pt`, and a
 rerun resumes from the latest. At the end it writes `<out_dir>/<prefix>.npz`

@@ -19,7 +19,8 @@
 // the wrapper allocates. Two routes, chosen by ops/attention_block.py:route
 // (a launch on one never retries the other):
 //
-// SIMT (fp32, and bf16 at head widths other than 64; cct_attention_block_fwd),
+// SIMT (fp32, and bf16 at head widths other than 64 and 96;
+// cct_attention_block_fwd),
 // the products in fp32 FMA on the CUDA cores (fp32 on the tensor cores would
 // be TF32, a different result), bound by the FMA rate:
 //   (a) block_gemm<kQkv> (gemm.cuh): a 64x64-tiled GEMM whose prologue computes
@@ -29,8 +30,8 @@
 //       warp per query row;
 //   (c) block_gemm<kResidual>: merged . W_out with a bias + residual epilogue.
 //
-// Tensor cores (bf16 at dh = 64, T <= 256; cct_attention_block_fwd_tc), every
-// product on wgmma with TMA-fed tiles, K3's tensor-core design:
+// Tensor cores (bf16 at dh = 64 or 96, T <= 256; cct_attention_block_fwd_tc),
+// every product on wgmma with TMA-fed tiles, K3's tensor-core design:
 //   (1) ln_rows (ln_rows.cuh): h = T(LN(x)), into the merged scratch, once a
 //       row (the SIMT prologue normalises each A element again for each of the
 //       3D / 64 column tiles);
@@ -38,7 +39,8 @@
 //       where it lies (MN-major);
 //   (3) tc_block_fwd (attention_tc.cuh): per (batch, head) and 64-row query
 //       tile, q, k and v read out of qkv at their column offsets through 3-D
-//       TMA maps, merged written at the head's columns;
+//       TMA maps, merged written at the head's columns; dh 96 (GPT-2's
+//       transformer mapper) reads each head as three 32-column boxes;
 //   (4) gemm_tc<kResidual>: out = T((x + merged W_out) + b_out).
 // The rounding points are the SIMT chain's; bf16(p) is the operand wgmma takes
 // anyway. No library GEMM or attention is called.
@@ -88,24 +90,33 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
     if (e_ != cudaSuccess) return e_;      \
   } while (0)
 
+// K1's attention pass at head width DH: q, k and v read out of qkv [B, T, 3D]
+// through one map of HeadTile<DH> boxes (zeros past T), merged [B, T, D].
+template <int DH>
+cudaError_t block_attention_tc(const bf16* qkv, bf16* merged, int b, int t, int d, int h,
+                               int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mqkv;
+  CCT_TRY(head_map<DH>(&mqkv, qkv, b, t, 3 * d));
+  return tc_launch(tc_block_fwd<bf16, DH>, tc_block_smem_bytes<DH>(t), b * h, t, stream, mqkv,
+                   TcGeom{h, {0, d, 2 * d, 0}}, TcOut{merged, (long long)t * d, d}, t, causal,
+                   scale);
+}
+
 // The tensor-core route: h = T(LN(x)) lives in `merged` until the qkv product
 // has read it, then the attention pass overwrites it with the merged heads.
 cudaError_t run_block_tc(const bf16* x, const bf16* ln_s, const bf16* ln_b, const bf16* w_qkv,
                          const bf16* b_qkv, const bf16* w_out, const bf16* b_out, bf16* qkv,
                          bf16* merged, bf16* out, int b, int t, int d, int h, int causal,
                          float eps, float scale, cudaStream_t stream) {
-  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0 || d / h != kTcDh ||
+  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0 || !tc_block_dh(d / h) ||
       n_tiles(t) > kBlockMaxTiles)
     return cudaErrorInvalidValue;
   const int rows = b * t;
   CCT_TRY(launch_ln_rows(x, ln_s, ln_b, merged, rows, d, eps, stream));
   CCT_TRY((launch_gemm_tc<kQkv, false>(merged, w_qkv, b_qkv, nullptr, qkv, rows, 3 * d, d,
                                        stream)));
-  CUtensorMap mqkv;  // [B, T, 3D] in 64 x 64 boxes, zeros past T
-  CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
-  CCT_TRY(tc_launch(tc_block_fwd<bf16>, tc_block_smem_bytes(t), b * h, t, stream, mqkv,
-                    TcGeom{h, {0, d, 2 * d, 0}}, TcOut{merged, (long long)t * d, d}, t, causal,
-                    scale));
+  CCT_TRY(d / h == 64 ? block_attention_tc<64>(qkv, merged, b, t, d, h, causal, scale, stream)
+                      : block_attention_tc<96>(qkv, merged, b, t, d, h, causal, scale, stream));
   return launch_gemm_tc<kResidual, false>(merged, w_out, b_out, x, out, rows, d, d, stream);
 }
 
@@ -134,8 +145,8 @@ extern "C" int cct_attention_block_fwd(int dtype, const void* x, const void* ln_
   }
 }
 
-// The tensor-core route, same arguments: bf16 at dh = 64 and T <= 256 only
-// (anything else is refused, never run on the other route).
+// The tensor-core route, same arguments: bf16 at dh = 64 or 96 and T <= 256
+// only (anything else is refused, never run on the other route).
 extern "C" int cct_attention_block_fwd_tc(int dtype, const void* x, const void* ln_s,
                                           const void* ln_b, const void* w_qkv,
                                           const void* b_qkv, const void* w_out,

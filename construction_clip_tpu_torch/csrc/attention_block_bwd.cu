@@ -14,9 +14,9 @@
 //
 // What bounds it on the H100: the three weight products (recomputed qkv,
 // dmerged, dh) hold most of the FLOPs (14.9 of 15.7 GFLOP at [36, 50, 768]):
-// the tensor cores' rate. The SIMT route (fp32, other head widths) runs them
-// on the CUDA cores in fp32 FMA and is bound by the FMA rate; the tensor-core
-// route below runs every product on wgmma.
+// the tensor cores' rate. The SIMT route (fp32, and bf16 at other head widths)
+// runs them on the CUDA cores in fp32 FMA and is bound by the FMA rate; the
+// tensor-core route below runs every product on wgmma.
 //
 // Design: the Pallas kernel keeps both weight matrices in 16 MiB of VMEM and
 // carries the dLN sums across a sequential grid; a Hopper block has neither,
@@ -37,12 +37,13 @@
 // with a second pass instead of atomics, so two runs give the same bits.
 // No library GEMM or attention is called.
 //
-// Tensor-core route (bf16 at dh = 64, cct_attention_block_bwd_tc; chosen by
+// Tensor-core route (bf16 at dh = 64 or 96, cct_attention_block_bwd_tc; chosen by
 // ops/attention_block.py:route, never a retry of the other route): the same
 // nine steps with the three weight products on wgmma (gemm_tc.cuh) and the
 // three attention passes on wgmma (attention_tc.cuh, the K5 passes reading q,
 // k, v out of qkv and dO out of dmg through column offsets, writing dq, dk and
-// dv into their column slices of dqkv, and the dq pass writing merged). The
+// dv into their column slices of dqkv, and the dq pass writing merged; at
+// dh 96 each head is three 32-column boxes, attention_tc.cuh). The
 // products' A operands come from memory through TMA, so a row pass first
 // writes h = T(LN(x)) (ln_rows.cuh, shared with K1 and K9) into a fifth
 // D-wide slot of the T-typed scratch, where the caller finds it for the
@@ -230,14 +231,35 @@ cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, con
                         dln_b, rows, d, eps, stream);
 }
 
-// ---- tensor-core route (bf16, dh = 64) --------------------------------------
+// ---- tensor-core route (bf16, dh = 64 or 96) --------------------------------
+
+// K3's three attention passes at head width DH: q, k, v out of qkv [B, T, 3D]
+// and dO out of dmg [B, T, D] through maps of HeadTile<DH> boxes (zeros past
+// T); dq, dk, dv into their column slices of dqkv, merged [B, T, D].
+template <int DH>
+cudaError_t block_attention_bwd_tc(const bf16* qkv, const bf16* dmg, float* stats, bf16* dqkv,
+                                   bf16* merged, int b, int t, int d, int h, int causal,
+                                   float scale, cudaStream_t stream) {
+  const int heads = b * h;
+  CUtensorMap mqkv, mg;
+  CCT_TRY(head_map<DH>(&mqkv, qkv, b, t, 3 * d));
+  CCT_TRY(head_map<DH>(&mg, dmg, b, t, d));
+  const TcGeom geo{h, {0, d, 2 * d, 0}};
+  const long long z3 = (long long)t * 3 * d;
+  return tc_attention_bwd<true, DH>(mqkv, mqkv, mqkv, mg, geo, stats, stats + (size_t)heads * t,
+                                    stats + 2 * (size_t)heads * t, TcOut{dqkv, z3, 3 * d},
+                                    TcOut{merged, (long long)t * d, d},
+                                    TcOut{dqkv + d, z3, 3 * d}, TcOut{dqkv + 2 * d, z3, 3 * d},
+                                    heads, t, causal, scale, stream);
+}
 
 cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, const bf16* ln_b,
                              const bf16* w_qkv, const bf16* b_qkv, const bf16* w_out,
                              bf16* work_t, float* work_f, bf16* dx, bf16* dqkv, bf16* merged,
                              float* dln_s, float* dln_b, int b, int t, int d, int h, int causal,
                              float eps, float scale, cudaStream_t stream) {
-  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0 || d / h != kTcDh) return cudaErrorInvalidValue;
+  if (b <= 0 || t <= 0 || h <= 0 || d % h != 0 || !tc_block_dh(d / h))
+    return cudaErrorInvalidValue;
   const int rows = b * t, heads = b * h;
   bf16* qkv = work_t;                          // [rows, 3D]
   bf16* dmg = qkv + (size_t)rows * 3 * d;      // [rows, D]
@@ -252,16 +274,11 @@ cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, con
   CCT_TRY((launch_gemm_tc<kQkv, false>(hn, w_qkv, b_qkv, nullptr, qkv, rows, 3 * d, d, stream)));
   CCT_TRY((launch_gemm_tc<kRound, true>(g, w_out, nullptr, nullptr, dmg, rows, d, d, stream)));
 
-  CUtensorMap mqkv, mg;  // [B, T, 3D] and [B, T, D] in 64 x 64 boxes, zeros past T
-  CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
-  CCT_TRY(hopper::tile_map(&mg, dmg, b, t, d, kBoxRows));
-  const TcGeom geo{h, {0, d, 2 * d, 0}};
-  const long long z3 = (long long)t * 3 * d;
-  CCT_TRY(tc_attention_bwd<true>(mqkv, mqkv, mqkv, mg, geo, st_m, st_m + (size_t)heads * t,
-                                 st_m + 2 * (size_t)heads * t, TcOut{dqkv, z3, 3 * d},
-                                 TcOut{merged, (long long)t * d, d}, TcOut{dqkv + d, z3, 3 * d},
-                                 TcOut{dqkv + 2 * d, z3, 3 * d}, heads, t, causal, scale,
-                                 stream));
+  CCT_TRY(d / h == 64
+              ? block_attention_bwd_tc<64>(qkv, dmg, st_m, dqkv, merged, b, t, d, h, causal,
+                                           scale, stream)
+              : block_attention_bwd_tc<96>(qkv, dmg, st_m, dqkv, merged, b, t, d, h, causal,
+                                           scale, stream));
 
   CCT_TRY((launch_gemm_tc<kFloat, true>(dqkv, w_qkv, nullptr, nullptr, dh, rows, d, 3 * d,
                                           stream)));
@@ -304,8 +321,8 @@ extern "C" int cct_attention_block_bwd(int dtype, const void* x, const void* g,
   }
 }
 
-// The tensor-core route, same arguments: bf16 at dh = 64 only (anything else
-// is refused, never run on the other route). Its T-typed workspace holds
+// The tensor-core route, same arguments: bf16 at dh = 64 or 96 only (anything
+// else is refused, never run on the other route). Its T-typed workspace holds
 // B*T*5D elements: qkv, dmg and h = T(LN(x)), which it leaves in the last
 // B*T*D.
 extern "C" int cct_attention_block_bwd_tc(int dtype, const void* x, const void* g,

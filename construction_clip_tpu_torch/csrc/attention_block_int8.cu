@@ -244,7 +244,8 @@ cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
   if constexpr (TC) {
     CUtensorMap mqkv;  // [B, T, 3D] in 64 x 64 boxes, zeros past T
     CCT_TRY(hopper::tile_map(&mqkv, qkv, b, t, 3 * d, kBoxRows));
-    CCT_TRY(tc_launch(tc_block_fwd<float>, tc_block_smem_bytes(t), b * h, t, stream, mqkv,
+    CCT_TRY(tc_launch(tc_block_fwd<float, kTcDh>, tc_block_smem_bytes<kTcDh>(t), b * h, t,
+                      stream, mqkv,
                       TcGeom{h, {0, d, 2 * d, 0}},
                       TcOutOf<float>{static_cast<float*>(merged), (long long)t * d, d}, t,
                       causal, scale));

@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(kTcThreads)
            const __grid_constant__ CUtensorMap mv, bf16* out, int t_len, int causal,
            float scale) {
   extern __shared__ uint8_t smem_raw[];
-  const TcSmem sm = tc_smem(smem_raw, 1, false);
+  const TcSmem<> sm = tc_smem(smem_raw, 1, false);
   const int bh = blockIdx.x, qt = query_tile(causal), q0 = qt * kBoxRows;
   const TcLoads ld{&mq, nullptr, &mk, &mv, q0, 0, causal ? qt + 1 : n_tiles(t_len), bh,
                    0, 0, 0, 0, bh};
@@ -255,7 +255,7 @@ extern "C" int cct_flash_attention_bwd_tc(int dtype, const void* q, const void* 
   const TcGeom geo{1, {0, 0, 0, 0}};     // [B*H, T, 64] arrays
   const long long z = (long long)t * kTcDh;
   const TcOut none{nullptr, 0, 0};
-  return tc_attention_bwd<false>(mq, mk, mv, mg, geo, m, m + (size_t)heads * t,
+  return tc_attention_bwd<false, kTcDh>(mq, mk, mv, mg, geo, m, m + (size_t)heads * t,
                                  m + 2 * (size_t)heads * t,
                                  TcOut{static_cast<__nv_bfloat16*>(dq), z, kTcDh}, none,
                                  TcOut{static_cast<__nv_bfloat16*>(dk), z, kTcDh},

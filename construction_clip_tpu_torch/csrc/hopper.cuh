@@ -7,15 +7,17 @@
 //              that completes on an mbarrier (rows past the tensor's end are
 //              zero);
 //   wgmma      m64n64k16 and m64n128k16 bf16 -> fp32 with both operands in
-//              shared memory (ss), m64n64k16 with A in registers (rs),
-//              m64n64k32 and m64n128k32 s8 -> s32 (ss, both operands
-//              K-major: 8-bit wgmma has no transpose), its fence / commit /
-//              wait, and the shared-memory descriptors of 128-byte-swizzled
-//              tiles.
+//              shared memory (ss), m64n64k16 and m64n96k16 with A in
+//              registers (rs), m64n64k32 and m64n128k32 s8 -> s32 (ss, both
+//              operands K-major: 8-bit wgmma has no transpose), its fence /
+//              commit / wait, and the shared-memory descriptors of 128- and
+//              64-byte-swizzled tiles.
 //
 // A tile here is rows of 128 bytes (64 bf16 or 128 int8), written by a TMA
 // load with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned slot: the
-// layout wgmma reads through a descriptor with the 128-byte swizzle.
+// layout wgmma reads through a descriptor with the 128-byte swizzle. A box of
+// 64-byte rows (32 bf16) takes the 64-byte swizzle instead, in a 512-byte-
+// aligned slot (the attention passes' dh-96 heads: attention_tc.cuh).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums (types only: no -lcuda)
@@ -161,6 +163,24 @@ __device__ __forceinline__ uint64_t desc_mn_major_wide(const void* tile, uint32_
   return desc_sw128(tile, atom_bytes, 1024);
 }
 
+// The 64-byte swizzle (layout 2): a box of 64-byte rows written by a TMA load
+// with CU_TENSOR_MAP_SWIZZLE_64B. K-major: 8-row groups 512 bytes apart, a
+// k-step of 32 bytes is +2 (two a row). MN-major (transpose bit): one 32-column
+// swizzle atom a box, `atom_bytes` to the next along N (the leading byte
+// offset), 8-row groups of the reduction 512 bytes apart; a k-step of 16 rows
+// is 1024 bytes further (+64).
+__device__ __forceinline__ uint64_t desc_sw64(const void* tile, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (2ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_k_major_sw64(const void* tile) {
+  return desc_sw64(tile, 0, 512);
+}
+__device__ __forceinline__ uint64_t desc_mn_major_sw64(const void* tile, uint32_t atom_bytes) {
+  return desc_sw64(tile, atom_bytes, 512);
+}
+
 #define CCT_WGMMA_D32                                                                  \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -194,6 +214,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CCT_WGMMA_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : CCT_D8(0), CCT_D8(8), CCT_D8(16), CCT_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+#define CCT_WGMMA_D48                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+
+// d (+)= A . B over k = 16, A in registers (as m64n64k16_rs) and B [16 x 96] in
+// shared memory. d's element (row, col) lives where m64n64k16 puts it, with
+// col / 8 up to 11 (acc_row / acc_col hold).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t* a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " CCT_WGMMA_D48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : CCT_D8(0), CCT_D8(8), CCT_D8(16), CCT_D8(24), CCT_D8(32), CCT_D8(40)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(TRANS_B));
 }
@@ -251,6 +291,7 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
 #undef CCT_D8
 #undef CCT_I8
 #undef CCT_WGMMA_D32
+#undef CCT_WGMMA_D48
 #undef CCT_WGMMA_D64
 
 // Row and column, within the warpgroup's [64 x N] accumulator, of this
@@ -336,14 +377,17 @@ inline EncodeTiledFn encode_tiled() {
 
 // The map of an array [depth, rows, cols] of bf16 (or, with
 // CU_TENSOR_MAP_DATA_TYPE_UINT8, of bytes: int8) (cols contiguous, a row
-// `cols` elements long) in boxes of 128 bytes of columns (64 bf16, 128 int8) x
-// box_rows rows x 1 with the 128-byte swizzle; a box reaching past `rows` or
+// `cols` elements long) in boxes of `box_bytes` bytes of columns x box_rows
+// rows x 1: 128 bytes (64 bf16, 128 int8) with the 128-byte swizzle, or 64
+// bytes (32 bf16) with the 64-byte swizzle; a box reaching past `rows` or
 // `cols` reads zeros. depth 0 gives a 2-D map of [rows, cols] (coordinates
 // column, row), depth >= 1 a 3-D map (column, row, depth index). TMA wants the
 // base and the row pitch in multiples of 16 bytes.
 inline cudaError_t tile_map(CUtensorMap* map, const void* base, int depth, int rows, int cols,
                             int box_rows,
-                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            int box_bytes = 128) {
+  if (box_bytes != 128 && box_bytes != 64) return cudaErrorInvalidValue;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : sizeof(__nv_bfloat16);
@@ -351,11 +395,13 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int depth, int r
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(depth > 0 ? depth : 1)};
   const cuuint64_t strides[2] = {row_bytes, row_bytes * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {128 / elem, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {box_bytes / elem, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(map, type, depth > 0 ? 3 : 2,
                             const_cast<void*>(base), dims, strides, box, step,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -6,7 +6,7 @@ backward (counterpart of construction_clip_tpu/ops/pallas_attention_block.py).
 (csrc/attention_block.cu) and whose backward is K3 (csrc/attention_block_bwd.cu)
 on CUDA tensors, and the plain versions on CPU tensors. On the card `route`
 picks the chain of both kernels: the tensor-core chain (wgmma, TMA) for bf16 at
-dh = 64, the SIMT chain for fp32 and other widths; a launch that fails raises
+dh = 64 or 96, the SIMT chain for fp32 and other widths; a launch that fails raises
 and never retries on the other route. K3 recomputes LN, qkv and the probabilities from x,
 as the Pallas backward does, so the Function saves only its inputs; its
 tensor-core route also hands back h = T(LN(x)), the operand of W_qkv's
@@ -27,7 +27,7 @@ from construction_clip_tpu_torch.ops.norms import layer_norm
 
 MAX_T = 256
 MAX_DH = 128             # K3's per-lane register tiles (csrc/attention_tiles.cuh)
-TC_DH = (64,)            # head widths of K1/K3's tensor-core routes (64 x 64 tiles)
+TC_DH = (64, 96)         # head widths of K1/K3's tensor-core routes (attention_tc.cuh)
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
 _ATTN_WARPS = 4
 

@@ -27,11 +27,12 @@ import torch
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.attention import NEG_INF, merge_heads, split_heads
 from construction_clip_tpu_torch.ops.attention_block import (
-    MAX_SMEM_BYTES, MAX_T, TC_DH, attention_smem_bytes)
+    MAX_SMEM_BYTES, MAX_T, attention_smem_bytes)
 from construction_clip_tpu_torch.ops.quant import int8_matmul, quantize_rows
 
 MAX_ROW_BYTES = 48 * 1024   # the row-quantization launch keeps one fp32 row in shared memory
 TMA_ROW_BYTES = 16          # TMA reads rows whose pitch is a multiple of 16 bytes
+TC_DH = (64,)               # head widths of the tensor-core attention pass (its C entry's)
 
 
 def route(dtype, dh: int) -> str:

@@ -91,12 +91,19 @@ def test_wrapper_rejects_other_devices():
 
 def test_the_gpt2_mapper_width_takes_the_simt_route_at_dh_96():
     """GPT-2's transformer mapper (width 768, 8 heads: dh 96, T = 10 + 20 rows)
-    passes the gate, with K1's shared memory for dh 96 under Hopper's limit,
-    and takes the SIMT chain on the card in bf16 and fp32; mT5's (width 512,
-    8 heads) takes the tensor cores in bf16."""
+    passes the gate, with the SIMT attention launch's shared memory for dh 96
+    under Hopper's limit, and takes the SIMT chain on the card in fp32 (fp32
+    on the tensor cores would be TF32)."""
     assert fab.supported(torch.zeros(16, 30, 768), 8)
     assert fab.attention_smem_bytes(30, 96) <= fab.MAX_SMEM_BYTES
-    assert fab.route(torch.bfloat16, 96) == fab.route(torch.float32, 96) == "simt"
+    assert fab.route(torch.float32, 96) == "simt"
+
+
+def test_the_gpt2_mapper_width_takes_the_tensor_cores_in_bf16_at_dh_96():
+    """The same mapper in bf16 takes the tensor-core chain (the attention
+    passes at head width 96), as mT5's (width 512, 8 heads: dh 64) does."""
+    assert 96 in fab.TC_DH
+    assert fab.route(torch.bfloat16, 96) == "tc"
     assert fab.route(torch.bfloat16, 512 // 8) == "tc"
 
 

@@ -1,10 +1,12 @@
 """PyTorch port, the tensor-core routes of the fused block's forward (K1) and of
 the fused MLP residual (K9), rehearsed on the CPU: the route tables on every
-(dtype, width) the port's configurations reach, both C entries of each kernel,
+(dtype, width) the port's configurations reach (towers and ClipCap's
+transformer mappers), both C entries of each kernel,
 the wrappers' choice of entry, the plain versions against the JAX package's
 Pallas kernels in interpret mode at the text tower's T = 77 causal shape, and
 the arithmetic of K1's attention pass (p rounded relative to the row's max,
-not the running max that K4 uses) in plain torch. The kernels themselves run
+not the running max that K4 uses) in plain torch, at head width 64 and at 96
+(a head as three 32-column panels, GPT-2's transformer mapper). The kernels themselves run
 only on the card (tests/test_torch_kernels.py)."""
 
 import contextlib
@@ -19,12 +21,17 @@ import torch
 
 from construction_clip_tpu.ops import pallas_attention_block as jfab
 from construction_clip_tpu.ops import pallas_mlp as jmlp
-from construction_clip_tpu_torch.core.configs import CLIPConfig
+from construction_clip_tpu_torch.core.configs import CLIPConfig, GPT2Config, T5Config
+from construction_clip_tpu_torch.models.clipcap.model import MAPPER_HEADS
+from construction_clip_tpu_torch.models.clipcap.t5_model import mapper_shape
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import mlp
+from construction_clip_tpu_torch.ops.attention import merge_heads, split_heads
 
 TILE = 64   # keys a tile, as the kernel stages them
+PANEL = 32  # columns of a dh-96 head's TMA box (csrc/attention_tc.cuh: HeadTile<96>)
+KSTEP = 16  # the reduction of one wgmma k-step
 # fp32 on both sides, sums in another order (tests/test_torch_attention_block.py)
 FP32_TOL = dict(rtol=3e-5, atol=3e-5)
 K1_TOL_BF16 = dict(rtol=2e-2, atol=2e-2)   # chip_smoke.K1_TOL
@@ -66,6 +73,24 @@ def test_routes_on_the_port_configurations(name, dtype):
     width, heads = TOWERS[name]
     want = WANT_BF16[name] if dtype == torch.bfloat16 else ("simt", "simt")
     assert (fab.route(dtype, width // heads), mlp.route(dtype, width, 4 * width)) == want
+
+
+# ClipCap's transformer mappers (width n_embd in MAPPER_HEADS heads): GPT-2's
+# 8 heads of 96 and mT5's 8 of 64. Their ReLU blocks never take K9, so only
+# K1's (and K3's) route is theirs: the tensor cores in bf16, SIMT in fp32.
+MAPPERS = {"gpt2 mapper": (768, 8), "mt5 mapper": (512, 8)}
+
+
+def test_mappers_are_the_configurations():
+    assert MAPPERS["gpt2 mapper"] == (GPT2Config().n_embd, MAPPER_HEADS)
+    assert MAPPERS["mt5 mapper"] == (mapper_shape(T5Config()).n_embd, MAPPER_HEADS)
+
+
+@pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "tc"), (torch.float32, "simt")])
+@pytest.mark.parametrize("name", sorted(MAPPERS))
+def test_routes_on_the_mapper_configurations(name, dtype, want):
+    width, heads = MAPPERS[name]
+    assert fab.route(dtype, width // heads) == want
 
 
 @pytest.mark.parametrize("dtype, d, hidden, want", [(torch.bfloat16, 40, 104, "tc"),
@@ -148,8 +173,10 @@ def fake_card(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype, d, heads, want", [(torch.bfloat16, 128, 2, "_tc"),
+                                                   (torch.bfloat16, 192, 2, "_tc"),
                                                    (torch.bfloat16, 128, 4, ""),
-                                                   (torch.float32, 128, 2, "")])
+                                                   (torch.float32, 128, 2, ""),
+                                                   (torch.float32, 192, 2, "")])
 def test_block_wrapper_takes_its_route_entry(dtype, d, heads, want, fake_card):
     x, args = _block_args(np.random.default_rng(5), 2, 9, d, dtype)
     wrapper = fab.fused_attention_block
@@ -159,6 +186,27 @@ def test_block_wrapper_takes_its_route_entry(dtype, d, heads, want, fake_card):
     assert name == "cct_attention_block_fwd" + want
     assert call[0] == _build.dtype_code(dtype) and call[-8:-3] == (2, 9, d, heads, 1)
     assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + bool(want))
+
+
+@pytest.mark.parametrize("dtype, d, heads, want", [(torch.bfloat16, 128, 2, "_tc"),
+                                                   (torch.bfloat16, 192, 2, "_tc"),
+                                                   (torch.bfloat16, 128, 4, ""),
+                                                   (torch.float32, 128, 2, ""),
+                                                   (torch.float32, 192, 2, "")])
+def test_block_backward_wrapper_takes_its_route_entry(dtype, d, heads, want, fake_card):
+    """K3's wrapper: the route's C entry (beside the workspace query), the
+    tensor-core route's larger T-typed workspace, and h handed back from it."""
+    x, args = _block_args(np.random.default_rng(7), 2, 9, d, dtype)
+    g = x.flip(1).contiguous()
+    wrapper = fab.fused_attention_block_bwd
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = wrapper(x, g, *args[:5], n_heads=heads, causal=True, with_h=True)
+    ((name, call),) = [c for c in fake_card if not c[0].endswith("_work_floats")]
+    assert name == "cct_attention_block_bwd" + want
+    assert call[0] == _build.dtype_code(dtype) and call[-8:-3] == (2, 9, d, heads, 1)
+    assert call[-2] == pytest.approx((d // heads) ** -0.5)
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + bool(want))
+    assert (got[5] is not None) == bool(want)
 
 
 @pytest.mark.parametrize("dtype, d, hidden, want", [(torch.bfloat16, 64, 256, "_tc"),
@@ -309,3 +357,94 @@ def test_running_max_rounds_p_elsewhere_at_t77():
     running = _running_max_p(q, k, True, scale)
     assert not torch.equal(running.bfloat16(), row_max.bfloat16())
     assert torch.equal(running[..., :TILE, :].bfloat16(), row_max[..., :TILE, :].bfloat16())
+
+
+# ---- K1's attention pass at head width 96, emulated ---------------------------
+
+def _panel_logits(q, k):
+    """q k^T over a dh-96 head as tc_block_fwd<bf16, 96> sums it in fp32: six
+    16-column k-steps, two in each of the head's three 32-column panels."""
+    assert q.shape[-1] % PANEL == 0
+    s = torch.zeros(*q.shape[:-1], k.shape[-2])
+    for c in range(0, q.shape[-1], KSTEP):
+        s = s + q[..., c:c + KSTEP].float() @ k[..., c:c + KSTEP].float().mT
+    return s
+
+
+def _tc_pass_dh96(q, k, v, causal, scale):
+    """tc_block_fwd<bf16, 96>'s arithmetic: per 64-row query tile the 64-key
+    tiles up to the diagonal (causal) or all; sweep 1 the row's max of the
+    base-2 logits, sweep 2 p = 2^(t - m) summed in fp32 into l and bf16(p) . v
+    over 16-key k-steps, each one 96-column product across the three panels;
+    o / l rounded once. -> merged heads, p."""
+    c = scale * 1.4426950408889634
+    t_len = q.shape[-2]
+    merged = torch.zeros(q.shape, dtype=torch.bfloat16)
+    p_all = torch.zeros(*q.shape[:-1], t_len)
+    for q0 in range(0, t_len, TILE):
+        q_tile, rows = q[..., q0:q0 + TILE, :], torch.arange(q0, min(t_len, q0 + TILE))
+        keys = range(0, min(t_len, q0 + TILE) if causal else t_len, TILE)
+
+        def logits(j):
+            t = _panel_logits(q_tile, k[..., j:j + TILE, :]) * c
+            if causal:
+                cols = torch.arange(j, min(t_len, j + TILE))
+                t = torch.where(cols[None, :] <= rows[:, None], t, float("-inf"))
+            return t
+
+        m = torch.stack([logits(j).amax(dim=-1) for j in keys]).amax(dim=0)
+        o = torch.zeros(*q_tile.shape)
+        l = torch.zeros(q_tile.shape[:-1])
+        for j in keys:
+            p = torch.exp2(logits(j) - m[..., None])
+            l = l + p.sum(dim=-1)
+            p_lo, v_tile = p.bfloat16().float(), v[..., j:j + TILE, :].float()
+            for r in range(0, p_lo.shape[-1], KSTEP):
+                o = o + p_lo[..., r:r + KSTEP] @ v_tile[..., r:r + KSTEP, :]
+            p_all[..., q0:q0 + TILE, j:j + TILE] = p
+        merged[..., q0:q0 + TILE, :] = (o / l[..., None]).bfloat16()
+    return merged, p_all
+
+
+def _block_through_the_pass(x, args, n_heads, causal):
+    """K1's tensor-core chain in plain torch with the dh-96 pass: h = T(LN(x)),
+    qkv = T(T(h W_qkv) + b_qkv), the pass, out = T(x + merged W_out + b_out)."""
+    ln_s, ln_b, w_qkv, b_qkv, w_out, b_out = args
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    h = ((x32 - mean) * torch.rsqrt(var + 1e-5) * ln_s.float() + ln_b.float()).to(x.dtype)
+    qkv = (h.float() @ w_qkv.float()).to(x.dtype) + b_qkv
+    q, k, v = (split_heads(z, n_heads) for z in qkv.chunk(3, dim=-1))
+    merged, _ = _tc_pass_dh96(q, k, v, causal, (x.shape[-1] // n_heads) ** -0.5)
+    y = merge_heads(merged).float() @ w_out.float()
+    return (x32 + y + b_out.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("t, causal", [(30, False), (30, True), (65, False), (65, True)])
+def test_dh96_pass_keeps_the_plain_rounding_points(t, causal, interpret_mode):
+    """At 2 heads of 96 (T = 30: one tile, the mapper's rows; 65: one row in
+    a second tile): the panel-wise q k^T is the head's product, the pass's
+    bf16(p) the plain version's, its merged heads within K1's bf16 tolerance,
+    and the whole block through it within that tolerance of both the plain
+    version and the Pallas block in interpret mode."""
+    gen = np.random.default_rng(960 + t + causal)
+    q, k, v = _heads(gen, 2, 2, t, 96)
+    np.testing.assert_allclose(_panel_logits(q, k).numpy(), (q.float() @ k.float().mT).numpy(),
+                               rtol=1e-5, atol=1e-4)
+    scale = 96 ** -0.5
+    want, p_plain = _plain_merged(q, k, v, causal, scale)
+    got, p_pass = _tc_pass_dh96(q, k, v, causal, scale)
+    assert torch.mean((p_pass.bfloat16() == p_plain.bfloat16()).float()) > 0.99
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **K1_TOL_BF16)
+
+    x, args = _block_args(gen, 2, t, 192, torch.bfloat16)
+    block = _block_through_the_pass(x, args, 2, causal).float().numpy()
+    plain = fab.fused_attention_block_plain(x, *args, n_heads=2, causal=causal)
+    np.testing.assert_allclose(block, plain.float().numpy(), **K1_TOL_BF16)
+    jx, jargs = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                 [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in args])
+    pallas = jfab.fused_attention_block(jx, {"scale": jargs[0], "bias": jargs[1]},
+                                        dict(zip(("w_qkv", "b_qkv", "w_out", "b_out"), jargs[2:])),
+                                        n_heads=2, causal=causal)
+    np.testing.assert_allclose(block, np.asarray(pallas.astype(jnp.float32)), **K1_TOL_BF16)

@@ -32,6 +32,8 @@ LAYERS, HEADS, T_MAX, DH = 2, 12, 80, 64
 
 @pytest.mark.parametrize("dtype, dh, want", [(torch.bfloat16, 64, "tc"),
                                              (torch.float32, 64, "simt"),
+                                             (torch.bfloat16, 96, "tc"),
+                                             (torch.float32, 96, "simt"),
                                              (torch.bfloat16, 32, "simt"),
                                              (torch.float32, 32, "simt")])
 def test_block_backward_route(dtype, dh, want):

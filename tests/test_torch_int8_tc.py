@@ -25,6 +25,7 @@ from construction_clip_tpu_torch import convert
 from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.models.clip import quant as quant_clip
 from construction_clip_tpu_torch.ops import _build
+from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import attention_block_int8 as fab8
 from construction_clip_tpu_torch.ops.attention import merge_heads, split_heads
 from construction_clip_tpu_torch.ops.quant import (
@@ -54,6 +55,15 @@ def interpret_mode(monkeypatch):
 TOWERS = {"vit_b_32": (768, 12), "vit_b_16": (768, 12), "vit_l_14": (1024, 16),
           "tiny": (64, 2)}
 WANT_BF16 = {"vit_b_32": "tc", "vit_b_16": "tc", "vit_l_14": "tc", "tiny": "simt"}
+
+
+def test_head_width_96_keeps_the_simt_attention_pass():
+    """K7's C entry takes the tensor-core pass at dh 64 alone, so its route
+    keeps a head-width table of its own: dh 96 stays on the SIMT pass in
+    both dtypes, though K1 and K3 take the tensor cores there in bf16."""
+    assert fab8.TC_DH == (64,)
+    assert fab8.route(torch.bfloat16, 96) == fab8.route(torch.float32, 96) == "simt"
+    assert fab.route(torch.bfloat16, 96) == "tc"
 
 
 def test_int8_path_quantizes_the_image_tower_alone():
@@ -142,6 +152,7 @@ def fake_card(monkeypatch):
 
 @pytest.mark.parametrize("dtype, d, heads, want", [(torch.bfloat16, 128, 2, "_tc"),
                                                    (torch.bfloat16, 128, 4, ""),
+                                                   (torch.bfloat16, 192, 2, ""),
                                                    (torch.float32, 128, 2, "")])
 def test_wrapper_takes_its_route_entry(dtype, d, heads, want, fake_card):
     x, ln, qattn = _int8_case(np.random.default_rng(5), 2, 9, d, dtype)

@@ -230,11 +230,14 @@ def test_attention_block_backward_kernel_on_card(shape, dtype, gen, cuda_device)
         assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
 
 
-# K3's tensor-core route (fab.route: bf16 at dh=64): the training towers'
-# shapes, and the edges of its 64-row tiles (T = 1, a lone key; 64, one whole
-# tile; 65, one row in the last; 256, the gate) at 3 rows a batch
-K3_TC_CASES = ([(36, 50, 768, 12, False), (36, 77, 512, 8, True), (9, 77, 768, 12, True)] +
-               [(3, t, 128, 2, causal) for t in (1, 64, 65, 256) for causal in (False, True)])
+# K3's tensor-core route (fab.route: bf16 at dh=64 or 96): the training towers'
+# shapes, GPT-2's transformer mapper (8 heads of 96), and the edges of its
+# 64-row tiles (T = 1, a lone key; 64, one whole tile; 65, one row in the last;
+# 256, the gate) at 3 rows a batch, at dh 64 and 96
+TILE_EDGES = [(3, t, d, 2, causal) for d in (128, 192) for t in (1, 64, 65, 256)
+              for causal in (False, True)]
+K3_TC_CASES = ([(36, 50, 768, 12, False), (36, 77, 512, 8, True), (9, 77, 768, 12, True),
+                (16, 30, 768, 8, False)] + TILE_EDGES)
 
 
 @pytest.mark.cuda
@@ -280,12 +283,12 @@ def test_attention_block_backward_tensor_core_entry_refuses_what_it_does_not_tak
             _build.check(err, "fused_attention_block_bwd")
 
 
-# K1's tensor-core route (fab.route: bf16 at dh=64): every shape of
-# chip_smoke.K1_SHAPES, and the edges of the 64-row tiles (T = 1, a lone key;
-# 64, one whole tile; 65, one row in the last; 256, the gate) at 3 rows a batch
+# K1's tensor-core route (fab.route: bf16 at dh=64 or 96): every shape of
+# chip_smoke.K1_SHAPES, GPT-2's transformer mapper (8 heads of 96), and the
+# tile edges of K3_TC_CASES
 K1_TC_CASES = ([(8, 50, 768, 12, False), (9, 77, 512, 8, True), (2, 77, 512, 8, True),
-                (36, 50, 768, 12, False), (36, 77, 512, 8, True), (9, 77, 768, 12, True)] +
-               [(3, t, 128, 2, causal) for t in (1, 64, 65, 256) for causal in (False, True)])
+                (36, 50, 768, 12, False), (36, 77, 512, 8, True), (9, 77, 768, 12, True),
+                (16, 30, 768, 8, False)] + TILE_EDGES)
 
 
 def _b_out(gen, dev, dtype, d):
