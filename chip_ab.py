@@ -8,6 +8,7 @@ A, each run in a process of its own, so that both meet the same card and host.
     python3 chip_ab.py kernels path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py k10     path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py sass    path/to/checkout_a path/to/checkout_b
+    python3 chip_ab.py kernels path/to/checkout     (one checkout, one run)
 
 serve: phase 5 (ViT-B/32 + GPT-2 12x768 beam 3 in bf16 through
 TorchPredictService, 10 requests from 4 threads). serve_int8: phase 16 (the
@@ -31,6 +32,16 @@ of K1, K4 and K5); then K6's device and wrapper time at [8,224,224,3] and
 [256,224,224,3] into bf16 and fp32, each with the digest of its output; last,
 K4 and K5 at [9,16,257,64] bf16 and K1 and K3 at GPT-2's transformer mapper
 ([16,30,768], 8 heads of 96) bf16, each with the tensor-core launches it made.
+The kernels run goes on with the fp32 route of K1 and K3: K1 at every shape
+of chip_smoke's K1_SHAPES, K3 at every one of its K3_SHAPES, both at
+[16,30,768] (H=8), each with its launches' device times and the composed
+library block beside it (K1: its forward; K3: the block's whole backward
+through autograd, and the composed block's), then one batch of the
+predict_zeroshot app in fp32 (ViT-B/32, B=8
+staged at 256, its default policy): host ms, device ms and K1 launches; and
+digests of fp32 K1 and K3 at GPT-2's transformer mapper, ViT-B/32's text
+tower in training ([36,77,512], causal) and fp32 at d = 18 (2 heads; rows of
+72 bytes, no multiple of 16).
 k10: phase 23 (K10 with 4 ranks time-slicing the card: each case's wrapper
 time a call, the kernel alone, the plain version's time). sass: each
 checkout builds its kernels; then the SASS of every tensor-core attention
@@ -39,7 +50,8 @@ a template may name differently in the two trees) is compared instruction by
 instruction, addresses and encodings aside.
 
 Each checkout builds its own kernels. Prints each run's JSON lines with the
-checkout they came from, then the card's name and power limit.
+checkout they came from, then the card's name and power limit. Given one
+checkout, a phase other than sass runs it once.
 """
 
 from __future__ import annotations
@@ -83,7 +95,7 @@ batch = cs.class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
 cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
     "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits", "ab_k6",
-                 "ab_k45", "ab_dh96"),
+                 "ab_k45", "ab_dh96", "ab_k1_f32", "ab_k3_f32", "ab_zeroshot_f32"),
                 r"""
 cs.phase_build()
 rng = np.random.default_rng(2)
@@ -236,6 +248,74 @@ for name, wrapper, fn in (
     fn()
     cs.say("ab_dh96", kernel=name, shape=[16, 30, 768], heads=8, device_ms=cs.graph_ms(fn),
            ms=cs.median_ms(fn, 11, 3), tc_launches=wrapper.tc_launches - before)
+rng = np.random.default_rng(6)
+mapper = (16, 30, 768, 8, False)
+for shape in dict.fromkeys(cs.K1_SHAPES + cs.K3_SHAPES + (mapper,)):
+    b, t, d, h, causal = shape
+    x, ln, attn = cs._block_inputs(rng, b, t, d, torch.float32, "cuda")
+    g = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).cuda()
+    args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], attn["b_out"])
+
+    def k1():
+        return cs.fused_attention_block(x, ln, attn, n_heads=h, causal=causal)
+
+    def k3():
+        return cs.fused_attention_block_bwd(x, g, *args[:5], n_heads=h, causal=causal)
+
+    def fused_block(*a):
+        return cs.fused_attention_block(a[0], {"scale": a[1], "bias": a[2]},
+                                        {"w_qkv": a[3], "b_qkv": a[4], "w_out": a[5],
+                                         "b_out": a[6]}, n_heads=h, causal=causal)
+
+    def composed(*a):
+        return cs.composed_block(*a, n_heads=h, causal=causal)
+
+    if shape in cs.K1_SHAPES + (mapper,):
+        cs.say("ab_k1_f32", shape=[b, t, d], heads=h, causal=causal, device_ms=cs.graph_ms(k1),
+               ms=cs.median_ms(k1), composed_device_ms=cs.graph_ms(lambda: composed(x, *args)),
+               launch_device_ms=cs.kernel_device_ms(k1))
+    if shape in cs.K3_SHAPES + (mapper,):
+        cs.say("ab_k3_f32", shape=[b, t, d], heads=h, causal=causal, device_ms=cs.graph_ms(k3),
+               ms=cs.median_ms(k3, 11, 3), launch_device_ms=cs.kernel_device_ms(k3),
+               block_backward_device_ms=cs.backward_device_ms(fused_block, (x, *args), g),
+               composed_backward_device_ms=cs.backward_device_ms(composed, (x, *args), g))
+import time
+from construction_clip_tpu_torch.apps import predict_zeroshot
+from construction_clip_tpu_torch.data.schema import Annotation
+from construction_clip_tpu_torch.infer.zeroshot import label_features
+with tempfile.TemporaryDirectory() as tmp:
+    clip_tok, _ = cs.tokenizers(tmp)
+cfg = cs.CLIPConfig.vit_b_32()
+params = cs.convert.to_params(cs.convert.init_clip(0, cfg), device="cuda").tree()
+labels = list(cs.VIOLATION_TYPES)
+feats = label_features(params, cfg, clip_tok.tokenize(labels, cfg.text.context_length),
+                       policy=cs.DEFAULT_POLICY)
+process = predict_zeroshot.make_process(params, cfg, feats, labels, "violation_type", "cuda",
+                                        policy=cs.DEFAULT_POLICY)
+staged = np.stack(cs.synthetic_images(np.random.default_rng(18), [(256, 256)] * 8))
+anns = [Annotation(id=i, file_name=f"site_{i}.jpg", violation_type=labels[i % 9]) for i in range(8)]
+process(anns, staged)
+walls = []
+for _ in range(5):
+    before = cs.fused_attention_block.launches
+    t0 = time.perf_counter()
+    records, _ = process(anns, staged)   # ends in the probabilities' copy to the host
+    walls.append((time.perf_counter() - t0) * 1e3)
+    k1_launches = cs.fused_attention_block.launches - before
+per = cs.kernel_device_ms(lambda: process(anns, staged), reps=5)
+cs.say("ab_zeroshot_f32", batch=8, wall_ms=sorted(walls)[2], device_ms=sum(per.values()),
+       k1_launches=k1_launches, top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
+       predictions=[r["prediction"] for r in records[:3]])
+del params
+rng = np.random.default_rng(9)
+for b, t, d, h, causal in ((16, 30, 768, 8, False), (36, 77, 512, 8, True), (2, 7, 18, 2, False)):
+    x, ln, attn = cs._block_inputs(rng, b, t, d, torch.float32, "cuda")
+    g = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).cuda()
+    cs.say("ab_bits", kernel="K1", dtype="torch.float32", shape=[b, t, d], digest=digest(
+        cs.fused_attention_block(x, ln, attn, n_heads=h, causal=causal)))
+    cs.say("ab_bits", kernel="K3", dtype="torch.float32", shape=[b, t, d], digest=digest(
+        *cs.fused_attention_block_bwd(x, g, ln["scale"], ln["bias"], attn["w_qkv"],
+                                      attn["b_qkv"], attn["w_out"], n_heads=h, causal=causal)))
 """),
     "k10": (("k10",), r"""
 cs.phase_build()
@@ -304,12 +384,13 @@ def sass(a: str, b: str) -> None:
 
 def main() -> None:
     phase = sys.argv[1]
-    a, b = (os.path.abspath(p) for p in sys.argv[2:4])
+    roots = [os.path.abspath(p) for p in sys.argv[2:4]]
     if phase == "sass":
-        sass(a, b)
+        sass(*roots)
         return
     keep, body = RUNS[phase]
-    for root in (a, b, b, a):
+    a, b = roots if len(roots) == 2 else (roots[0], None)
+    for root in (a, b, b, a) if b else (a,):
         run = subprocess.run([sys.executable, "-c", PRELUDE + body, root], cwd=root,
                              capture_output=True, text=True, timeout=900)
         if run.returncode:

@@ -8,10 +8,12 @@ Phases, each printing one line (the last line is the JSON verdict):
   2. build: nvcc builds the port's CUDA kernels from csrc/ (timed).
   3. K1, the fused attention block, against its plain version at the serving
      and training paths' shapes, bf16 (tensor-core route: its counter must
-     move) and fp32 (SIMT route), with times; for bf16 also the device time
-     (the replay of a CUDA graph of 20 calls), each of its launches' device
-     time under torch.profiler, and the device time of the composed block's
-     forward (layer_norm, addmm, SDPA, addmm, add: cuBLAS and SDPA).
+     move) and fp32 (SIMT route: its weight products on gemm_f32, none on
+     block_gemm), with times, the device time (the replay of a CUDA graph of
+     20 calls), each of its launches' device time under torch.profiler (the
+     GEMMs' names carry the tile each product chose), the bound, and the
+     device time of the composed block's forward (layer_norm, addmm, SDPA,
+     addmm, add: cuBLAS and SDPA).
   4. K2, decode-step attention with beam ancestry, against its plain version
      at 8 images x beam 3 (R=24), 1 image x beam 3 (R=3) and predict's 16
      images x beam 3 (R=48) and 16 greedy (R=16), cache lengths 0 to t_max - 1, bf16 and fp32, bit-equal on a second call; at cache_len
@@ -25,11 +27,11 @@ Phases, each printing one line (the last line is the JSON verdict):
      zero-shot classes and greedy tokens.
   7. K3, the fused block's backward, against its plain version at the training
      path's shapes, bf16 (tensor-core route: its counter must move) and fp32
-     (SIMT route), with times; for bf16 the device time, each of its launches'
-     device time under torch.profiler with the GEMMs' TFLOP/s, and the fused
-     block's whole backward against the composed block's (layer_norm,
-     Linear, SDPA, Linear: cuBLAS and SDPA) autograd backward, with both
-     backwards' kernels at the first shape.
+     (SIMT route, its GEMMs on gemm_f32), with times, the device time, each
+     of its launches' device time under torch.profiler with the GEMMs'
+     TFLOP/s, the bound, and the fused block's whole backward against the
+     composed block's (layer_norm, Linear, SDPA, Linear: cuBLAS and SDPA)
+     autograd backward, with both backwards' kernels at the first shape.
   8. K4 and K5, flash attention forward and backward, against their plain
      versions at the ViT-L/14 image tower's shape, a causal text shape, T=1024
      causal and T=65, bf16 on the tensor-core route and fp32 on the SIMT
@@ -96,7 +98,10 @@ Phases, each printing one line (the last line is the JSON verdict):
      infer/zeroshot.classify_batch (K1 and K9 in every block of both towers,
      every launch on the tensor-core route),
      and the port's apps/predict_zeroshot.make_process on 256-staged arrays;
-     held against the plain path (switch on, plain impl) in bf16 and fp32.
+     held against the plain path (switch on, plain impl) in bf16 and fp32;
+     then one batch of the app as it runs by default (fp32, the fused MLP
+     off, B=8): host ms, device ms, its kernels, 12 K1 launches on the SIMT
+     route.
  21. infer/precompute.precompute_corpus at full width over 70 synthetic
      images (one unreadable) through a load_image hook, fused MLP on: the
      archive's keys and shapes.
@@ -177,10 +182,11 @@ Phases, each printing one line (the last line is the JSON verdict):
      mapper in predict, clip_length 10 + prefix 20 rows) against their plain
      versions at phases 3 and 7's tolerances: bf16 on the tensor-core route
      (both counters move, a second call gives the same bits) and fp32 on the
-     SIMT route; times, device times (CUDA-graph replays), bounds, the
-     composed library block's forward and backward device times beside them,
-     and in bf16 the SIMT C entries' device times at the same shape, which
-     the tensor-core route's must be below.
+     SIMT route (weight products on gemm_f32); times, device times
+     (CUDA-graph replays), each launch's device time, bounds, the composed
+     library block's forward and backward device times beside them, and in
+     bf16 the SIMT C entries' device times at the same shape, which the
+     tensor-core route's must be below.
  34. phase 27 with the transformer mapper (8 blocks, clip_length 10, 8 heads
      of 96, ReLU; GPT-2 base, prefix 20, attribute 20, B=16, 10 steps in each
      mode on phase 27's archive): K1 and K3 launch 8 times a step, on the
@@ -684,16 +690,19 @@ def phase_k1(results: dict) -> None:
                 raise AssertionError(f"{what}: the tensor-core route's counter "
                                      f"{'moved' if on_tc else 'did not move'}")
             stats = compare(got, plain(), *K1_TOL[dtype], what=what)
+            per = kernel_device_ms(kernel)
+            if not on_tc:
+                check_f32_gemms(what, per)
+            m = b * t
+            # device times, the host's launch costs left out
             stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
-                         route="tc" if on_tc else "simt")
-            if dtype == torch.bfloat16:   # device times, the host's launch costs left out
-                stats.update(device_ms=graph_ms(kernel), composed_device_ms=graph_ms(composed),
-                             launch_device_ms=kernel_device_ms(kernel))
+                         route="tc" if on_tc else "simt", device_ms=graph_ms(kernel),
+                         composed_device_ms=graph_ms(composed), launch_device_ms=per,
+                         **bound(nbytes(x, *args, x), {dtype: 2 * m * d * 4 * d + attention_ops(
+                             b, h, t, d // h, 2)}))
             say("k1", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype), **stats)
             if (b, t, d) == (8, 50, 768) and dtype == torch.bfloat16:
-                m = b * t
-                stats.update(bound(nbytes(x, *args, x), {dtype: 2 * m * d * 4 * d + attention_ops(
-                    b, h, t, d // h, 2)}), library_ms=None)   # no single PyTorch call
+                stats.update(library_ms=None)   # no single PyTorch call
                 results["fused_attention_block"] = stats
 
 
@@ -1120,24 +1129,37 @@ def backward_kernels(forward, inputs, g) -> dict:
     return kernel_device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
 
 
-# K3's tensor-core GEMMs by epilogue (gemm.cuh's Epilogue: kQkv 0, kRound 2,
-# kFloat 3): what each computes, and its multiply-adds in rows x D x D
-K3_GEMMS = {"gemm_tc<0": ("qkv = T(h W_qkv + b)", 3), "gemm_tc<2": ("dmg = T(g W_out^T)", 1),
-            "gemm_tc<3": ("dh = dqkv W_qkv^T", 3)}
+# K3's GEMMs by epilogue (gemm.cuh's Epilogue: kQkv 0, kRound 2, kFloat 3):
+# what each computes, and its multiply-adds in rows x D x D
+K3_GEMMS = {0: ("qkv = T(h W_qkv + b)", 3), 2: ("dmg = T(g W_out^T)", 1),
+            3: ("dh = dqkv W_qkv^T", 3)}
 
 
-def k3_launches(per: dict, rows: int, d: int) -> dict:
-    """K3's launches with their device ms, and each GEMM's TFLOP/s; every
-    tensor-core GEMM must be there."""
-    out = {}
+def k3_launches(per: dict, rows: int, d: int, gemm: str = "gemm_tc") -> dict:
+    """K3's launches with their device ms, and each GEMM's TFLOP/s; each of
+    the three GEMMs must be there as `gemm` (gemm_tc: the tensor-core route;
+    gemm_f32: the fp32 route), its template arguments naming its tile."""
+    out, seen = {}, set()
     for name, ms in per.items():
         out[name] = {"ms": ms}
-        gemm = next((v for k, v in K3_GEMMS.items() if name.startswith(k)), None)
-        if gemm:
-            out[name].update(what=gemm[0], tflop_per_s=2 * rows * d * d * gemm[1] / ms / 1e9)
-    if {k for k in K3_GEMMS for n in out if n.startswith(k)} != set(K3_GEMMS):
-        raise AssertionError(f"K3's profile lacks a tensor-core GEMM: {sorted(out)}")
+        epi = next((e for e in K3_GEMMS if name.startswith(f"{gemm}<{e},")), None)
+        if epi is not None:
+            what, dd = K3_GEMMS[epi]
+            out[name].update(what=what, tflop_per_s=2 * rows * d * d * dd / ms / 1e9)
+            seen.add(epi)
+    if seen != set(K3_GEMMS):
+        raise AssertionError(f"K3's profile lacks a {gemm} GEMM: {sorted(out)}")
     return out
+
+
+def check_f32_gemms(what: str, per: dict) -> None:
+    """The fp32 route of K1 and K3 ran its weight products on gemm_f32
+    (gemm_f32.cuh) and none on block_gemm (gemm.cuh), which stays for K9's
+    fp32 route and the bf16 SIMT route."""
+    if not any(n.startswith("gemm_f32<") for n in per) or \
+            any(n.startswith("block_gemm") for n in per):
+        raise AssertionError(f"{what}: fp32 launches {sorted(per)}, want gemm_f32 and no "
+                             f"block_gemm")
 
 
 def phase_k3(results: dict) -> None:
@@ -1177,26 +1199,28 @@ def phase_k3(results: dict) -> None:
             per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"{what} {n}")
                    for n, a, w in zip(names, got, plain())}
             stats = _merge(per)
-            stats.update(ms=median_ms(kernel, 11, 3), plain_ms=median_ms(plain, 11, 3),
-                         route="tc" if on_tc else "simt")
-            if dtype == torch.bfloat16:   # device times, the host's launch costs left out
-                stats.update(
-                    device_ms=graph_ms(kernel),
-                    launch_device_ms=k3_launches(kernel_device_ms(kernel), b * t, d),
-                    block_backward_ms=backward_ms(fused_block, block_args, g),
-                    block_backward_device_ms=backward_device_ms(fused_block, block_args, g),
-                    yardstick_backward_ms=backward_ms(composed, block_args, g),
-                    yardstick_backward_device_ms=backward_device_ms(composed, block_args, g))
-            if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
+            launched = kernel_device_ms(kernel)
+            if not on_tc:
+                check_f32_gemms(what, launched)
+            m = b * t   # recomputed qkv, dmg, dh GEMMs; six attention products
+            # device times, the host's launch costs left out
+            stats.update(
+                ms=median_ms(kernel, 11, 3), plain_ms=median_ms(plain, 11, 3),
+                route="tc" if on_tc else "simt", device_ms=graph_ms(kernel),
+                launch_device_ms=k3_launches(launched, m, d, "gemm_tc" if on_tc else "gemm_f32"),
+                block_backward_ms=backward_ms(fused_block, block_args, g),
+                block_backward_device_ms=backward_device_ms(fused_block, block_args, g),
+                yardstick_backward_ms=backward_ms(composed, block_args, g),
+                yardstick_backward_device_ms=backward_device_ms(composed, block_args, g),
+                **bound(nbytes(x, g, *args, *got),
+                        {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}))
+            if (b, t, d) == K3_SHAPES[0][:3]:
                 stats.update(block_backward_kernels=backward_kernels(fused_block, block_args, g),
                              yardstick_backward_kernels=backward_kernels(composed, block_args, g))
             say("k3", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype),
                 scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **stats)
             if (b, t, d) == K3_SHAPES[0][:3] and dtype == torch.bfloat16:
-                m = b * t   # recomputed qkv, dmg, dh GEMMs; six attention products
-                stats.update(bound(nbytes(x, g, *args, *got),
-                                   {dtype: 2 * m * d * 7 * d + attention_ops(b, h, t, d // h, 6)}),
-                             library_ms=None)
+                stats.update(library_ms=None)
                 results["fused_attention_block_bwd"] = stats
 
 
@@ -2128,6 +2152,47 @@ def phase_zeroshot_fused(clip_np, cfg, clip_tok, device, *, batch: int = 8) -> d
         predictions=pred.tolist(), app_launches=app_counts,
         app_predictions=[r["prediction"] for r in records[:3]], parity=parity)
     return counts
+
+
+def phase_zeroshot_fp32(clip_np, cfg, clip_tok, device, *, batch: int = 8) -> None:
+    """Phase 20's app batch as apps/predict_zeroshot runs it by default: fp32
+    (DEFAULT_POLICY), the fused MLP off, `batch` images staged at 256: the
+    median host ms of 5 batches (each ends in the probabilities' copy to the
+    host), a batch's device ms and its largest kernels (torch.profiler), and
+    its K1 launches, one a layer of the image tower, all on the SIMT route
+    with the weight products on gemm_f32."""
+    from construction_clip_tpu_torch.apps import predict_zeroshot
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.infer.zeroshot import label_features
+
+    labels = list(VIOLATION_TYPES)
+    params = convert.to_params(clip_np, device=device).tree()
+    feats = label_features(params, cfg, clip_tok.tokenize(labels, cfg.text.context_length),
+                           policy=DEFAULT_POLICY)
+    process = predict_zeroshot.make_process(params, cfg, feats, labels, "violation_type",
+                                            device, policy=DEFAULT_POLICY)
+    staged = np.stack(synthetic_images(np.random.default_rng(18), [(256, 256)] * batch))
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", violation_type=labels[i % 9])
+            for i in range(batch)]
+    process(anns, staged)
+    walls = []
+    for _ in range(5):
+        reset_launches()
+        t0 = time.perf_counter()
+        records, probs = process(anns, staged)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts, tc = launches(), tc_launches()
+    per = kernel_device_ms(lambda: process(anns, staged), reps=5)
+    check_f32_gemms("predict_zeroshot fp32", per)
+    if counts["fused_attention_block"] != cfg.vision.layers or tc["fused_attention_block"] or \
+            tuple(probs.shape) != (batch, len(labels)) or not torch.isfinite(probs).all() or \
+            not all(r["prediction"] in labels for r in records):
+        raise AssertionError(f"predict_zeroshot fp32: launches {counts}, tensor-core {tc}, "
+                             f"probabilities {tuple(probs.shape)}, {records[:1]}")
+    say("zeroshot_fp32", batch=batch, wall_ms=statistics.median(walls), device_ms=sum(per.values()),
+        k1_launches=counts["fused_attention_block"],
+        top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
+        predictions=[r["prediction"] for r in records[:3]])
 
 
 def phase_precompute(clip_np, cfg, clip_tok, device, *, n_images: int = 70) -> None:
@@ -3090,7 +3155,7 @@ def simt_block_entries(x, g, args, h):
     qkv = torch.empty((b * t, 3 * d), dtype=dtype, device=dev)
     merged = torch.empty((b * t, d), dtype=dtype, device=dev)
     out = torch.empty_like(x)
-    work_t = torch.empty(4 * b * t * d, dtype=dtype, device=dev)
+    work_t = torch.empty(5 * b * t * d, dtype=dtype, device=dev)   # fp32 leaves h in the 5th
     work_f = torch.empty(lib.cct_attention_block_bwd_work_floats(b, t, d, h),
                          dtype=torch.float32, device=dev)
     grads = (torch.empty_like(x), torch.empty((b, t, 3 * d), dtype=dtype, device=dev),
@@ -3117,10 +3182,11 @@ def simt_block_entries(x, g, args, h):
 
 def phase_dh96(results: dict) -> None:
     """Phase 33: K1 and K3 at DH96_SHAPE against their plain versions, bf16
-    on the tensor-core route (both counters move, a second call gives the same
-    bits) and fp32 on the SIMT route; times, device times (CUDA-graph
-    replays), the bound and the composed library block's device time (its
-    forward beside K1, its autograd backward beside K3); in bf16 also the SIMT
+    on the tensor-core route (both counters move) and fp32 on the SIMT route
+    (its weight products on gemm_f32), a second call giving the same bits in
+    both; times, device times (CUDA-graph replays), each launch's device time,
+    the bound and the composed library block's device time (its forward
+    beside K1, its autograd backward beside K3); in bf16 also the SIMT
     C entries at the same shape, checked against the plain versions, whose
     device times the tensor-core route's must be below."""
     from construction_clip_tpu_torch.ops.attention_block import route, supported
@@ -3161,14 +3227,19 @@ def phase_dh96(results: dict) -> None:
         tc_pair = (tc["fused_attention_block"], tc["fused_attention_block_bwd"])
         if pair != (1, 1) or tc_pair != ((1, 1) if on_tc else (0, 0)):
             raise AssertionError(f"dh 96 {what}: launches {counts}, tensor-core {tc}")
-        if on_tc and not (torch.equal(fwd(), got_f) and
-                          all(torch.equal(a, c) for a, c in zip(bwd(), got_b))):
+        if not (torch.equal(fwd(), got_f) and
+                all(torch.equal(a, c) for a, c in zip(bwd(), got_b))):
             raise AssertionError(f"dh 96 {what}: a second call gave other bits")
         m = b * t
         want_f = fused_attention_block_plain(x, *args, n_heads=h)
         want_b = fused_attention_block_bwd_plain(x, g, *args[:5], n_heads=h)
+        per_f, per_b = kernel_device_ms(fwd), kernel_device_ms(bwd)
+        if not on_tc:
+            check_f32_gemms(f"K1 {what}", per_f)
+            check_f32_gemms(f"K3 {what}", per_b)
         k1 = compare(got_f, want_f, *K1_TOL[dtype], what=f"K1 {what}")
         k1.update(route=want_route, ms=median_ms(fwd), device_ms=graph_ms(fwd),
+                  launch_device_ms=per_f,
                   plain_ms=median_ms(lambda: fused_attention_block_plain(x, *args, n_heads=h)),
                   composed_device_ms=graph_ms(lambda: composed(x, *args)),
                   **bound(nbytes(x, *args, x),
@@ -3177,6 +3248,7 @@ def phase_dh96(results: dict) -> None:
                for n, a, w in zip(names, got_b, want_b)}
         k3 = _merge(per)
         k3.update(route=want_route, ms=median_ms(bwd, 11, 3), device_ms=graph_ms(bwd),
+                  launch_device_ms=k3_launches(per_b, m, d, "gemm_tc" if on_tc else "gemm_f32"),
                   plain_ms=median_ms(lambda: fused_attention_block_bwd_plain(
                       x, g, *args[:5], n_heads=h), 11, 3),
                   block_backward_device_ms=backward_device_ms(fused_block, (x, *args), g),
@@ -5078,6 +5150,7 @@ def main() -> None:
     phase_k9(results)
     zs_counts = phase_zeroshot_fused(clip_np, cfgs[0], clip_tok, "cuda")
     counts.update({n: zs_counts[n] for n in ("normalize_u8", "fused_mlp_residual")})
+    phase_zeroshot_fp32(clip_np, cfgs[0], clip_tok, "cuda")
     phase_precompute(clip_np, cfgs[0], clip_tok, "cuda")
     batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
     with fused_mlp():

@@ -22,13 +22,19 @@
 // SIMT (fp32, and bf16 at head widths other than 64 and 96;
 // cct_attention_block_fwd),
 // the products in fp32 FMA on the CUDA cores (fp32 on the tensor cores would
-// be TF32, a different result), bound by the FMA rate:
-//   (a) block_gemm<kQkv> (gemm.cuh): a 64x64-tiled GEMM whose prologue computes
-//       each row's LN statistics and normalises the A tile as it is staged;
-//   (b) head_attention (head_attention.cuh): one block per (batch, head) with
+// be TF32, a different result), bound by the FMA rate. fp32:
+//   (a) ln_rows<float> (ln_rows.cuh): h = LN(x) once a row, into the merged
+//       scratch until (b) has read it;
+//   (b) gemm_f32<kQkv> (gemm_f32.cuh): qkv = h W_qkv + b_qkv, a
+//       register-blocked GEMM fed by a TMA ring;
+//   (c) head_attention (head_attention.cuh): one block per (batch, head) with
 //       that head's K and V (T <= 256) staged in dynamic shared memory; one
 //       warp per query row;
-//   (c) block_gemm<kResidual>: merged . W_out with a bias + residual epilogue.
+//   (d) gemm_f32<kResidual>: merged . W_out with a bias + residual epilogue.
+// bf16 at other head widths: block_gemm<kQkv> (gemm.cuh), a 64x64-tiled GEMM
+// whose prologue computes each row's LN statistics and normalises the A tile
+// as it is staged, (c), and block_gemm<kResidual>. The fp32 outputs are
+// bit-equal to what block_gemm gave on that route (gemm_f32.cuh).
 //
 // Tensor cores (bf16 at dh = 64 or 96, T <= 256; cct_attention_block_fwd_tc),
 // every product on wgmma with TMA-fed tiles, K3's tensor-core design:
@@ -44,9 +50,12 @@
 //   (4) gemm_tc<kResidual>: out = T((x + merged W_out) + b_out).
 // The rounding points are the SIMT chain's; bf16(p) is the operand wgmma takes
 // anyway. No library GEMM or attention is called.
+#include <type_traits>
+
 #include "attention_tc.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_tc.cuh"
 #include "head_attention.cuh"
 #include "ln_rows.cuh"
@@ -64,10 +73,22 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
   const size_t smem = attn_smem_bytes(t, d / h);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
 
-  cudaError_t err = launch_gemm<T, kQkv, false, T>(
-      static_cast<const T*>(x), static_cast<const T*>(w_qkv), static_cast<const T*>(b_qkv),
-      static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), nullptr,
-      static_cast<T*>(qkv), m, 3 * d, d, eps, stream);
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  cudaError_t err;
+  if constexpr (kF32) {
+    err = launch_ln_rows(static_cast<const T*>(x), static_cast<const T*>(ln_s),
+                         static_cast<const T*>(ln_b), static_cast<T*>(merged), m, d, eps, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm_f32<kQkv, false>(static_cast<const T*>(merged),
+                                       static_cast<const T*>(w_qkv),
+                                       static_cast<const T*>(b_qkv), nullptr,
+                                       static_cast<T*>(qkv), m, 3 * d, d, stream);
+  } else {
+    err = launch_gemm<T, kQkv, false, T>(
+        static_cast<const T*>(x), static_cast<const T*>(w_qkv), static_cast<const T*>(b_qkv),
+        static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), nullptr,
+        static_cast<T*>(qkv), m, 3 * d, d, eps, stream);
+  }
   if (err != cudaSuccess) return err;
 
   err = cudaFuncSetAttribute(head_attention<T, T>,
@@ -78,10 +99,16 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  return launch_gemm<T, kResidual, false, T>(
-      static_cast<const T*>(merged), static_cast<const T*>(w_out),
-      static_cast<const T*>(b_out), nullptr, nullptr, static_cast<const T*>(x),
-      static_cast<T*>(out), m, d, d, eps, stream);
+  if constexpr (kF32)
+    return launch_gemm_f32<kResidual, false>(
+        static_cast<const T*>(merged), static_cast<const T*>(w_out),
+        static_cast<const T*>(b_out), static_cast<const T*>(x), static_cast<T*>(out), m, d, d,
+        stream);
+  else
+    return launch_gemm<T, kResidual, false, T>(
+        static_cast<const T*>(merged), static_cast<const T*>(w_out),
+        static_cast<const T*>(b_out), nullptr, nullptr, static_cast<const T*>(x),
+        static_cast<T*>(out), m, d, d, eps, stream);
 }
 
 #define CCT_TRY(expr)                      \

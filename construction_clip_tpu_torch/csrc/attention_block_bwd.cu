@@ -30,6 +30,12 @@
 //   (7) ln_backward_rows           dx, and each row's mean and rstd
 //   (8) ln_param_partials          per 64-row chunk column sums of dh xhat, dh
 //   (9) ln_param_reduce            dln = the chunks' sums, added in fixed order
+// That is the bf16 chain at head widths other than 64 and 96. On the fp32
+// route a row pass (ln_rows<float>, ln_rows.cuh) first writes h = LN(x) into a
+// fifth D-wide slot of the T-typed scratch, once a row, where the caller
+// finds it for the weight gradient of W_qkv; (1), (2) and (6) are then
+// gemm_f32.cuh's register-blocked GEMM (qkv from h), bit-equal to block_gemm
+// (10 launches in all).
 // The attention passes stream 64-row tiles of K,V (or Q,dO) through shared
 // memory, so one head never needs K, V, dK and dV resident at once (256 KB in
 // fp32 at T=256, dh=64, over the 227 KB a block may have), and the [T,T]
@@ -53,10 +59,13 @@
 // [36, 50, 768], ~2 us at the HBM rate). The rounding points are the SIMT chain's; p_lo and
 // ds are the bf16 operands wgmma takes anyway. The LN backward (7)-(9) is
 // shared with the SIMT chain.
+#include <type_traits>
+
 #include "attention_tc.cuh"
 #include "attention_tiles.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_tc.cuh"
 #include "ln_rows.cuh"
 
@@ -191,12 +200,23 @@ cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, con
   float* row_rstd = row_mean + rows;
   float* partial = row_rstd + rows;
 
-  CCT_TRY((launch_gemm<T, kQkv, false, T>(x, static_cast<const T*>(w_qkv_),
-                                          static_cast<const T*>(b_qkv_), ln_s,
-                                          static_cast<const T*>(ln_b_), nullptr, qkv, rows,
-                                          3 * d, d, eps, stream)));
-  CCT_TRY((launch_gemm<T, kRound, true, T>(g, static_cast<const T*>(w_out_), nullptr, nullptr,
-                                           nullptr, nullptr, dmg, rows, d, d, eps, stream)));
+  const T* w_qkv = static_cast<const T*>(w_qkv_);
+  const T* w_out = static_cast<const T*>(w_out_);
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  if constexpr (kF32) {
+    T* hn = dmg + (size_t)rows * d;           // [rows, D]: h = LN(x), left for the caller
+    CCT_TRY(launch_ln_rows(x, ln_s, static_cast<const T*>(ln_b_), hn, rows, d, eps, stream));
+    CCT_TRY((launch_gemm_f32<kQkv, false>(hn, w_qkv, static_cast<const T*>(b_qkv_), nullptr,
+                                          qkv, rows, 3 * d, d, stream)));
+    CCT_TRY((launch_gemm_f32<kRound, true>(g, w_out, nullptr, nullptr, dmg, rows, d, d,
+                                           stream)));
+  } else {
+    CCT_TRY((launch_gemm<T, kQkv, false, T>(x, w_qkv, static_cast<const T*>(b_qkv_), ln_s,
+                                            static_cast<const T*>(ln_b_), nullptr, qkv, rows,
+                                            3 * d, d, eps, stream)));
+    CCT_TRY((launch_gemm<T, kRound, true, T>(g, w_out, nullptr, nullptr, nullptr, nullptr, dmg,
+                                             rows, d, d, eps, stream)));
+  }
 
   AttnArgs a{};
   a.q = qkv;
@@ -224,9 +244,12 @@ cudaError_t run_block_bwd(const void* x_, const void* g_, const void* ln_s_, con
   a.o2v = a.in;
   CCT_TRY(launch_tiles(attn_cols<T, true>, a, b, stream));
 
-  CCT_TRY((launch_gemm<T, kFloat, true, float>(dqkv, static_cast<const T*>(w_qkv_), nullptr,
-                                               nullptr, nullptr, nullptr, dh, rows, d, 3 * d,
-                                               eps, stream)));
+  if constexpr (kF32)
+    CCT_TRY((launch_gemm_f32<kFloat, true>(dqkv, w_qkv, nullptr, nullptr, dh, rows, d, 3 * d,
+                                           stream)));
+  else
+    CCT_TRY((launch_gemm<T, kFloat, true, float>(dqkv, w_qkv, nullptr, nullptr, nullptr,
+                                                 nullptr, dh, rows, d, 3 * d, eps, stream)));
   return ln_backward<T>(x, g, dh, ln_s, static_cast<T*>(dx), row_mean, row_rstd, partial, dln_s,
                         dln_b, rows, d, eps, stream);
 }
@@ -290,7 +313,8 @@ cudaError_t run_block_bwd_tc(const bf16* x, const bf16* g, const bf16* ln_s, con
 }  // namespace cct
 
 // Elements of the fp32 workspace cct_attention_block_bwd needs; its T-typed
-// workspace holds qkv and dmg, B*T*4D elements.
+// workspace holds qkv and dmg, B*T*4D elements, and in fp32 h = LN(x) after
+// them, B*T*5D, which it leaves in the last B*T*D.
 extern "C" long long cct_attention_block_bwd_work_floats(int b, int t, int d, int h) {
   return (long long)cct::work_floats(b, t, d, h);
 }

@@ -376,13 +376,13 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The map of an array [depth, rows, cols] of bf16 (or, with
-// CU_TENSOR_MAP_DATA_TYPE_UINT8, of bytes: int8) (cols contiguous, a row
-// `cols` elements long) in boxes of `box_bytes` bytes of columns x box_rows
-// rows x 1: 128 bytes (64 bf16, 128 int8) with the 128-byte swizzle, or 64
-// bytes (32 bf16) with the 64-byte swizzle; a box reaching past `rows` or
-// `cols` reads zeros. depth 0 gives a 2-D map of [rows, cols] (coordinates
-// column, row), depth >= 1 a 3-D map (column, row, depth index). TMA wants the
-// base and the row pitch in multiples of 16 bytes.
+// CU_TENSOR_MAP_DATA_TYPE_UINT8, of bytes: int8; with _FLOAT32, of fp32)
+// (cols contiguous, a row `cols` elements long) in boxes of `box_bytes` bytes
+// of columns x box_rows rows x 1: 128 bytes (64 bf16, 128 int8, 32 fp32) with
+// the 128-byte swizzle, or 64 bytes (32 bf16) with the 64-byte swizzle; a box
+// reaching past `rows` or `cols` reads zeros. depth 0 gives a 2-D map of
+// [rows, cols] (coordinates column, row), depth >= 1 a 3-D map (column, row,
+// depth index). TMA wants the base and the row pitch in multiples of 16 bytes.
 inline cudaError_t tile_map(CUtensorMap* map, const void* base, int depth, int rows, int cols,
                             int box_rows,
                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -390,7 +390,9 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int depth, int r
   if (box_bytes != 128 && box_bytes != 64) return cudaErrorInvalidValue;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t elem = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : sizeof(__nv_bfloat16);
+  const cuuint32_t elem = type == CU_TENSOR_MAP_DATA_TYPE_UINT8     ? 1
+                          : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? sizeof(float)
+                                                                    : sizeof(__nv_bfloat16);
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * elem;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(depth > 0 ? depth : 1)};

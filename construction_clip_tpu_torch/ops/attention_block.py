@@ -6,11 +6,13 @@ backward (counterpart of construction_clip_tpu/ops/pallas_attention_block.py).
 (csrc/attention_block.cu) and whose backward is K3 (csrc/attention_block_bwd.cu)
 on CUDA tensors, and the plain versions on CPU tensors. On the card `route`
 picks the chain of both kernels: the tensor-core chain (wgmma, TMA) for bf16 at
-dh = 64 or 96, the SIMT chain for fp32 and other widths; a launch that fails raises
-and never retries on the other route. K3 recomputes LN, qkv and the probabilities from x,
-as the Pallas backward does, so the Function saves only its inputs; its
-tensor-core route also hands back h = T(LN(x)), the operand of W_qkv's
-gradient, which the Function recomputes otherwise. Where autograd records no
+dh = 64 or 96, the SIMT chain for fp32 and other widths (in fp32 its weight
+products run on csrc/gemm_f32.cuh's GEMM, in bf16 on csrc/gemm.cuh's); a launch
+that fails raises and never retries on the other route. K3 recomputes LN, qkv
+and the probabilities from x, as the Pallas backward does, so the Function
+saves only its inputs; its tensor-core route and its fp32 route also hand back
+h = T(LN(x)), the operand of W_qkv's gradient, which the Function recomputes
+otherwise (the bf16 SIMT route). Where autograd records no
 graph (serving under `torch.inference_mode()`, or no input requiring grad),
 nothing is kept after the forward. The plain versions keep the Pallas kernels' rounding
 points (see the CUDA sources), so on the card kernel and plain version agree to
@@ -160,8 +162,8 @@ def fused_attention_block_fwd(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_he
 def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads: int,
                               causal: bool = False, eps: float = 1e-5, with_h: bool = False):
     """-> dx, dqkv, merged, dln_scale, dln_bias: K3 on CUDA tensors, the plain
-    version on CPU tensors. With `with_h`, also h = T(LN(x)) where K3's
-    tensor-core route left it in its workspace, else None."""
+    version on CPU tensors. With `with_h`, also h = T(LN(x)) where K3 left it
+    in its workspace (the tensor-core route, and fp32), else None."""
     args = (ln_s, ln_b, w_qkv, b_qkv, w_out)
     if _build.on_cpu(x, "fused_attention_block_bwd"):
         grads = fused_attention_block_bwd_plain(x, g, *args, n_heads=n_heads, causal=causal,
@@ -175,8 +177,10 @@ def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads:
     dev, dtype = x.device, x.dtype
     tc = route(dtype, d // n_heads) == "tc"
     entry = lib.cct_attention_block_bwd_tc if tc else lib.cct_attention_block_bwd
-    # qkv [B*T, 3D] and dmg [B*T, D]; the tensor-core route leaves h [B*T, D] after them
-    work_t = torch.empty((5 if tc else 4) * b * t * d, dtype=dtype, device=dev)
+    # qkv [B*T, 3D] and dmg [B*T, D]; the tensor-core route and fp32 leave h [B*T, D]
+    # after them
+    leaves_h = tc or dtype == torch.float32
+    work_t = torch.empty((5 if leaves_h else 4) * b * t * d, dtype=dtype, device=dev)
     work_f = torch.empty(lib.cct_attention_block_bwd_work_floats(b, t, d, n_heads),
                          dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -197,7 +201,7 @@ def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads:
     grads = (dx, dqkv, merged, dln_s, dln_b)
     if not with_h:
         return grads
-    return (*grads, work_t[4 * b * t * d:].view(b, t, d) if tc else None)
+    return (*grads, work_t[4 * b * t * d:].view(b, t, d) if leaves_h else None)
 
 
 def _weight_grad(a, b, dtype):

@@ -89,6 +89,26 @@ def test_wrapper_rejects_other_devices():
 
 
 
+# (B, T, D, heads, supported): every K1/K3 shape of chip_smoke.py's phases 3, 7
+# and 33, and the gate's edges (T = 256 and 257, dh = 128 and 129, the largest
+# dh whose K and V fit a block's shared memory at T = 256, fp32 at d = 18)
+GATE_CASES = [(8, 50, 768, 12, True), (16, 50, 768, 12, True), (9, 77, 512, 8, True),
+              (2, 77, 512, 8, True), (36, 50, 768, 12, True), (36, 77, 512, 8, True),
+              (9, 77, 768, 12, True), (16, 30, 768, 8, True), (1, 256, 512, 8, True),
+              (1, 257, 512, 8, False), (2, 5, 128, 1, True), (2, 5, 129, 1, False),
+              (1, 256, 110, 1, True), (1, 256, 111, 1, False), (2, 7, 18, 2, True),
+              (2, 5, 16, 1, True), (3, 77, 36, 1, True)]
+
+
+@pytest.mark.parametrize("b, t, d, heads, want", GATE_CASES)
+def test_fp32_gate_and_route_are_unchanged(b, t, d, heads, want):
+    """fp32 keeps the gate and the route it had before its weight products
+    moved to csrc/gemm_f32.cuh: every shape that the SIMT chain took is still
+    taken, on the SIMT route, and nothing else."""
+    assert fab.supported(torch.zeros(b, t, d), heads) == want
+    assert fab.route(torch.float32, d // heads) == "simt"
+
+
 def test_the_gpt2_mapper_width_takes_the_simt_route_at_dh_96():
     """GPT-2's transformer mapper (width 768, 8 heads: dh 96, T = 10 + 20 rows)
     passes the gate, with the SIMT attention launch's shared memory for dh 96

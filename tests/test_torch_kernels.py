@@ -230,6 +230,46 @@ def test_attention_block_backward_kernel_on_card(shape, dtype, gen, cuda_device)
         assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
 
 
+# K1's and K3's fp32 route (weight products on csrc/gemm_f32.cuh): rows that no
+# tile divides (B*T = 10, 231, 1800, 480, 4, 512), widths that none divides
+# (d = 16, 36), dh 16 to 128, causal and not, T = 1 and T = 256, and rows of 72
+# bytes (fp32 at d = 18: no multiple of 16, the GEMM's 4-byte copies)
+F32_CASES = [(2, 5, 16, 1, True), (3, 77, 36, 1, False), (3, 77, 36, 2, True),
+             (36, 50, 768, 12, False), (36, 50, 512, 16, True), (2, 5, 768, 8, False),
+             (3, 77, 512, 4, True), (16, 30, 768, 8, False), (4, 1, 768, 6, False),
+             (2, 256, 512, 8, True), (2, 256, 768, 8, False), (2, 7, 18, 2, False),
+             (3, 5, 18, 2, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_CASES)
+def test_attention_block_fp32_route_on_card(shape, gen, cuda_device):
+    """fp32 K1 and K3 against their plain versions (CARD_TOL, GRAD_TOL), both
+    on the SIMT route; a second call of each gives the same bits (no split-K,
+    no atomics); K3 hands back h = LN(x), equal to the plain LN of x."""
+    b, t, d, h, causal = shape
+    f32 = torch.float32
+    x, g, args = _block_case(gen, cuda_device, f32, b, t, d)
+    args_f = (*args, _b_out(gen, cuda_device, f32, d))
+    k1, k3 = fab.fused_attention_block, fab.fused_attention_block_bwd
+    before = (k1.launches, k1.tc_launches, k3.launches, k3.tc_launches)
+    out = fab.fused_attention_block_fwd(x, *args_f, n_heads=h, causal=causal)
+    grads = k3(x, g, *args, n_heads=h, causal=causal, with_h=True)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.tc_launches, k3.launches, k3.tc_launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3])
+    want = fab.fused_attention_block_plain(x, *args_f, n_heads=h, causal=causal)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), **CARD_TOL[f32])
+    want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
+    for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), grads, want):
+        assert _within(a, w, GRAD_TOL[f32]), name
+    np.testing.assert_allclose(grads[5].cpu().numpy(),
+                               fab.layer_norm(x, args[0], args[1]).cpu().numpy(), **CARD_TOL[f32])
+    assert torch.equal(fab.fused_attention_block_fwd(x, *args_f, n_heads=h, causal=causal), out)
+    again = k3(x, g, *args, n_heads=h, causal=causal, with_h=True)
+    assert all(torch.equal(a, c) for a, c in zip(again, grads))
+
+
 # K3's tensor-core route (fab.route: bf16 at dh=64 or 96): the training towers'
 # shapes, GPT-2's transformer mapper (8 heads of 96), and the edges of its
 # 64-row tiles (T = 1, a lone key; 64, one whole tile; 65, one row in the last;
