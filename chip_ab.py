@@ -9,6 +9,7 @@ A, each run in a process of its own, so that both meet the same card and host.
     python3 chip_ab.py k10     path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py sass    path/to/checkout_a path/to/checkout_b
     python3 chip_ab.py kernels path/to/checkout     (one checkout, one run)
+    python3 chip_ab.py tiles   path/to/checkout
 
 serve: phase 5 (ViT-B/32 + GPT-2 12x768 beam 3 in bf16 through
 TorchPredictService, 10 requests from 4 threads). serve_int8: phase 16 (the
@@ -41,13 +42,25 @@ predict_zeroshot app in fp32 (ViT-B/32, B=8
 staged at 256, its default policy): host ms, device ms and K1 launches; and
 digests of fp32 K1 and K3 at GPT-2's transformer mapper, ViT-B/32's text
 tower in training ([36,77,512], causal) and fp32 at d = 18 (2 heads; rows of
-72 bytes, no multiple of 16).
+72 bytes, no multiple of 16). Last, the SIMT route of K4 and K5: digests of
+fp32 K4 and K5 at every shape of chip_smoke's FLASH_SHAPES and of bf16 K4/K5
+at [9,16,257,80] (a head width off the tensor cores), each with its SIMT
+launches; at each FLASH_SHAPES shape in fp32 the device and wrapper time of
+K4 and of K5 (with K5's launches' device times), SDPA's fp32 forward and
+backward device time with the kernels it ran (TF32 off), and the bound (the
+(query, key) pairs the mask keeps); and one batch of the predict_zeroshot app
+at ViT-L/14 in fp32 (B=8, T = 257 in the image tower: K4 on SIMT, 24 a batch):
+host ms, device ms, K4 launches and the largest kernels.
 k10: phase 23 (K10 with 4 ranks time-slicing the card: each case's wrapper
 time a call, the kernel alone, the plain version's time). sass: each
 checkout builds its kernels; then the SASS of every tensor-core attention
 pass at head width 64 (K1, K3, K4/K5, K7: attention_tc.cuh's kernels, which
 a template may name differently in the two trees) is compared instruction by
-instruction, addresses and encodings aside.
+instruction, addresses and encodings aside. tiles: K4's SIMT forward
+(fp32 at [9,16,257,64], [8,16,257,64] and [2,8,1024,64] causal) built from
+the checkout's csrc/ as it is and with parts taken out (TILE_VARIANTS: the
+output product, the s product, both, or expf replaced by __expf), each
+variant's device time by CUDA-graph replay: where its time goes.
 
 Each checkout builds its own kernels. Prints each run's JSON lines with the
 checkout they came from, then the card's name and power limit. Given one
@@ -95,7 +108,8 @@ batch = cs.class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
 cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
     "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits", "ab_k6",
-                 "ab_k45", "ab_dh96", "ab_k1_f32", "ab_k3_f32", "ab_zeroshot_f32"),
+                 "ab_k45", "ab_dh96", "ab_k1_f32", "ab_k3_f32", "ab_zeroshot_f32", "ab_k45_f32",
+                 "ab_zeroshot_l14_f32"),
                 r"""
 cs.phase_build()
 rng = np.random.default_rng(2)
@@ -316,6 +330,68 @@ for b, t, d, h, causal in ((16, 30, 768, 8, False), (36, 77, 512, 8, True), (2, 
     cs.say("ab_bits", kernel="K3", dtype="torch.float32", shape=[b, t, d], digest=digest(
         *cs.fused_attention_block_bwd(x, g, ln["scale"], ln["bias"], attn["w_qkv"],
                                       attn["b_qkv"], attn["w_out"], n_heads=h, causal=causal)))
+rng = np.random.default_rng(10)
+for shape, dtype in ([(s, torch.float32) for s in cs.FLASH_SHAPES] +
+                     [((9, 16, 257, 80, False), torch.bfloat16)]):
+    b, h, t, dh, causal = shape
+    q, k, v, go = (torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32))
+                   .cuda().to(dtype) for _ in range(4))
+    kw = dict(is_causal=causal, scale=dh ** -0.5)
+    before = cs.flash_attention_fwd.simt_launches + cs.flash_attention_bwd.simt_launches
+    cs.say("ab_bits", kernel="K4", dtype=str(dtype), shape=[b, h, t, dh], causal=causal,
+           digest=digest(cs.flash_attention_fwd(q, k, v, **kw)))
+    cs.say("ab_bits", kernel="K5", dtype=str(dtype), shape=[b, h, t, dh], causal=causal,
+           digest=digest(*cs.flash_attention_bwd(q, k, v, go, **kw)),
+           simt_launches=cs.flash_attention_fwd.simt_launches
+           + cs.flash_attention_bwd.simt_launches - before)
+torch.backends.cuda.matmul.allow_tf32 = False   # SDPA's fp32 yardstick in fp32
+torch.backends.cudnn.allow_tf32 = False
+for b, h, t, dh, causal in cs.FLASH_SHAPES:
+    q, k, v, go = (torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32))
+                   .cuda() for _ in range(4))
+    kw = dict(is_causal=causal, scale=dh ** -0.5)
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)   # the (query, key) pairs needed
+
+    def fwd():
+        return cs.flash_attention_fwd(q, k, v, **kw)
+
+    def bwd():
+        return cs.flash_attention_bwd(q, k, v, go, **kw)
+
+    def lib(*a):
+        return cs.sdpa(*a, **kw)
+
+    cs.say("ab_k45_f32", kernel="K4", shape=[b, h, t, dh], causal=causal,
+           device_ms=cs.graph_ms(fwd), ms=cs.median_ms(fwd),
+           sdpa_device_ms=cs.graph_ms(lambda: lib(q, k, v)),
+           sdpa_kernels=cs.kernel_device_ms(lambda: lib(q, k, v)),
+           **cs.bound(cs.nbytes(q, k, v, q), {torch.float32: 2 * pairs * dh * 2}))
+    cs.say("ab_k45_f32", kernel="K5", shape=[b, h, t, dh], causal=causal,
+           device_ms=cs.graph_ms(bwd), ms=cs.median_ms(bwd, 11, 3),
+           launch_device_ms=cs.kernel_device_ms(bwd),
+           sdpa_device_ms=cs.backward_device_ms(lib, (q, k, v), go),
+           sdpa_kernels=cs.backward_kernels(lib, (q, k, v), go),
+           **cs.bound(cs.nbytes(q, k, v, go, q, k, v), {torch.float32: 2 * pairs * dh * 5}))
+cfg = cs.CLIPConfig.vit_l_14()
+params = cs.convert.to_params(cs.convert.init_clip(2, cfg), device="cuda").tree()
+feats = label_features(params, cfg, clip_tok.tokenize(labels, cfg.text.context_length),
+                       policy=cs.DEFAULT_POLICY)
+process = predict_zeroshot.make_process(params, cfg, feats, labels, "violation_type", "cuda",
+                                        policy=cs.DEFAULT_POLICY)
+process(anns, staged)
+walls = []
+for _ in range(5):
+    before = (cs.flash_attention_fwd.launches, cs.flash_attention_fwd.simt_launches)
+    t0 = time.perf_counter()
+    records, _ = process(anns, staged)
+    walls.append((time.perf_counter() - t0) * 1e3)
+    k4 = (cs.flash_attention_fwd.launches - before[0],
+          cs.flash_attention_fwd.simt_launches - before[1])
+per = cs.kernel_device_ms(lambda: process(anns, staged), reps=5)
+cs.say("ab_zeroshot_l14_f32", batch=8, wall_ms=sorted(walls)[2], device_ms=sum(per.values()),
+       k4_launches=k4[0], k4_simt_launches=k4[1],
+       top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
+       predictions=[r["prediction"] for r in records[:3]])
 """),
     "k10": (("k10",), r"""
 cs.phase_build()
@@ -382,11 +458,95 @@ def sass(a: str, b: str) -> None:
                               + abs(len(ia) - len(ib))}), flush=True)
 
 
+# K4's SIMT forward with parts taken out (csrc/attention_tiles.cuh, the kFwd
+# branch of attn_rows_tile): lines replaced in a copy of csrc/, so that the
+# variants' times split a call's device time between the two products, the
+# exponentials and the rest (staging, softmax, barriers, stores). The outputs
+# of variants 1, 2 and 4 are wrong by design; only their times are read.
+TILE_VARIANTS = {
+    "full": (),
+    "no_output_product": (("      out_tile(acc, pan, v_s, j0);", ""),),
+    "no_s_product": (("      if (panel_live) panel_product_n(s, q_s, k_s, ks, dh, tx, ty, "
+                      "n_keys - j0);", ""),),
+    "fast_exp": (("expf(__fsub_rn(s[i][j], m_new))", "__expf(s[i][j] - m_new)"),
+                 ("const float corr = expf(__fsub_rn(m[i], m_new));",
+                  "const float corr = __expf(m[i] - m_new);")),
+    "no_products": (("      out_tile(acc, pan, v_s, j0);", ""),
+                    ("      if (panel_live) panel_product_n(s, q_s, k_s, ks, dh, tx, ty, "
+                     "n_keys - j0);", "")),
+}
+TILES_RUN = r"""
+import ctypes, json, os, shutil, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke as cs
+from construction_clip_tpu_torch.ops import _build
+variants = json.loads(sys.argv[2])
+cs.phase_device()
+src = os.path.join(sys.argv[1], "construction_clip_tpu_torch", "csrc")
+header = open(os.path.join(src, "attention_tiles.cuh")).read()
+procs = {}
+for name, subs in variants.items():
+    out = os.path.join(sys.argv[1], "build", "tile_variants", name)
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(src, out)
+    text = header
+    for old, new in subs:
+        if old not in text:
+            sys.exit(f"{name}: the line to replace is not in attention_tiles.cuh: {old!r}")
+        text = text.replace(old, new)
+    open(os.path.join(out, "attention_tiles.cuh"), "w").write(text)
+    procs[name] = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                                    os.path.join(out, "lib.so"),
+                                    os.path.join(out, "flash_attention.cu")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+for name, proc in procs.items():
+    log = proc.communicate()[0]
+    if proc.returncode:
+        sys.exit(f"{name}: nvcc failed\n{log[-4000:]}")
+for b, h, t, dh, causal in ((9, 16, 257, 64, False), (8, 16, 257, 64, False),
+                            (2, 8, 1024, 64, True)):
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32)).cuda()
+               for _ in range(3))
+    o = torch.empty_like(q)
+    times = {}
+    for name in variants:
+        fn = ctypes.CDLL(os.path.join(sys.argv[1], "build", "tile_variants", name,
+                                      "lib.so")).cct_flash_attention_fwd
+        fn.argtypes, fn.restype = _build.SIGNATURES["cct_flash_attention_fwd"]
+
+        def run():
+            _build.check(fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, t,
+                            dh, int(causal), dh ** -0.5, torch.cuda.current_stream().cuda_stream),
+                         "flash_attention")
+
+        times[name] = cs.graph_ms(run)
+    cs.say("ab_tiles", shape=[b, h, t, dh], causal=causal, device_ms=times)
+"""
+
+
+def tiles(root: str) -> None:
+    run = subprocess.run([sys.executable, "-c", TILES_RUN, root, json.dumps(TILE_VARIANTS)],
+                         cwd=root, capture_output=True, text=True, timeout=900)
+    if run.returncode:
+        sys.exit(f"{root}: exit {run.returncode}\n{run.stdout[-4000:]}\n{run.stderr[-12000:]}")
+    for line in run.stdout.splitlines():
+        if line.startswith("{") and json.loads(line).get("phase") == "ab_tiles":
+            print(json.dumps({"checkout": root, **json.loads(line)}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+
+
 def main() -> None:
     phase = sys.argv[1]
     roots = [os.path.abspath(p) for p in sys.argv[2:4]]
     if phase == "sass":
         sass(*roots)
+        return
+    if phase == "tiles":
+        tiles(roots[0])
         return
     keep, body = RUNS[phase]
     a, b = roots if len(roots) == 2 else (roots[0], None)

@@ -41,9 +41,12 @@ Phases, each printing one line (the last line is the JSON verdict):
      without HGMMA, K7's int8 GEMM without IGMMA, or a missing head-width-96
      instantiation of K1's and K3's attention passes, or one that spills to
      local memory, fails the run), the dh-96 instantiations on a line; the
-     wrapper times and, for bf16, the device times (CUDA-graph
+     wrapper times and, on both routes, the device times (CUDA-graph
      replays) of K4, K5 and scaled_dot_product_attention's forward and
-     backward, and of each of K5's three launches (torch.profiler).
+     backward (fp32 with TF32 off; the kernels SDPA ran named), each of K5's
+     three launches' device time (torch.profiler) and the bound over the
+     (query, key) pairs the mask keeps; the kernels line carries the fp32
+     SIMT numbers at [9,16,257,64] beside the tensor-core ones.
   9. ViT-B/32 contrastive training at full width and depth, bf16, B=36 (4
      class-balanced groups of 9): 10 make_train_step steps on one batch; the
      loss must fall; launch counts of K1 and K3, every K1 and K3 launch on
@@ -320,7 +323,14 @@ Phases, each printing one line (the last line is the JSON verdict):
      in one process (EP_TOL, DP_GRAD_TOL); at capacity_factor 1.0 the dropped
      rows exactly zero and the groups' outputs those of the dense reference
      run on each group alone.
-Each of phases 42-45 and 47 prints its wall seconds; phases 48-50 run in one
+ 51. zero-shot at ViT-L/14 in fp32 (`--only zeroshot_l14`): the
+     predict_zeroshot app's batch (apps/predict_zeroshot.make_process,
+     DEFAULT_POLICY, B=8 images staged at 256) on phase 10's numpy tree; the
+     image tower's T = 257 sends its 24 layers to K4 on the SIMT route (exactly
+     24 launches a batch, none on the tensor cores); the probabilities
+     against the same batch under use_impl("plain") (FUSED_FEATURE_TOL's
+     fp32 bound, the same top-1); host ms, device ms, the largest kernels.
+Each of phases 42-45, 47 and 51 prints its wall seconds; phases 48-50 run in one
 spawn of ranks and print theirs together. `--only NAME[,NAME]` (the names of
 SUBSETS) runs the device line and those phases alone, without the verdict,
 for a quicker look; the gate is the run without arguments.
@@ -626,10 +636,12 @@ def bound(moved_bytes: int, ops: dict) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def attention_ops(b, h, t, dh, products: int) -> int:
+def attention_ops(b, h, t, dh, products: int, causal: bool = False) -> int:
     """Multiply-adds (2 operations each) of `products` [t, t, dh] products per
-    (batch, head)."""
-    return 2 * b * h * t * t * dh * products
+    (batch, head), over the t (t + 1) / 2 (query, key) pairs a causal mask
+    keeps."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return 2 * b * h * pairs * dh * products
 
 
 def phase_device() -> dict:
@@ -1285,6 +1297,23 @@ def k5_pass_device_ms(bwd) -> dict:
     return per
 
 
+# K5's three SIMT launches by their kernels' names (csrc/attention_tiles.cuh:
+# attn_rows_tile<T, MODE, ROUND, W>, attn_cols_tile<T, ROUND, W>)
+SIMT_PASSES = {"stats": r"attn_rows_tile<\w+, 1,", "dq": r"attn_rows_tile<\w+, 2,",
+               "cols": r"attn_cols_tile<"}
+
+
+def k5_simt_pass_device_ms(bwd) -> dict:
+    """Device ms a call of each of K5's three SIMT launches."""
+    launched = kernel_device_ms(bwd)
+    per = {name: sum(ms for k, ms in launched.items() if re.match(pattern, k))
+           for name, pattern in SIMT_PASSES.items()}
+    if min(per.values()) <= 0:
+        raise AssertionError(f"torch.profiler saw no device time for a SIMT pass of K5: "
+                             f"{launched}")
+    return per
+
+
 def phase_tensor_cores() -> None:
     """Every kernel of a tensor-core route runs wgmma (HGMMA in its SASS;
     IGMMA for K7's int8 GEMMs); K1's and K3's attention passes are built at
@@ -1313,6 +1342,9 @@ def phase_tensor_cores() -> None:
 def phase_flash(results: dict) -> None:
     rng = np.random.default_rng(8)
     phase_tensor_cores()
+    # SDPA's fp32 yardstick in fp32 (restored at the end)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, t, dh, causal in FLASH_SHAPES:
             q, k, v, g = (torch.from_numpy(rng.standard_normal((b, h, t, dh))
@@ -1348,26 +1380,39 @@ def phase_flash(results: dict) -> None:
                    for n, a, w in zip(("dq", "dk", "dv"), got, bwd_plain())}
             b_stats = _merge(per)
             b_stats.update(ms=median_ms(bwd, 11, 3), plain_ms=median_ms(bwd_plain, 11, 3))
-            if dtype == torch.bfloat16:   # device times, the host's launch costs left out
-                f_stats.update(device_ms=graph_ms(fwd),
-                               library_ms=median_ms(lambda: sdpa(q, k, v, **kw), 11, 5),
-                               library_device_ms=graph_ms(lambda: sdpa(q, k, v, **kw)))
-                b_stats.update(device_ms=graph_ms(bwd), pass_device_ms=k5_pass_device_ms(bwd),
-                               library_ms=backward_ms(lambda *a: sdpa(*a, **kw), (q, k, v), g),
-                               library_device_ms=backward_device_ms(lambda *a: sdpa(*a, **kw),
-                                                                    (q, k, v), g))
+            # device times, the host's launch costs left out; SDPA's backend
+            # named by its kernels
+            f_stats.update(device_ms=graph_ms(fwd),
+                           library_ms=median_ms(lambda: sdpa(q, k, v, **kw), 11, 5),
+                           library_device_ms=graph_ms(lambda: sdpa(q, k, v, **kw)),
+                           library_kernels=sorted(kernel_device_ms(lambda: sdpa(q, k, v, **kw))))
+            b_stats.update(device_ms=graph_ms(bwd),
+                           pass_device_ms=(k5_pass_device_ms(bwd) if dtype == torch.bfloat16
+                                           else k5_simt_pass_device_ms(bwd)),
+                           library_ms=backward_ms(lambda *a: sdpa(*a, **kw), (q, k, v), g),
+                           library_device_ms=backward_device_ms(lambda *a: sdpa(*a, **kw),
+                                                                (q, k, v), g),
+                           library_kernels=sorted(backward_kernels(
+                               lambda *a: sdpa(*a, **kw), (q, k, v), g)))
+            # the function's products: s and p.v forward; s, then dp, dv, dq and
+            # dk backward (the Pallas kernel's cost estimate, 10 T^2 dh a head),
+            # over the (query, key) pairs the mask keeps
+            f_stats.update(bound(nbytes(q, k, v, q), {dtype: attention_ops(b, h, t, dh, 2,
+                                                                           causal)}))
+            b_stats.update(bound(nbytes(q, k, v, g, *got), {dtype: attention_ops(b, h, t, dh, 5,
+                                                                                 causal)}))
             say("k4", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), route=route,
                 **f_stats)
             say("k5", shape=[b, h, t, dh], causal=causal, dtype=str(dtype), route=route,
                 scaled_err={n: v["max_scaled_err"] for n, v in per.items()}, **b_stats)
-            if (b, h, t, dh) == FLASH_SHAPES[0][:4] and dtype == torch.bfloat16:
-                f_stats.update(bound(nbytes(q, k, v, q), {dtype: attention_ops(b, h, t, dh, 2)}))
-                # the function's products: s, then dp, dv, dq and dk (the
-                # Pallas kernel's cost estimate, 10 T^2 dh a head)
-                b_stats.update(bound(nbytes(q, k, v, g, *got),
-                                     {dtype: attention_ops(b, h, t, dh, 5)}))
-                results["flash_attention_fwd"] = f_stats
-                results["flash_attention_bwd"] = b_stats
+            if (b, h, t, dh) == FLASH_SHAPES[0][:4]:
+                if dtype == torch.bfloat16:
+                    results["flash_attention_fwd"] = f_stats
+                    results["flash_attention_bwd"] = b_stats
+                else:   # the SIMT route, beside the tensor-core route's numbers
+                    results["flash_attention_fwd"]["simt_fp32"] = f_stats
+                    results["flash_attention_bwd"]["simt_fp32"] = b_stats
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def class_balanced_batch(cfg, clip_tok, groups: int, seed: int, device) -> dict:
@@ -2193,6 +2238,65 @@ def phase_zeroshot_fp32(clip_np, cfg, clip_tok, device, *, batch: int = 8) -> No
         k1_launches=counts["fused_attention_block"],
         top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
         predictions=[r["prediction"] for r in records[:3]])
+
+
+def phase_zeroshot_l14(ctx: dict, *, batch: int = 8) -> None:
+    """Phase 51: the predict_zeroshot app's batch at ViT-L/14 as the app runs it
+    by default (fp32, DEFAULT_POLICY, `batch` images staged at 256) on phase
+    10's numpy tree. The image tower's T = 257 is past K1's bound, so each of
+    its 24 layers runs K4 on the SIMT route: exactly 24 K4 launches a batch,
+    none on the tensor cores; the probabilities equal the same batch under
+    ops.attention.use_impl("plain") within phase 20's fp32 tolerance, with
+    the same top-1. Prints host ms (median of 5 batches, each ending in the
+    probabilities' copy to the host), a batch's device ms and its largest
+    kernels (torch.profiler)."""
+    from construction_clip_tpu_torch.apps import predict_zeroshot
+    from construction_clip_tpu_torch.data.schema import Annotation
+    from construction_clip_tpu_torch.infer.zeroshot import label_features
+
+    cfg = CLIPConfig.vit_l_14()
+    if "clip_l_np" not in ctx:
+        ctx["clip_l_np"] = convert.init_clip(2, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_tok, _ = tokenizers(tmp)
+    labels = list(VIOLATION_TYPES)
+    params = convert.to_params(ctx["clip_l_np"], device="cuda").tree()
+    feats = label_features(params, cfg, clip_tok.tokenize(labels, cfg.text.context_length),
+                           policy=DEFAULT_POLICY)
+    process = predict_zeroshot.make_process(params, cfg, feats, labels, "violation_type", "cuda",
+                                            policy=DEFAULT_POLICY)
+    staged = np.stack(synthetic_images(np.random.default_rng(51), [(256, 256)] * batch))
+    anns = [Annotation(id=i, file_name=f"site_{i}.jpg", violation_type=labels[i % 9])
+            for i in range(batch)]
+    process(anns, staged)
+    walls = []
+    for _ in range(5):
+        reset_launches()
+        t0 = time.perf_counter()
+        records, probs = process(anns, staged)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        k4 = {"launches": flash_attention_fwd.launches, "simt": flash_attention_fwd.simt_launches,
+              "tc": flash_attention_fwd.tc_launches}
+        if k4 != {"launches": cfg.vision.layers, "simt": cfg.vision.layers, "tc": 0}:
+            raise AssertionError(f"predict_zeroshot ViT-L/14 fp32: K4 launches {k4}, want "
+                                 f"{cfg.vision.layers}, all on the SIMT route")
+    per = kernel_device_ms(lambda: process(anns, staged), reps=5)
+    with use_impl("plain"):
+        _, plain = process(anns, staged)
+    err = compare_scaled(probs, plain, FUSED_FEATURE_TOL[torch.float32],
+                         "predict_zeroshot ViT-L/14 fp32 probabilities")
+    top1, plain_top1 = probs.argmax(dim=-1), plain.argmax(dim=-1)
+    gaps = plain.topk(2, dim=-1).values
+    if not torch.equal(top1, plain_top1) or tuple(probs.shape) != (batch, len(labels)):
+        raise AssertionError(f"predict_zeroshot ViT-L/14 fp32: top-1 {top1.tolist()} against "
+                             f"the plain path's {plain_top1.tolist()}")
+    say("zeroshot_l14_fp32", batch=batch, wall_ms=statistics.median(walls),
+        device_ms=sum(per.values()), k4_launches=k4,
+        top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
+        probs_scaled_err=err["max_scaled_err"], tol=FUSED_FEATURE_TOL[torch.float32],
+        min_plain_top2_gap=float((gaps[:, 0] - gaps[:, 1]).min()),
+        predictions=[r["prediction"] for r in records[:3]])
+    del params, process
 
 
 def phase_precompute(clip_np, cfg, clip_tok, device, *, n_images: int = 70) -> None:
@@ -5035,9 +5139,10 @@ def tensor_parallel_inputs(ctx: dict) -> tuple:
     return clip_tok, ctx["vit_l_14_b18"], ctx.get("dp_peaks")
 
 
-# phases 42-45 and 47-50 in order, each (its number, a function of the state they share):
+# phases 42-45 and 47-51 in order, each (its number, a function of the state they share):
 # phase 45 reads phase 44's params and trains them itself when it runs without phase 44;
-# phase 48 reads phase 26's runs, and makes the one-process run itself without them.
+# phase 48 reads phase 26's runs, and makes the one-process run itself without them;
+# phase 51 reads phase 10's numpy ViT-L/14 tree, and draws it itself without it.
 # Phases 48-50 (PARALLEL) return their jobs, which run_phases runs in one spawn of ranks.
 # `python3 chip_smoke.py --only NAME[,NAME]` runs named ones, for a quicker look: the
 # device line, then these phases alone, and no verdict; without --only every phase runs
@@ -5050,7 +5155,8 @@ SUBSETS = {"detection_train": ("42", lambda ctx: phase_detection_train()),
            "tensor_parallel": ("48", lambda ctx: tensor_parallel_job(
                *tensor_parallel_inputs(ctx))),
            "pipeline_parallel": ("49", lambda ctx: pipeline_parallel_job()),
-           "expert_parallel": ("50", lambda ctx: expert_parallel_job())}
+           "expert_parallel": ("50", lambda ctx: expert_parallel_job()),
+           "zeroshot_l14": ("51", phase_zeroshot_l14)}
 PARALLEL = ("tensor_parallel", "pipeline_parallel", "expert_parallel")
 
 
@@ -5118,7 +5224,8 @@ def main() -> None:
 
     cfg_l = CLIPConfig.vit_l_14()
     batch = class_balanced_batch(cfg_l, clip_tok, 1, 10, "cuda")
-    out = phase_train("vit_l_14", cfg_l, convert.init_clip(2, cfg_l), batch, 3, "cuda")
+    clip_l_np = convert.init_clip(2, cfg_l)   # phases 10, 26 and 51
+    out = phase_train("vit_l_14", cfg_l, clip_l_np, batch, 3, "cuda")
     train_kernels = ("fused_attention_block", "fused_attention_block_bwd",
                      "flash_attention_fwd", "flash_attention_bwd")
     if min(out["launches"][n] for n in train_kernels) <= 0:
@@ -5184,8 +5291,7 @@ def main() -> None:
     del clip_np, cap_np
     # the same 2 steps in one process: ViT-L/14's loss may rise at this lr, so the
     # ranks are held to this run and not to a falling loss
-    one_process = phase_train("vit_l_14_b18", cfg_l, convert.init_clip(2, cfg_l), batch, 2,
-                              "cuda")
+    one_process = phase_train("vit_l_14_b18", cfg_l, clip_l_np, batch, 2, "cuda")
     torch.cuda.empty_cache()
     dp26 = phase_dp_train("dp_train_vit_l_14", cfg_l, 2, batch, 2, 2,
                           need=("flash_attention_fwd", "flash_attention_bwd",
@@ -5193,7 +5299,8 @@ def main() -> None:
                           one_process_losses=one_process["losses"], must_fall=False)
     # phase 48 holds its tensor-parallel ranks to this run and beside these ranks
     parallel_ctx = {"vit_l_14_b18": one_process,
-                    "dp_peaks": dp26["peak_memory_gib_by_rank"]}
+                    "dp_peaks": dp26["peak_memory_gib_by_rank"], "clip_l_np": clip_l_np}
+    del clip_l_np
     del batch
     torch.cuda.empty_cache()
 
@@ -5236,7 +5343,8 @@ def main() -> None:
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},
-                "device_ms": results[name]["device_ms"]}
+                "device_ms": results[name]["device_ms"],
+                **{key: results[name][key] for key in ("simt_fp32",) if key in results[name]}}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

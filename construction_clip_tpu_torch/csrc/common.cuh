@@ -9,6 +9,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace cct {
 
 // kInt8 is a storage type only (K8's quantized table), never a compute type.
@@ -40,6 +42,13 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// Element e (0..3) of a float4 (e a compile-time constant after unrolling).
+__device__ __forceinline__ float f32_lane(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Largest dynamic shared memory one block may ask for on Hopper.
 constexpr size_t kMaxSmemBytes = 232448;

@@ -75,10 +75,6 @@ __device__ __forceinline__ int f32_swizzled(int r, int k) {
   return r * kF32BK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);
 }
 
-__device__ __forceinline__ float f32_lane(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
 // The producer without TMA: K slice kt of A (64 rows from m0) and B into a
 // stage, laid out as TMA lays it (A and W^T: 64 swizzled rows; W: two boxes
 // of 32 k-rows x 32 swizzled columns), zeros past M, N and K; one float a
@@ -241,8 +237,6 @@ gemm_f32(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtenso
     }
   }
 }
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int EPI, bool TRANS_B, bool TMA, int BM>
 cudaError_t launch_gemm_f32_tile(const float* a, const float* w, const float* bias,

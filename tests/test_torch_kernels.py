@@ -491,6 +491,85 @@ def test_flash_attention_kernels_on_card(shape, dtype, gen, cuda_device):
     assert all(torch.equal(a, c) for a, c in zip(again, grads))
 
 
+# The SIMT route (csrc/attention_tiles.cuh: 64-row blocks, register
+# micro-tiles, a cp.async ring): fp32 at head widths 32, 64, 80 (a 96-class
+# output tile with empty chunks) and 128 (one ring stage where two do not fit),
+# bf16 at 32, 80 and 128 (widened in shared memory by plain loads); T about one
+# 64-row tile (1, 63, 64, 65), ViT-L/14's 257 (one row in the last block),
+# causal and not, and the gate's 1024 causal
+SIMT_CASES = ([((2, 3, t, dh, causal), dtype)
+               for dtype, widths in ((torch.float32, (32, 64, 80, 128)),
+                                     (torch.bfloat16, (32, 80, 128)))
+               for dh in widths for t in (1, 63, 64, 65, 257) for causal in (False, True)] +
+              [((1, 2, 1024, dh, True), dtype)
+               for dtype, widths in ((torch.float32, (32, 64, 80, 128)),
+                                     (torch.bfloat16, (32, 80, 128))) for dh in widths])
+# K4/K5 against their plain versions (chip_smoke.py's FLASH_TOL): fp32 by
+# summation order; bf16 by p rounded against a running max in K4 and the final
+# max in the plain version, a bf16 step at most
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", SIMT_CASES)
+def test_flash_attention_simt_route_on_card(shape, dtype, gen, cuda_device):
+    """K4 and K5 on the SIMT route against their plain versions (FLASH_TOL,
+    GRAD_TOL), only the SIMT counters moving; a second call of each gives the
+    same bits."""
+    b, h, t, dh, causal = shape
+    assert fa.route(dtype, dh) == "simt"
+    q, k, v, g = (torch.from_numpy(gen.standard_normal((b, h, t, dh)).astype(np.float32))
+                  .to(cuda_device, dtype) for _ in range(4))
+    scale = dh ** -0.5
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    before = [(w.launches, w.simt_launches, w.tc_launches) for w in wrappers]
+    out = fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale)
+    grads = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.simt_launches, w.tc_launches) for w in wrappers] == \
+        [(n + 1, s + 1, c) for n, s, c in before]
+    want = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal, scale=scale)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **FLASH_TOL[dtype])
+    # one key (T = 1): p is 1 and ds = p (dp - D) scale is exactly 0 in the
+    # plain version, where the kernel's D sums the same dh products as dp in
+    # another order: dq and dk are that rounding, held to GRAD_TOL of the
+    # products' scale |dO| |v| |q or k| scale
+    terms = float(g.float().abs().max() * v.float().abs().max()
+                  * torch.maximum(q.float().abs().max(), k.float().abs().max())) * scale
+    for name, a, w in zip(("dq", "dk", "dv"), grads,
+                          fa.flash_attention_bwd_plain(q, k, v, g, is_causal=causal,
+                                                       scale=scale)):
+        if t == 1 and name != "dv":
+            assert float(a.float().abs().max()) <= GRAD_TOL[dtype] * terms, name
+        else:
+            assert _within(a, w, GRAD_TOL[dtype]), name
+    assert torch.equal(fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale), out)
+    again = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
+    assert all(torch.equal(a, c) for a, c in zip(again, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_fp32_passes_straddle_a_tile_on_card(causal, gen, cuda_device):
+    """fp32 K3 through its [B, T, 3D] view (4 heads of 64 at column offsets)
+    at T = 100: a 64-row block and one of 36 rows, on both sides of the SIMT
+    passes; against the plain version (GRAD_TOL), a second call bit-equal."""
+    b, t, d, h = 3, 100, 256, 4
+    x, g, args = _block_case(gen, cuda_device, torch.float32, b, t, d)
+    k3 = fab.fused_attention_block_bwd
+    before = (k3.launches, k3.tc_launches)
+    got = k3(x, g, *args, n_heads=h, causal=causal)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.tc_launches) == (before[0] + 1, before[1])
+    want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
+    for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), got, want):
+        assert _within(a, w, GRAD_TOL[torch.float32]), name
+    again = k3(x, g, *args, n_heads=h, causal=causal)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
 @pytest.mark.cuda
 def test_flash_attention_tensor_core_entry_refuses_what_it_does_not_take(gen, cuda_device):
     """The tensor-core C entry refuses fp32 and other head widths with an

@@ -252,3 +252,53 @@ def test_app_end_to_end_on_cpu(app, corpus, params, merges, tmp_path):
         np.testing.assert_allclose(got["embeddings"], want["embeddings"], **TOL)
         assert list(got["attributes"]) == list(want["attributes"])
         assert list(got["captions"]) == list(want["captions"])
+
+
+def test_predict_zeroshot_process_at_t257_takes_flash_attention(merges, monkeypatch):
+    """The predict_zeroshot app's batch function (apps/predict_zeroshot.make_process,
+    fp32, the app's default policy) at a narrow CLIP whose image tower has
+    ViT-L/14's T = 257 (64-pixel images in patches of 4: 256 + 1 tokens), on
+    the JAX package's params: the path of chip_smoke.py phase 51, where the
+    tower is past K1's T <= 256 and every layer goes to flash attention (K4 on
+    the card). Against the JAX package's classify_batch on the same staged
+    images (its plain attention path, as the JAX tests run on the CPU):
+    probabilities within TOL (fp32, sums in another order), the same
+    predictions; the port's tower called flash_attention once a layer and
+    never K1."""
+    from construction_clip_tpu.core.configs import VisionConfig as JVisionConfig
+    from construction_clip_tpu_torch.apps import predict_zeroshot
+    from construction_clip_tpu_torch.core.configs import VisionConfig
+    from construction_clip_tpu_torch.ops import attention_block as fab
+    from construction_clip_tpu_torch.ops import flash_attention as fa
+
+    vision = dict(image_size=64, patch_size=4, width=64, layers=2, heads=2, embed_dim=32)
+    cfg = CLIPConfig(vision=VisionConfig(**vision), text=CFG.text)
+    jcfg = JCLIPConfig(vision=JVisionConfig(**vision), text=JCFG.text)
+    assert cfg.vision.grid ** 2 + 1 == 257
+    jparams = jclip.init_clip(jax.random.key(7), jcfg)
+    tparams = convert.to_params(jparams).tree()
+    toks = _label_tokens(merges)
+    feats = zeroshot.label_features(tparams, cfg, toks)
+    calls = {"flash": 0, "k1": 0}
+    flash, k1 = fa.flash_attention, fab.fused_attention_block
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(fa, "flash_attention", count("flash", flash))
+    monkeypatch.setattr(fab, "fused_attention_block", count("k1", k1))
+    process = predict_zeroshot.make_process(tparams, cfg, feats, list(VIOLATION_TYPES),
+                                            "violation_type", "cpu")
+    staged = (np.random.default_rng(51).random((3, 80, 80, 3)) * 255).astype(np.uint8)
+    anns = [Annotation(id=i, file_name=f"im{i}.jpg", violation_type=VIOLATION_TYPES[i])
+            for i in range(3)]
+    records, probs = process(anns, staged)
+    assert calls == {"flash": cfg.vision.layers, "k1": 0}
+    jfeats = jzeroshot.label_features(jparams, jcfg, jnp.asarray(toks))
+    want_p, want_c = jzeroshot.classify_batch(
+        jparams, jcfg, j_preprocess_batch(staged, jcfg.vision.image_size), jfeats)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(want_p), **TOL)
+    assert [r["prediction"] for r in records] == [VIOLATION_TYPES[int(c)] for c in want_c]
