@@ -50,13 +50,22 @@ K4 and of K5 (with K5's launches' device times), SDPA's fp32 forward and
 backward device time with the kernels it ran (TF32 off), and the bound (the
 (query, key) pairs the mask keeps); and one batch of the predict_zeroshot app
 at ViT-L/14 in fp32 (B=8, T = 257 in the image tower: K4 on SIMT, 24 a batch):
-host ms, device ms, K4 launches and the largest kernels.
+host ms, device ms, K4 launches and the largest kernels. Each fp32 K1 and
+K7 profile above also prints its attention pass's device ms
+(ab_attention_pass: the launch named "attention"); then K7's SIMT entry
+at [36,50,768] fp32 and [8,50,640] bf16 (8 heads of 80: p rounded) with its
+launches and pass (ab_k7_simt), digests of bf16 K1 and K7 at [8,50,640]
+(both on their SIMT attention) and of fp32 K1 and K7 at [36,50,768] (64-row
+attention blocks), and fp32 K9 at [8,50,768] and [36,50,768]
+(hidden 3072) and [9,77,512] (2048): device and wrapper ms, its launches,
+the composed fp32 MLP's device ms, the bound and its digest (ab_k9_f32).
 k10: phase 23 (K10 with 4 ranks time-slicing the card: each case's wrapper
 time a call, the kernel alone, the plain version's time). sass: each
 checkout builds its kernels; then the SASS of every tensor-core attention
 pass at head width 64 (K1, K3, K4/K5, K7: attention_tc.cuh's kernels, which
-a template may name differently in the two trees) is compared instruction by
-instruction, addresses and encodings aside. tiles: K4's SIMT forward
+a template may name differently in the two trees), and of the bf16 row pass
+and wgmma GEMMs of K1 and K9 at the tiles [8,50,768] takes, is compared
+instruction by instruction, addresses and encodings aside. tiles: K4's SIMT forward
 (fp32 at [9,16,257,64], [8,16,257,64] and [2,8,1024,64] causal) built from
 the checkout's csrc/ as it is and with parts taken out (TILE_VARIANTS: the
 output product, the s product, both, or expf replaced by __expf), each
@@ -109,9 +118,19 @@ cs.phase_train("vit_b_32", cfg, cs.convert.init_clip(0, cfg), batch, 10, "cuda")
 """),
     "kernels": (("ab_k2", "ab_k3", "ab_k1", "ab_k9", "ab_k7", "ab_int8_tower", "ab_bits", "ab_k6",
                  "ab_k45", "ab_dh96", "ab_k1_f32", "ab_k3_f32", "ab_zeroshot_f32", "ab_k45_f32",
-                 "ab_zeroshot_l14_f32"),
+                 "ab_zeroshot_l14_f32", "ab_attention_pass", "ab_k7_simt", "ab_k9_f32"),
                 r"""
 cs.phase_build()
+
+
+# the attention pass's device ms a call out of a profile of K1 or K7: the launch
+# whose name holds "attention" (one a call on either route)
+def attention_pass(kernel, shape, heads, causal, dtype, launched):
+    passes = {n: ms for n, ms in launched.items() if "attention" in n}
+    cs.say("ab_attention_pass", kernel=kernel, shape=shape, heads=heads, causal=causal,
+           dtype=str(dtype), device_ms=sum(passes.values()), launches=sorted(passes))
+
+
 rng = np.random.default_rng(2)
 for rows in (24, 3):
     shape = (12, rows, 12, 140, 64)
@@ -172,9 +191,11 @@ for dtype in (torch.bfloat16, torch.float32):
         with use_impl("plain"):
             return _attn_residual_q(x, ln, qattn, 12)
 
+    launched = cs.kernel_device_ms(k7)
     cs.say("ab_k7", shape=[8, 50, 768], dtype=str(dtype), device_ms=cs.graph_ms(k7),
            ms=cs.median_ms(k7), composed_device_ms=cs.graph_ms(composed),
-           launch_device_ms=cs.kernel_device_ms(k7))
+           launch_device_ms=launched)
+    attention_pass("K7", [8, 50, 768], 12, False, dtype, launched)
 from construction_clip_tpu_torch.models.clip.quant import encode_image_int8, quantize_clip
 cfg = cs.CLIPConfig.vit_b_32()
 qp = quantize_clip(cs.convert.to_params(cs.convert.init_clip(0, cfg), device="cuda"))
@@ -262,6 +283,9 @@ for name, wrapper, fn in (
     fn()
     cs.say("ab_dh96", kernel=name, shape=[16, 30, 768], heads=8, device_ms=cs.graph_ms(fn),
            ms=cs.median_ms(fn, 11, 3), tc_launches=wrapper.tc_launches - before)
+
+
+
 rng = np.random.default_rng(6)
 mapper = (16, 30, 768, 8, False)
 for shape in dict.fromkeys(cs.K1_SHAPES + cs.K3_SHAPES + (mapper,)):
@@ -285,9 +309,11 @@ for shape in dict.fromkeys(cs.K1_SHAPES + cs.K3_SHAPES + (mapper,)):
         return cs.composed_block(*a, n_heads=h, causal=causal)
 
     if shape in cs.K1_SHAPES + (mapper,):
+        launched = cs.kernel_device_ms(k1)
         cs.say("ab_k1_f32", shape=[b, t, d], heads=h, causal=causal, device_ms=cs.graph_ms(k1),
                ms=cs.median_ms(k1), composed_device_ms=cs.graph_ms(lambda: composed(x, *args)),
-               launch_device_ms=cs.kernel_device_ms(k1))
+               launch_device_ms=launched)
+        attention_pass("K1", [b, t, d], h, causal, torch.float32, launched)
     if shape in cs.K3_SHAPES + (mapper,):
         cs.say("ab_k3_f32", shape=[b, t, d], heads=h, causal=causal, device_ms=cs.graph_ms(k3),
                ms=cs.median_ms(k3, 11, 3), launch_device_ms=cs.kernel_device_ms(k3),
@@ -392,6 +418,54 @@ cs.say("ab_zeroshot_l14_f32", batch=8, wall_ms=sorted(walls)[2], device_ms=sum(p
        k4_launches=k4[0], k4_simt_launches=k4[1],
        top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
        predictions=[r["prediction"] for r in records[:3]])
+del params
+rng = np.random.default_rng(11)
+for dtype, shape in ((torch.float32, (36, 50, 768, 12)), (torch.bfloat16, (8, 50, 640, 8))):
+    b, t, d, h = shape
+    x, ln, qattn, _ = cs._int8_block_inputs(rng, b, t, d, dtype, "cuda")
+
+    def k7():
+        return cs.fused_attention_block_int8(x, ln, qattn, n_heads=h)
+
+    launched = cs.kernel_device_ms(k7)
+    cs.say("ab_k7_simt", shape=[b, t, d], heads=h, dtype=str(dtype), device_ms=cs.graph_ms(k7),
+           launch_device_ms=launched)
+    attention_pass("K7", [b, t, d], h, False, dtype, launched)
+x, ln, attn = cs._block_inputs(rng, 8, 50, 640, torch.bfloat16, "cuda")
+k1_before = cs.fused_attention_block.tc_launches
+out = cs.fused_attention_block(x, ln, attn, n_heads=8)
+cs.say("ab_bits", kernel="K1", dtype="torch.bfloat16", shape=[8, 50, 640], heads=8,
+       digest=digest(out), tc_launches=cs.fused_attention_block.tc_launches - k1_before)
+attention_pass("K1", [8, 50, 640], 8, False, torch.bfloat16, cs.kernel_device_ms(
+    lambda: cs.fused_attention_block(x, ln, attn, n_heads=8)))
+x, ln, qattn, _ = cs._int8_block_inputs(rng, 8, 50, 640, torch.bfloat16, "cuda")
+k7_before = cs.fused_attention_block_int8.tc_launches
+out = cs.fused_attention_block_int8(x, ln, qattn, n_heads=8)
+cs.say("ab_bits", kernel="K7", dtype="torch.bfloat16", shape=[8, 50, 640], heads=8,
+       digest=digest(out), tc_launches=cs.fused_attention_block_int8.tc_launches - k7_before)
+x, ln, attn = cs._block_inputs(rng, 36, 50, 768, torch.float32, "cuda")
+cs.say("ab_bits", kernel="K1", dtype="torch.float32", shape=[36, 50, 768], digest=digest(
+    cs.fused_attention_block(x, ln, attn, n_heads=12)))
+x, ln, qattn, _ = cs._int8_block_inputs(rng, 36, 50, 768, torch.float32, "cuda")
+cs.say("ab_bits", kernel="K7", dtype="torch.float32", shape=[36, 50, 768], digest=digest(
+    cs.fused_attention_block_int8(x, ln, qattn, n_heads=12)))
+for b, t, d, hidden in ((8, 50, 768, 3072), (36, 50, 768, 3072), (9, 77, 512, 2048)):
+    x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj = cs._mlp_inputs(rng, b, t, d, hidden,
+                                                               torch.float32)
+    mlp_p = {"w_fc": w_fc, "b_fc": b_fc, "w_proj": w_proj, "b_proj": b_proj}
+    ln_p = {"scale": ln_s, "bias": ln_b}
+
+    def k9():
+        return cs.fused_mlp_residual(x, mlp_p, ln_p)
+
+    def composed():
+        return cs.blocks._mlp_residual(x, {"mlp": mlp_p, "ln_2": ln_p}, quick_gelu, 1e-5)
+
+    cs.say("ab_k9_f32", shape=[b, t, d], hidden=hidden, device_ms=cs.graph_ms(k9),
+           ms=cs.median_ms(k9), composed_device_ms=cs.graph_ms(composed),
+           launch_device_ms=cs.kernel_device_ms(k9), digest=digest(k9()),
+           **cs.bound(cs.nbytes(x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, x),
+                      {torch.float32: 4 * b * t * d * hidden}))
 """),
     "k10": (("k10",), r"""
 cs.phase_build()
@@ -402,11 +476,17 @@ cs.phase_k10({})
 
 # the tensor-core attention passes (attention_tc.cuh's, and K4's forward) by
 # source, as parts of their SASS function names; where a tree's pass is a
-# template on the head width, its instantiation at 64
+# template on the head width, its instantiation at 64; and the bf16 row pass
+# and wgmma GEMMs of K1 and K9 at the tiles [8,50,768] picks (gemm_tc<EPI,
+# B_KMAJOR, BM, BN>), in sources that also hold SIMT code
 SASS_KERNELS = {"flash_attention.cu": ("tc_fwd", "tc_stats", "tc_dqILb0", "tc_dkv"),
                 "attention_block_bwd.cu": ("tc_stats", "tc_dqILb1", "tc_dkv"),
-                "attention_block.cu": ("tc_block_fwd",),
-                "attention_block_int8.cu": ("tc_block_fwd",)}
+                "attention_block.cu": ("tc_block_fwd", "gemm_tcILi0ELb0ELi64ELi128E",
+                                       "gemm_tcILi1ELb0ELi64ELi64E",
+                                       "ln_rowsI13__nv_bfloat16E"),
+                "attention_block_int8.cu": ("tc_block_fwd",),
+                "mlp_residual.cu": ("gemm_tcILi4ELb0ELi64ELi64E", "gemm_tcILi1ELb0ELi64ELi64E",
+                                    "ln_rowsI13__nv_bfloat16E")}
 SASS_BUILD = r"""
 import sys
 sys.path.insert(0, sys.argv[1])

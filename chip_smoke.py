@@ -9,11 +9,13 @@ Phases, each printing one line (the last line is the JSON verdict):
   3. K1, the fused attention block, against its plain version at the serving
      and training paths' shapes, bf16 (tensor-core route: its counter must
      move) and fp32 (SIMT route: its weight products on gemm_f32, none on
-     block_gemm), with times, the device time (the replay of a CUDA graph of
+     block_gemm, its attention on row_attention and no other attention
+     pass), with times, the device time (the replay of a CUDA graph of
      20 calls), each of its launches' device time under torch.profiler (the
      GEMMs' names carry the tile each product chose), the bound, and the
      device time of the composed block's forward (layer_norm, addmm, SDPA,
-     addmm, add: cuBLAS and SDPA).
+     addmm, add: cuBLAS and SDPA); the kernels line carries the fp32 SIMT
+     numbers at [8,50,768] (with the attention pass's device time).
   4. K2, decode-step attention with beam ancestry, against its plain version
      at 8 images x beam 3 (R=24), 1 image x beam 3 (R=3) and predict's 16
      images x beam 3 (R=48) and 16 greedy (R=16), cache lengths 0 to t_max - 1, bf16 and fp32, bit-equal on a second call; at cache_len
@@ -71,13 +73,15 @@ Phases, each printing one line (the last line is the JSON verdict):
      logits over one token stream, and greedy tokens.
  15. K7, the int8 fused attention block, against its plain version at the
      int8 image tower's shapes ([8,50,768] and [1,50,768], H=12), bf16 on the
-     tensor-core route (its counter must move) and fp32 on the SIMT route,
-     the int8 products on wgmma s8 at these widths; with the route, device
-     times and K1's time at the same bf16 shapes; for bf16 also each of its
-     launches' device time under torch.profiler and the device time of the
-     composed int8 block (models/clip/quant._attn_residual_q off the kernel
-     impl: cuBLASLt's int8 GEMM and torch ops); and the int8 GEMM of
-     int8_linear with the weight K-contiguous against row-major.
+     tensor-core route (its counter must move) and fp32 on the SIMT route
+     (its attention on row_attention alone), the int8 products on wgmma s8
+     at these widths; with the route, device times, each of its launches'
+     device time under torch.profiler, the device time of the composed int8
+     block (models/clip/quant._attn_residual_q off the kernel impl:
+     cuBLASLt's int8 GEMM and torch ops) and, for bf16, K1's time at the same
+     shapes; the kernels line carries the fp32 SIMT numbers at [8,50,768];
+     and the int8 GEMM of int8_linear with the weight K-contiguous against
+     row-major.
  16. int8 serving at full width (ViT-B/32 and GPT-2 quantized in the port from
      phase 5's numpy seeds) through the port's apps/serve.build_service
      (--int8, beam 3, 100 steps): requests from 4 threads; K7 launches 12
@@ -93,9 +97,11 @@ Phases, each printing one line (the last line is the JSON verdict):
  19. K9, the fused MLP residual, against its plain version at the towers'
      shapes ([8,50,768]->3072 bf16 and fp32, [36,50,768] bf16, [9,77,512]->2048
      bf16), with times, the composed default MLP's time beside them, the
-     backward's time, and the device times from CUDA-graph replays; bf16 on
-     the tensor-core route (its counter must move), with each launch's device
-     time under torch.profiler, fp32 on the SIMT route.
+     backward's time, and the device times from CUDA-graph replays, with
+     each launch's device time under torch.profiler; bf16 on the tensor-core
+     route (its counter must move), fp32 on the SIMT route (ln_rows, then
+     gemm_f32 with the GELU and the residual epilogues, no block_gemm); the
+     kernels line carries the fp32 numbers at [8,50,768].
  20. the staged fused-MLP zero-shot path at full width (ViT-B/32, bf16,
      USE_FUSED_MLP on): 224-staged uint8 through preprocess_staged (K6) and
      infer/zeroshot.classify_batch (K1 and K9 in every block of both towers,
@@ -104,7 +110,7 @@ Phases, each printing one line (the last line is the JSON verdict):
      held against the plain path (switch on, plain impl) in bf16 and fp32;
      then one batch of the app as it runs by default (fp32, the fused MLP
      off, B=8): host ms, device ms, its kernels, 12 K1 launches on the SIMT
-     route.
+     route with their attention on row_attention.
  21. infer/precompute.precompute_corpus at full width over 70 synthetic
      images (one unreadable) through a load_image hook, fused MLP on: the
      archive's keys and shapes.
@@ -399,6 +405,7 @@ from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
+from construction_clip_tpu_torch.ops import mlp  # noqa: E402
 from construction_clip_tpu_torch.ops.mlp import (  # noqa: E402
     fused_mlp_residual, fused_mlp_residual_plain)
 from construction_clip_tpu_torch.ops.preprocess import (  # noqa: E402
@@ -705,6 +712,7 @@ def phase_k1(results: dict) -> None:
             per = kernel_device_ms(kernel)
             if not on_tc:
                 check_f32_gemms(what, per)
+                check_row_attention(what, per)
             m = b * t
             # device times, the host's launch costs left out
             stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
@@ -712,10 +720,15 @@ def phase_k1(results: dict) -> None:
                          composed_device_ms=graph_ms(composed), launch_device_ms=per,
                          **bound(nbytes(x, *args, x), {dtype: 2 * m * d * 4 * d + attention_ops(
                              b, h, t, d // h, 2)}))
+            if not on_tc:
+                stats["attention_pass_device_ms"] = row_attention_ms(per)
             say("k1", shape=[b, t, d], heads=h, causal=causal, dtype=str(dtype), **stats)
-            if (b, t, d) == (8, 50, 768) and dtype == torch.bfloat16:
+            if (b, t, d) == (8, 50, 768):
                 stats.update(library_ms=None)   # no single PyTorch call
-                results["fused_attention_block"] = stats
+                if dtype == torch.bfloat16:
+                    results["fused_attention_block"] = stats
+                else:   # the SIMT route, beside the tensor-core route's numbers
+                    results["fused_attention_block"]["simt_fp32"] = stats
 
 
 def k2_yardstick(q, ck, cv, layer, cache_len, ancestry):
@@ -1165,13 +1178,27 @@ def k3_launches(per: dict, rows: int, d: int, gemm: str = "gemm_tc") -> dict:
 
 
 def check_f32_gemms(what: str, per: dict) -> None:
-    """The fp32 route of K1 and K3 ran its weight products on gemm_f32
-    (gemm_f32.cuh) and none on block_gemm (gemm.cuh), which stays for K9's
-    fp32 route and the bf16 SIMT route."""
+    """The fp32 route of K1, K3 and K9 ran its weight products on gemm_f32
+    (gemm_f32.cuh) and none on block_gemm (gemm.cuh), which stays for the bf16
+    SIMT routes."""
     if not any(n.startswith("gemm_f32<") for n in per) or \
             any(n.startswith("block_gemm") for n in per):
         raise AssertionError(f"{what}: fp32 launches {sorted(per)}, want gemm_f32 and no "
                              f"block_gemm")
+
+
+def check_row_attention(what: str, per: dict) -> None:
+    """The SIMT route of K1 and K7 ran its attention on row_attention
+    (row_attention.cuh) and on no other attention pass."""
+    attention = [n for n in per if "attention" in n]
+    if not attention or any(not n.startswith("row_attention<") for n in attention):
+        raise AssertionError(f"{what}: launches {sorted(per)}, want the attention on "
+                             f"row_attention alone")
+
+
+def row_attention_ms(per: dict) -> float:
+    """Device ms a call of the row_attention launches in a profile."""
+    return sum(ms for n, ms in per.items() if n.startswith("row_attention<"))
 
 
 def phase_k3(results: dict) -> None:
@@ -1774,15 +1801,20 @@ def phase_k7(results: dict) -> None:
             m = b * t
             ops = {torch.int8: 2 * m * d * 4 * d, dtype: attention_ops(b, h, t, d // h, 2)}
             stats.update(bound(nbytes(x, *args, x), ops), library_ms=None)   # no single call
+            per = kernel_device_ms(kernel)
+            if not on_tc:
+                check_row_attention(what, per)
+                stats["attention_pass_device_ms"] = row_attention_ms(per)
+            stats.update(launch_device_ms=per, composed_device_ms=graph_ms(
+                lambda: composed_int8_block(x, ln, qattn, n_heads=h)))
             if dtype == torch.bfloat16:
-                stats.update(k1_ms=median_ms(lambda: fused_attention_block(x, ln, attn,
-                                                                           n_heads=h)),
-                             launch_device_ms=kernel_device_ms(kernel),
-                             composed_device_ms=graph_ms(
-                                 lambda: composed_int8_block(x, ln, qattn, n_heads=h)))
+                stats["k1_ms"] = median_ms(lambda: fused_attention_block(x, ln, attn, n_heads=h))
             say("k7", shape=[b, t, d], heads=h, dtype=str(dtype), **stats)
-            if (b, dtype) == (8, torch.bfloat16):
-                results["fused_attention_block_int8"] = stats
+            if b == 8:
+                if dtype == torch.bfloat16:
+                    results["fused_attention_block_int8"] = stats
+                else:   # the SIMT route, beside the tensor-core route's numbers
+                    results["fused_attention_block_int8"]["simt_fp32"] = stats
     # the int8 GEMM of int8_linear with the weight K-contiguous (ops/quant.gemm_layout,
     # as quantize_tree stores it) against row-major, at decode and encode shapes
     from construction_clip_tpu_torch.ops.quant import gemm_layout, int8_matmul
@@ -2080,9 +2112,14 @@ def phase_k9(results: dict) -> None:
                                  f"{'moved' if on_tc else 'did not move'}")
         stats = compare_scaled(got, plain(), K9_TOL[dtype], what)
         stats.update(ms=median_ms(kernel), plain_ms=median_ms(plain),
-                     route="tc" if on_tc else "simt")
-        if dtype == torch.bfloat16:
-            stats["launch_device_ms"] = kernel_device_ms(kernel)
+                     route="tc" if on_tc else "simt", gemm=mlp.gemm_route(dtype, d, hidden))
+        stats["launch_device_ms"] = per = kernel_device_ms(kernel)
+        if dtype == torch.float32:   # ln_rows, gemm_f32<kGelu> and <kResidual>
+            check_f32_gemms(what, per)
+            if not all(any(n.startswith(p) for n in per)
+                       for p in ("ln_rows<", "gemm_f32<4,", "gemm_f32<1,")):
+                raise AssertionError(f"{what}: launches {sorted(per)}, want ln_rows and "
+                                     f"gemm_f32's GELU and residual epilogues")
         leaves = [a.detach().requires_grad_() for a in args]
         out = fused_mlp_residual(leaves[0], dict(zip(mlp_p, leaves[3:])),
                                  {"scale": leaves[1], "bias": leaves[2]})
@@ -2093,13 +2130,16 @@ def phase_k9(results: dict) -> None:
         stats.update(bound(nbytes(x, *args[1:], got), {dtype: 4 * m * d * hidden}),
                      library_ms=None)   # no single PyTorch call
         stats["device_ms"] = device_ms = graph_ms(kernel)
+        stats["composed_device_ms"] = graph_ms(composed)
         say("k9", shape=[b, t, d], hidden=hidden, dtype=str(dtype),
             composed_default_mlp_ms=median_ms(composed), backward_ms=bwd_ms,
             plain_device_ms=graph_ms(plain),
-            composed_device_ms=graph_ms(composed),
             device_tflop_per_s=4 * m * d * hidden / (device_ms * 1e-3) / 1e12, **stats)
-        if ((b, t, d), dtype) == ((8, 50, 768), torch.bfloat16):
-            results["fused_mlp_residual"] = stats
+        if (b, t, d) == (8, 50, 768):
+            if dtype == torch.bfloat16:
+                results["fused_mlp_residual"] = stats
+            else:   # the SIMT route, beside the tensor-core route's numbers
+                results["fused_mlp_residual"]["simt_fp32"] = stats
         del leaves, out
 
 
@@ -2229,13 +2269,14 @@ def phase_zeroshot_fp32(clip_np, cfg, clip_tok, device, *, batch: int = 8) -> No
     counts, tc = launches(), tc_launches()
     per = kernel_device_ms(lambda: process(anns, staged), reps=5)
     check_f32_gemms("predict_zeroshot fp32", per)
+    check_row_attention("predict_zeroshot fp32", per)
     if counts["fused_attention_block"] != cfg.vision.layers or tc["fused_attention_block"] or \
             tuple(probs.shape) != (batch, len(labels)) or not torch.isfinite(probs).all() or \
             not all(r["prediction"] in labels for r in records):
         raise AssertionError(f"predict_zeroshot fp32: launches {counts}, tensor-core {tc}, "
                              f"probabilities {tuple(probs.shape)}, {records[:1]}")
     say("zeroshot_fp32", batch=batch, wall_ms=statistics.median(walls), device_ms=sum(per.values()),
-        k1_launches=counts["fused_attention_block"],
+        attention_pass_device_ms=row_attention_ms(per), k1_launches=counts["fused_attention_block"],
         top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
         predictions=[r["prediction"] for r in records[:3]])
 

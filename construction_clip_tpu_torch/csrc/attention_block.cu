@@ -27,9 +27,10 @@
 //       scratch until (b) has read it;
 //   (b) gemm_f32<kQkv> (gemm_f32.cuh): qkv = h W_qkv + b_qkv, a
 //       register-blocked GEMM fed by a TMA ring;
-//   (c) head_attention (head_attention.cuh): one block per (batch, head) with
-//       that head's K and V (T <= 256) staged in dynamic shared memory; one
-//       warp per query row;
+//   (c) row_attention (row_attention.cuh): blocks of 16 or 64 query rows of a
+//       head, the rows' whole score panel (T <= 256) in shared memory, k and v
+//       streamed by cp.async into register micro-tiles, two sweeps so that p
+//       rounds against the row's final max;
 //   (d) gemm_f32<kResidual>: merged . W_out with a bias + residual epilogue.
 // bf16 at other head widths: block_gemm<kQkv> (gemm.cuh), a 64x64-tiled GEMM
 // whose prologue computes each row's LN statistics and normalises the A tile
@@ -57,8 +58,8 @@
 #include "gemm.cuh"
 #include "gemm_f32.cuh"
 #include "gemm_tc.cuh"
-#include "head_attention.cuh"
 #include "ln_rows.cuh"
+#include "row_attention.cuh"
 
 namespace cct {
 namespace {
@@ -70,9 +71,6 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
                       float eps, float scale, cudaStream_t stream) {
   if (b <= 0 || t <= 0 || h <= 0 || d % h != 0) return cudaErrorInvalidValue;
   const int m = b * t;
-  const size_t smem = attn_smem_bytes(t, d / h);
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-
   constexpr bool kF32 = std::is_same_v<T, float>;
   cudaError_t err;
   if constexpr (kF32) {
@@ -91,12 +89,8 @@ cudaError_t run_block(const void* x, const void* ln_s, const void* ln_b, const v
   }
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(head_attention<T, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  head_attention<T, T><<<dim3(b, h), kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(merged), t, d, h, causal, scale);
-  err = cudaGetLastError();
+  err = launch_row_attention(static_cast<const T*>(qkv), static_cast<T*>(merged), b, t, d, h,
+                             causal, scale, stream);
   if (err != cudaSuccess) return err;
 
   if constexpr (kF32)

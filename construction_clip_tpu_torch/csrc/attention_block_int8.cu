@@ -12,7 +12,7 @@
 //   hs = amax(|h32| over the row) / 127 (1 for a zero row),
 //   hq = clip(round_half_even(h32 / hs), +-127);
 //   qkv = T(float(hq . W_qkv) * hs * s_qkv + b_qkv), the product in int32;
-//   merged32 = per-head attention (head_attention.cuh, or tc_block_fwd of
+//   merged32 = per-head attention (row_attention.cuh, or tc_block_fwd of
 //   attention_tc.cuh on the tensor-core route) written in fp32;
 //   ms, mq from merged32 as hs, hq from h32 (the row spans every head);
 //   out = T((x32 + float(mq . W_out) * ms * s_out) + b_out).
@@ -43,9 +43,9 @@
 // Two routes, chosen by ops/attention_block_int8.py:route (a launch on one
 // never retries the other):
 //   cct_attention_block_int8 (fp32, and bf16 at head widths other than 64):
-//     (c) is head_attention<T, float> (head_attention.cuh, one block per
-//     (batch, head), fp32 FMA on the CUDA cores: fp32 on the tensor cores
-//     would be TF32);
+//     (c) is row_attention<T, float> (row_attention.cuh, K1's SIMT pass:
+//     blocks of 16 or 64 query rows of a head, register micro-tiles, fp32 FMA
+//     on the CUDA cores: fp32 on the tensor cores would be TF32);
 //   cct_attention_block_int8_tc (bf16 at dh = 64, T <= 256): (c) is
 //     tc_block_fwd<float> (attention_tc.cuh, K1's wgmma pass, q, k and v read
 //     at column offsets of qkv through a 3-D TMA map), stored in fp32.
@@ -56,7 +56,7 @@
 #include "attention_tc.cuh"
 #include "common.cuh"
 #include "gemm_s8.cuh"
-#include "head_attention.cuh"
+#include "row_attention.cuh"
 
 namespace cct {
 namespace {
@@ -218,7 +218,7 @@ cudaError_t int8_product(const int8_t* a, const float* a_scale, const void* w_t,
   } while (0)
 
 // The five launches; TC picks the attention pass (c): tc_block_fwd<float>
-// (bf16, dh = 64) or head_attention<T, float>.
+// (bf16, dh = 64) or row_attention<T, float>.
 template <typename T, bool TC>
 cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
                            const void* w_qkv, const void* s_qkv, const void* b_qkv,
@@ -230,8 +230,7 @@ cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
   if (TC && (d / h != kTcDh || n_tiles(t) > kBlockMaxTiles)) return cudaErrorInvalidValue;
   const int m = b * t;
   const size_t row_smem = sizeof(float) * (size_t)d;
-  const size_t attn_smem = attn_smem_bytes(t, d / h);
-  if (row_smem > kRowSmemLimit || attn_smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  if (row_smem > kRowSmemLimit) return cudaErrorInvalidValue;
   int8_t* q = static_cast<int8_t*>(q8);
   float* r = static_cast<float*>(rs);
 
@@ -250,11 +249,9 @@ cudaError_t run_block_int8(const void* x, const void* ln_s, const void* ln_b,
                       TcOutOf<float>{static_cast<float*>(merged), (long long)t * d, d}, t,
                       causal, scale));
   } else {
-    CCT_TRY(cudaFuncSetAttribute(head_attention<T, float>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attn_smem));
-    head_attention<T, float><<<dim3(b, h), kAttnThreads, attn_smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<float*>(merged), t, d, h, causal, scale);
-    CCT_TRY(cudaGetLastError());
+    CCT_TRY((launch_row_attention<T, float>(static_cast<const T*>(qkv),
+                                            static_cast<float*>(merged), b, t, d, h, causal,
+                                            scale, stream)));
   }
   quantize_rows<float, T, false><<<m, kRowThreads, row_smem, stream>>>(
       static_cast<const float*>(merged), nullptr, nullptr, q, r, d, eps);

@@ -1,15 +1,16 @@
-// fp32 GEMM on the CUDA cores for the weight products of K1's and K3's fp32
-// route:
+// fp32 GEMM on the CUDA cores for the weight products of the fp32 routes of
+// K1, K3 and K9:
 //
 //   out[M, N] = epilogue(A[M, K] . B[K, N])
 //
-// Replaces gemm.cuh's block_gemm on that route (qkv = h W_qkv, merged W_out +
-// x, dmg = g W_out^T, dh = dqkv W_qkv^T); block_gemm stays for K9's fp32 route
-// and for K1/K3's bf16 SIMT route. A is row-major fp32 [M, K], already
-// normalised where the product needs LN(x) (ln_rows.cuh writes h once a row;
-// block_gemm normalised each A element again for every column tile). B is
-// W [K, N] row-major, or with TRANS_B W [N, K] read transposed (g W_out^T and
-// dqkv W_qkv^T). Epilogues: gemm.cuh's kQkv, kResidual, kRound and kFloat, in
+// Replaces gemm.cuh's block_gemm on those routes (qkv = h W_qkv, merged W_out
+// + x, dmg = g W_out^T, dh = dqkv W_qkv^T; K9's hidden = QuickGELU(h W_fc +
+// b_fc) and hidden W_proj + x); block_gemm stays for the bf16 SIMT routes of
+// K1/K3 and K9. A is row-major fp32 [M, K], already normalised where the
+// product needs LN(x) (ln_rows.cuh writes h once a row; block_gemm normalised
+// each A element again for every column tile). B is W [K, N] row-major, or
+// with TRANS_B W [N, K] read transposed (g W_out^T and dqkv W_qkv^T).
+// Epilogues: gemm.cuh's kQkv, kResidual, kRound, kFloat and kGelu, in
 // block_gemm's arithmetic.
 //
 // What bounds it on the H100: fp32 on the tensor cores would be TF32, a
@@ -232,6 +233,8 @@ gemm_f32(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtenso
         out[o] = acc[i][j] + bias[n];
       else if constexpr (EPI == kResidual)
         out[o] = __fadd_rn(__fadd_rn(resid[o], acc[i][j]), bias[n]);
+      else if constexpr (EPI == kGelu)
+        out[o] = quick_gelu_t<float>(__fadd_rn(acc[i][j], bias[n]));
       else
         out[o] = acc[i][j];  // kRound and kFloat: fp32 rounds nothing
     }
@@ -281,7 +284,7 @@ inline cudaError_t gemm_f32_rows(int M, int N, int* bm) {
 }
 
 // out = epilogue(a [M, K] . B): B = w [K, N] (TRANS_B false) or w [N, K] read
-// transposed (true); bias for kQkv and kResidual, resid [M, N] for kResidual
+// transposed (true); bias for kQkv, kResidual and kGelu, resid [M, N] for kResidual
 // (else null). Any M, N, K >= 1: TMA where K (and N for W [K, N]) is a
 // multiple of 4 and a and w are 16-byte aligned, with the tile's rows from
 // gemm_f32_rows; else the scalar producer on 64 rows.

@@ -18,11 +18,18 @@
 // ops/mlp.py:route (a launch on one never retries the other):
 //
 // SIMT (fp32, and bf16 where D or H is no multiple of 8; cct_mlp_residual),
-// gemm.cuh's tiled GEMM in fp32 FMA on the CUDA cores:
-//   (a) block_gemm<kGelu>: K1's LN-prologue GEMM with a bias + QuickGELU
-//       epilogue, writing the hidden [rows, H] in T;
-//   (b) block_gemm<kResidual>: hidden . W_proj with the bias + residual
-//       epilogue.
+// fp32 FMA on the CUDA cores (fp32 on the tensor cores would be TF32). fp32,
+// K1's fp32 chain with K9's epilogues:
+//   (a) ln_rows<float> (ln_rows.cuh): h = LN(x) once a row, into `out`;
+//   (b) gemm_f32<kGelu> (gemm_f32.cuh): hidden = quick_gelu_t(h W_fc + b_fc),
+//       a register-blocked GEMM fed by a TMA ring;
+//   (c) gemm_f32<kResidual>: out = (x + hidden W_proj) + b_proj.
+//   The fc product has 48 column tiles at H = 3072; the proj product (N = D,
+//   K = H) has D / 64, and gemm_f32_rows spreads its rows over the SMs (no
+//   split-K: the sums keep block_gemm's order, so the bits are block_gemm's).
+// bf16 where D or H is no multiple of 8 (gemm_f32 is fp32 only): gemm.cuh's
+// block_gemm<kGelu>, K1's LN-prologue GEMM with a bias + QuickGELU epilogue
+// writing the hidden [rows, H] in T, then block_gemm<kResidual>.
 //
 // Tensor cores (bf16 with D and H multiples of 8, TMA's 16-byte row pitch;
 // cct_mlp_residual_tc), both products on wgmma (gemm_tc.cuh):
@@ -36,8 +43,11 @@
 // thread for one warpgroup at D = 768) or a split-K reduction over H / 256
 // blocks, for the bytes of one L2 round trip.
 // No library GEMM is called.
+#include <type_traits>
+
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_tc.cuh"
 #include "ln_rows.cuh"
 
@@ -49,15 +59,31 @@ cudaError_t run_mlp(const void* x, const void* ln_s, const void* ln_b, const voi
                     const void* b_fc, const void* w_proj, const void* b_proj, void* hidden,
                     void* out, int rows, int d, int h, float eps, cudaStream_t stream) {
   if (rows <= 0 || d <= 0 || h <= 0) return cudaErrorInvalidValue;
-  const cudaError_t err = launch_gemm<T, kGelu, false, T>(
-      static_cast<const T*>(x), static_cast<const T*>(w_fc), static_cast<const T*>(b_fc),
-      static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), nullptr,
-      static_cast<T*>(hidden), rows, h, d, eps, stream);
-  if (err != cudaSuccess) return err;
-  return launch_gemm<T, kResidual, false, T>(
-      static_cast<const T*>(hidden), static_cast<const T*>(w_proj),
-      static_cast<const T*>(b_proj), nullptr, nullptr, static_cast<const T*>(x),
-      static_cast<T*>(out), rows, d, h, eps, stream);
+  const T* xt = static_cast<const T*>(x);
+  T* ht = static_cast<T*>(hidden);
+  T* ot = static_cast<T*>(out);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    err = launch_ln_rows(xt, static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), ot, rows,
+                         d, eps, stream);
+    if (err == cudaSuccess)
+      err = launch_gemm_f32<kGelu, false>(ot, static_cast<const T*>(w_fc),
+                                          static_cast<const T*>(b_fc), nullptr, ht, rows, h, d,
+                                          stream);
+    if (err != cudaSuccess) return err;
+    return launch_gemm_f32<kResidual, false>(ht, static_cast<const T*>(w_proj),
+                                             static_cast<const T*>(b_proj), xt, ot, rows, d, h,
+                                             stream);
+  } else {
+    err = launch_gemm<T, kGelu, false, T>(xt, static_cast<const T*>(w_fc),
+                                          static_cast<const T*>(b_fc), static_cast<const T*>(ln_s),
+                                          static_cast<const T*>(ln_b), nullptr, ht, rows, h, d,
+                                          eps, stream);
+    if (err != cudaSuccess) return err;
+    return launch_gemm<T, kResidual, false, T>(ht, static_cast<const T*>(w_proj),
+                                               static_cast<const T*>(b_proj), nullptr, nullptr,
+                                               xt, ot, rows, d, h, eps, stream);
+  }
 }
 
 cudaError_t run_mlp_tc(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,

@@ -35,9 +35,13 @@ _ATTN_WARPS = 4
 
 
 def attention_smem_bytes(t: int, dh: int) -> int:
-    """Shared memory of the attention launch: K (rows padded to dh+1) and V in
-    fp32, plus per-warp logits and query rows (csrc/attention_block.cu:
-    attn_smem_bytes)."""
+    """The gate's shared-memory budget (K1, K3 and K7): a head's K (rows padded
+    to dh+1) and V in fp32 plus four warps' logits and query rows, the
+    footprint of the one-warp-a-row attention launch the gate was set for.
+    The formula stays so that the gate admits the same shapes; the attention
+    pass that runs now (csrc/row_attention.cuh) holds a block's rows' score
+    panel and two streamed tiles, which fit a block's shared memory at every
+    shape this budget admits."""
     return 4 * (t * (dh + 1) + t * dh + _ATTN_WARPS * (t + dh))
 
 

@@ -6,7 +6,9 @@ construction_clip_tpu/ops/pallas_mlp.py).
 (csrc/mlp_residual.cu) on CUDA tensors and `fused_mlp_residual_plain` on CPU
 tensors. On the card `route` picks K9's chain: the tensor-core chain (wgmma,
 TMA) for bf16 where D and the hidden width are multiples of 8, the SIMT chain
-otherwise; a launch that fails raises and never retries on the other route. Its backward recomputes `_ref_math`, the composable math, and takes
+otherwise, whose products run on csrc/gemm_f32.cuh's GEMM in fp32 and on
+csrc/gemm.cuh's in bf16 (`gemm_route`); a launch that fails raises and never
+retries on the other route. Its backward recomputes `_ref_math`, the composable math, and takes
 its gradient, as the Pallas kernel's custom_vjp does: the JAX package has no
 backward kernel for this function, so neither has the port (the backward's
 GEMMs are cuBLAS's).
@@ -40,6 +42,17 @@ def route(dtype, d: int, hidden: int) -> str:
     16-byte row pitch), else "simt" (fp32 FMA; fp32 on the tensor cores would
     be TF32)."""
     return "tc" if dtype == torch.bfloat16 and d % 8 == 0 and hidden % 8 == 0 else "simt"
+
+
+def gemm_route(dtype, d: int, hidden: int) -> str:
+    """What K9's two weight products run on: "gemm_tc" (wgmma, the tensor-core
+    route), "gemm_f32" (fp32 FMA fed by a TMA ring, after one LN pass a row:
+    the SIMT route in fp32) or "block_gemm" (the LN-prologue GEMM: the SIMT
+    route in bf16, where D or the hidden width is no multiple of 8); the C
+    entries choose by the same rule."""
+    if route(dtype, d, hidden) == "tc":
+        return "gemm_tc"
+    return "gemm_f32" if dtype == torch.float32 else "block_gemm"
 
 
 def fused_mlp_residual_plain(x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, *, eps: float = 1e-5):

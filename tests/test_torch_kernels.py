@@ -9,6 +9,7 @@ the build module and the wrappers' dispatch on the CPU."""
 
 import contextlib
 import os
+import re
 import shutil
 import threading
 import time
@@ -787,6 +788,90 @@ def test_attention_block_int8_tensor_core_entry_refuses_what_it_does_not_take(ge
             _int8_entry(lib.cct_attention_block_int8_tc, x, ln, qattn, h, False)
 
 
+def _kernel_names(fn) -> set:
+    """The kernels `fn` launches on the card, by name with template arguments
+    (torch.profiler), the window opened and closed 20 ms from the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    names = set()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            found = re.search(r"(\w+(<[^()]*>)?)\(", e.key)
+            names.add(found.group(1) if found else e.key)
+    return names
+
+
+# The attention pass of K1's SIMT route and K7's SIMT entry
+# (csrc/row_attention.cuh): every head-width class (16-byte copies at dh 32, 64,
+# 128; 80 in a 128-wide slice; bf16 with p rounded, by plain loads), T from a
+# lone key over the 16-row blocks' edges (15, 16, 17), the tower lengths (50,
+# 77) and the 64-key tiles' edges (64, 65) to the gate's 256, where the gate
+# admits the shape
+ROW_ATTN_T = (1, 15, 16, 17, 50, 64, 65, 77, 256)
+ROW_ATTN_CASES = [
+    (kernel, dtype, (2, t, 2 * dh, 2, causal))
+    for kernel, dtype, widths in (("K1", torch.float32, (32, 64, 80, 128)),
+                                  ("K1", torch.bfloat16, (32, 80, 128)),
+                                  ("K7", torch.float32, (32, 64, 80, 128)),
+                                  ("K7", torch.bfloat16, (80,)))
+    for dh in widths for t in ROW_ATTN_T for causal in (False, True)
+    if (fab if kernel == "K1" else fab8).supported(torch.zeros(2, t, 2 * dh), 2)] + [
+    # 64-row blocks (row_attention_rows): T <= 64, no mask, a head for each of
+    # the H100's 132 SMs or more
+    ("K1", torch.float32, (36, 50, 768, 12, False)), ("K1", torch.float32, (70, 64, 256, 2, False)),
+    ("K1", torch.bfloat16, (70, 33, 160, 2, False)), ("K7", torch.float32, (36, 50, 768, 12, False)),
+    # heads wider than 128 (K7's gate has no head-width bound): 128-wide slices,
+    # by 16-byte copies at dh 200 and by plain loads at dh 260 in bf16
+    ("K7", torch.float32, (2, 50, 400, 2, True)), ("K7", torch.bfloat16, (2, 9, 520, 2, False))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, dtype, shape", ROW_ATTN_CASES)
+def test_row_attention_pass_on_card(kernel, dtype, shape, gen, cuda_device):
+    """K1 on its SIMT route and K7 on its SIMT entry against their plain
+    versions (CARD_TOL, INT8_TOL), with their attention on row_attention and
+    on no other attention pass; a second call gives the same bits."""
+    b, t, d, h, causal = shape
+    if kernel == "K1":
+        assert fab.route(dtype, d // h) == "simt"
+        x, _, args = _block_case(gen, cuda_device, dtype, b, t, d)
+        args = (*args, _b_out(gen, cuda_device, dtype, d))
+        wrapper = fab.fused_attention_block
+
+        def call():
+            return fab.fused_attention_block_fwd(x, *args, n_heads=h, causal=causal)
+
+        want = fab.fused_attention_block_plain(x, *args, n_heads=h, causal=causal)
+    else:
+        assert fab8.route(dtype, d // h) == "simt"
+        x, ln, qattn = _int8_block_case(gen, cuda_device, dtype, b, t, d)
+        wrapper = fab8.fused_attention_block_int8
+
+        def call():
+            return wrapper(x, ln, qattn, n_heads=h, causal=causal)
+
+        want = _int8_plain(x, ln, qattn, h, causal)
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = call()
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1])
+    assert got.dtype == dtype and got.shape == x.shape
+    if kernel == "K1":
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **CARD_TOL[dtype])
+    else:
+        assert _scaled_err(got, want) <= INT8_TOL[dtype]
+    names = _kernel_names(call)
+    assert any(n.startswith("row_attention<") for n in names), names
+    assert not any("attention" in n and not n.startswith("row_attention<") for n in names), names
+    assert torch.equal(call(), got)
+
+
 @pytest.mark.cuda
 def test_failed_build_raises_instead_of_falling_back(gen, cuda_device, tmp_path, monkeypatch):
     """No nvcc and no built library: the wrapper raises; it never takes the
@@ -918,6 +1003,36 @@ def test_mlp_residual_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     with pytest.raises(ValueError, match="ln_scale"):
         mlp.fused_mlp_residual_fwd(args[0], args[1].cpu(), *args[2:])
     assert mlp.fused_mlp_residual.launches == before
+
+
+# K9's fp32 route (mlp.gemm_route: ln_rows, then gemm_f32 for both products):
+# ViT-B/32's and the text tower's widths, and rows of 72 bytes (d = 18: the
+# scalar producer) with a hidden width of 70
+K9_F32_CASES = [(8, 50, 768, 3072), (9, 77, 512, 2048), (3, 7, 18, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K9_F32_CASES)
+def test_mlp_residual_fp32_route_on_card(shape, gen, cuda_device):
+    """fp32 K9 against its plain version (MLP_TOL), its products on gemm_f32
+    (the kGelu and kResidual epilogues) after ln_rows and none on block_gemm;
+    a second call gives the same bits."""
+    b, t, d, hidden = shape
+    assert mlp.gemm_route(torch.float32, d, hidden) == "gemm_f32"
+    args = _mlp_case(gen, cuda_device, torch.float32, *shape)
+    wrapper = mlp.fused_mlp_residual
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = _mlp_call(wrapper, args)
+    want = mlp.fused_mlp_residual_plain(*args)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.float32 and got.shape == args[0].shape
+    assert _scaled_err(got, want) <= MLP_TOL[torch.float32]
+    names = _kernel_names(lambda: _mlp_call(wrapper, args))
+    for prefix in ("ln_rows<", "gemm_f32<4,", "gemm_f32<1,"):
+        assert any(n.startswith(prefix) for n in names), (prefix, names)
+    assert not any(n.startswith("block_gemm") for n in names), names
+    assert torch.equal(_mlp_call(wrapper, args), got)
 
 
 @pytest.mark.cuda
