@@ -1,0 +1,6 @@
+"""Image-text pairs trained in the window over the window's wall time, which
+ends in a synchronise (host clock)."""
+
+
+def read(record):
+    return record.done / record.window_s
