@@ -238,10 +238,10 @@ cs.say("ab_bits", kernel="K9", dtype="torch.float32", digest=digest(cs.fused_mlp
 k7 = cs.fused_attention_block_int8
 for dtype in (torch.bfloat16, torch.float32):
     x, ln, qattn, _ = cs._int8_block_inputs(rng, 8, 50, 768, dtype, "cuda")
-    before = getattr(k7, "tc_launches", 0)
+    before = cs.counted("k7.tc")
     out = k7(x, ln, qattn, n_heads=12)
     cs.say("ab_bits", kernel="K7", dtype=str(dtype), digest=digest(out),
-           attention_route="tc" if getattr(k7, "tc_launches", 0) != before else "simt")
+           attention_route="tc" if cs.counted("k7.tc") != before else "simt")
 x, ln, attn = cs._block_inputs(rng, 8, 50, 768, torch.bfloat16, "cuda")
 cs.say("ab_bits", kernel="K1", dtype="torch.bfloat16", shape=[8, 50, 768], digest=digest(
     cs.fused_attention_block(x, ln, attn, n_heads=12)))
@@ -275,14 +275,13 @@ for name, fn in (("K4", lambda: cs.flash_attention_fwd(q, k, v, is_causal=False,
 x, ln, attn = cs._block_inputs(rng, 16, 30, 768, torch.bfloat16, "cuda")
 g = torch.from_numpy(rng.standard_normal((16, 30, 768)).astype(np.float32)).cuda().bfloat16()
 args = (ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"])
-for name, wrapper, fn in (
-        ("K1", cs.fused_attention_block, lambda: cs.fused_attention_block(x, ln, attn, n_heads=8)),
-        ("K3", cs.fused_attention_block_bwd,
-         lambda: cs.fused_attention_block_bwd(x, g, *args, n_heads=8))):
-    before = wrapper.tc_launches
+for name, counter, fn in (
+        ("K1", "k1.tc", lambda: cs.fused_attention_block(x, ln, attn, n_heads=8)),
+        ("K3", "k3.tc", lambda: cs.fused_attention_block_bwd(x, g, *args, n_heads=8))):
+    before = cs.counted(counter)
     fn()
     cs.say("ab_dh96", kernel=name, shape=[16, 30, 768], heads=8, device_ms=cs.graph_ms(fn),
-           ms=cs.median_ms(fn, 11, 3), tc_launches=wrapper.tc_launches - before)
+           ms=cs.median_ms(fn, 11, 3), tc_launches=cs.counted(counter) - before)
 
 
 
@@ -337,11 +336,11 @@ anns = [Annotation(id=i, file_name=f"site_{i}.jpg", violation_type=labels[i % 9]
 process(anns, staged)
 walls = []
 for _ in range(5):
-    before = cs.fused_attention_block.launches
+    before = cs.counted("k1")
     t0 = time.perf_counter()
     records, _ = process(anns, staged)   # ends in the probabilities' copy to the host
     walls.append((time.perf_counter() - t0) * 1e3)
-    k1_launches = cs.fused_attention_block.launches - before
+    k1_launches = cs.counted("k1") - before
 per = cs.kernel_device_ms(lambda: process(anns, staged), reps=5)
 cs.say("ab_zeroshot_f32", batch=8, wall_ms=sorted(walls)[2], device_ms=sum(per.values()),
        k1_launches=k1_launches, top_kernels=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]),
@@ -363,13 +362,12 @@ for shape, dtype in ([(s, torch.float32) for s in cs.FLASH_SHAPES] +
     q, k, v, go = (torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32))
                    .cuda().to(dtype) for _ in range(4))
     kw = dict(is_causal=causal, scale=dh ** -0.5)
-    before = cs.flash_attention_fwd.simt_launches + cs.flash_attention_bwd.simt_launches
+    before = cs.counted("k4.simt") + cs.counted("k5.simt")
     cs.say("ab_bits", kernel="K4", dtype=str(dtype), shape=[b, h, t, dh], causal=causal,
            digest=digest(cs.flash_attention_fwd(q, k, v, **kw)))
     cs.say("ab_bits", kernel="K5", dtype=str(dtype), shape=[b, h, t, dh], causal=causal,
            digest=digest(*cs.flash_attention_bwd(q, k, v, go, **kw)),
-           simt_launches=cs.flash_attention_fwd.simt_launches
-           + cs.flash_attention_bwd.simt_launches - before)
+           simt_launches=cs.counted("k4.simt") + cs.counted("k5.simt") - before)
 torch.backends.cuda.matmul.allow_tf32 = False   # SDPA's fp32 yardstick in fp32
 torch.backends.cudnn.allow_tf32 = False
 for b, h, t, dh, causal in cs.FLASH_SHAPES:
@@ -407,12 +405,11 @@ process = predict_zeroshot.make_process(params, cfg, feats, labels, "violation_t
 process(anns, staged)
 walls = []
 for _ in range(5):
-    before = (cs.flash_attention_fwd.launches, cs.flash_attention_fwd.simt_launches)
+    before = (cs.counted("k4"), cs.counted("k4.simt"))
     t0 = time.perf_counter()
     records, _ = process(anns, staged)
     walls.append((time.perf_counter() - t0) * 1e3)
-    k4 = (cs.flash_attention_fwd.launches - before[0],
-          cs.flash_attention_fwd.simt_launches - before[1])
+    k4 = (cs.counted("k4") - before[0], cs.counted("k4.simt") - before[1])
 per = cs.kernel_device_ms(lambda: process(anns, staged), reps=5)
 cs.say("ab_zeroshot_l14_f32", batch=8, wall_ms=sorted(walls)[2], device_ms=sum(per.values()),
        k4_launches=k4[0], k4_simt_launches=k4[1],
@@ -432,17 +429,17 @@ for dtype, shape in ((torch.float32, (36, 50, 768, 12)), (torch.bfloat16, (8, 50
            launch_device_ms=launched)
     attention_pass("K7", [b, t, d], h, False, dtype, launched)
 x, ln, attn = cs._block_inputs(rng, 8, 50, 640, torch.bfloat16, "cuda")
-k1_before = cs.fused_attention_block.tc_launches
+k1_before = cs.counted("k1.tc")
 out = cs.fused_attention_block(x, ln, attn, n_heads=8)
 cs.say("ab_bits", kernel="K1", dtype="torch.bfloat16", shape=[8, 50, 640], heads=8,
-       digest=digest(out), tc_launches=cs.fused_attention_block.tc_launches - k1_before)
+       digest=digest(out), tc_launches=cs.counted("k1.tc") - k1_before)
 attention_pass("K1", [8, 50, 640], 8, False, torch.bfloat16, cs.kernel_device_ms(
     lambda: cs.fused_attention_block(x, ln, attn, n_heads=8)))
 x, ln, qattn, _ = cs._int8_block_inputs(rng, 8, 50, 640, torch.bfloat16, "cuda")
-k7_before = cs.fused_attention_block_int8.tc_launches
+k7_before = cs.counted("k7.tc")
 out = cs.fused_attention_block_int8(x, ln, qattn, n_heads=8)
 cs.say("ab_bits", kernel="K7", dtype="torch.bfloat16", shape=[8, 50, 640], heads=8,
-       digest=digest(out), tc_launches=cs.fused_attention_block_int8.tc_launches - k7_before)
+       digest=digest(out), tc_launches=cs.counted("k7.tc") - k7_before)
 x, ln, attn = cs._block_inputs(rng, 36, 50, 768, torch.float32, "cuda")
 cs.say("ab_bits", kernel="K1", dtype="torch.float32", shape=[36, 50, 768], digest=digest(
     cs.fused_attention_block(x, ln, attn, n_heads=12)))

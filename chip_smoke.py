@@ -371,6 +371,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from construction_clip_tpu_torch import convert  # noqa: E402
+from construction_clip_tpu_torch.core import tracing  # noqa: E402
 from construction_clip_tpu_torch.core.configs import (  # noqa: E402
     CLIPConfig, ClipCapConfig, GPT2Config, T5Config, TextConfig, VisionConfig)
 from construction_clip_tpu_torch.core.mesh import (  # noqa: E402
@@ -493,16 +494,12 @@ KERNELS = {
         route="cuda", source="construction_clip_tpu_torch/csrc/all_gather.cu",
         replaces="construction_clip_tpu/ops/pallas_collectives.py:58"),
 }
-WRAPPERS = {"fused_attention_block": fused_attention_block,
-            "decode_step_attention": decode_step_attention,
-            "fused_attention_block_bwd": fused_attention_block_bwd,
-            "flash_attention_fwd": flash_attention_fwd,
-            "flash_attention_bwd": flash_attention_bwd,
-            "normalize_u8": normalize_u8,
-            "fused_attention_block_int8": fused_attention_block_int8,
-            "vocab_head_logits": vocab_head_logits,
-            "fused_mlp_residual": fused_mlp_residual,
-            "all_gather": all_gather}
+# the wrappers of K1-K10, each with the counter of its launches (core/tracing)
+WRAPPERS = {"fused_attention_block": "k1", "decode_step_attention": "k2",
+            "fused_attention_block_bwd": "k3", "flash_attention_fwd": "k4",
+            "flash_attention_bwd": "k5", "normalize_u8": "k6",
+            "fused_attention_block_int8": "k7", "vocab_head_logits": "k8",
+            "fused_mlp_residual": "k9", "all_gather": "k10"}
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s and operations/s by operand type.
@@ -700,11 +697,11 @@ def phase_k1(results: dict) -> None:
             def composed():
                 return composed_block(x, *args, n_heads=h, causal=causal)
 
-            tc_before = fused_attention_block.tc_launches
+            tc_before = counted("k1.tc")
             got = kernel()
             torch.cuda.synchronize()
             what = f"K1 {[b, t, d]} h={h} causal={causal} {dtype}"
-            on_tc = fused_attention_block.tc_launches != tc_before
+            on_tc = counted("k1.tc") != tc_before
             if on_tc != (dtype == torch.bfloat16):
                 raise AssertionError(f"{what}: the tensor-core route's counter "
                                      f"{'moved' if on_tc else 'did not move'}")
@@ -846,21 +843,27 @@ TC_WRAPPERS = ("fused_attention_block", "fused_attention_block_bwd", "flash_atte
                "flash_attention_bwd", "fused_mlp_residual", "fused_attention_block_int8")
 
 
+_COUNTED_FROM: dict = {}
+
+
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    for name in TC_WRAPPERS:
-        WRAPPERS[name].tc_launches = 0
-    for fn in (flash_attention_fwd, flash_attention_bwd):   # K4/K5's other route
-        fn.simt_launches = 0
+    """Counts launches from here on (counted, launches, tc_launches)."""
+    _COUNTED_FROM.clear()
+    _COUNTED_FROM.update(tracing.counters())
+
+
+def counted(name: str) -> int:
+    """The launches counted under `name` ("k1", "k1.tc", "k4.simt") since
+    reset_launches()."""
+    return tracing.counters().get(name, 0) - _COUNTED_FROM.get(name, 0)
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: counted(kernel) for name, kernel in WRAPPERS.items()}
 
 
 def tc_launches() -> dict:
-    return {name: WRAPPERS[name].tc_launches for name in TC_WRAPPERS}
+    return {name: counted(WRAPPERS[name] + ".tc") for name in TC_WRAPPERS}
 
 
 def check_tc_route(what: str, counts: dict, tc: dict, names=TC_WRAPPERS) -> None:
@@ -1227,11 +1230,11 @@ def phase_k3(results: dict) -> None:
             def composed(*a):
                 return composed_block(*a, n_heads=h, causal=causal)
 
-            tc_before = fused_attention_block_bwd.tc_launches
+            tc_before = counted("k3.tc")
             got = kernel()
             torch.cuda.synchronize()
             what = f"K3 {[b, t, d]} h={h} causal={causal} {dtype}"
-            on_tc = fused_attention_block_bwd.tc_launches != tc_before
+            on_tc = counted("k3.tc") != tc_before
             if on_tc != (dtype == torch.bfloat16):
                 raise AssertionError(f"{what}: the tensor-core route's counter "
                                      f"{'moved' if on_tc else 'did not move'}")
@@ -1392,16 +1395,15 @@ def phase_flash(results: dict) -> None:
             def bwd_plain():
                 return flash_attention_bwd_plain(q, k, v, g, **kw)
 
-            route = "tc_launches" if dtype == torch.bfloat16 else "simt_launches"
-            before = (getattr(flash_attention_fwd, route), getattr(flash_attention_bwd, route))
+            route = "tc" if dtype == torch.bfloat16 else "simt"
+            before = (counted(f"k4.{route}"), counted(f"k5.{route}"))
             got = fwd()
             torch.cuda.synchronize()
             f_stats = compare(got, fwd_plain(), *FLASH_TOL[dtype], what=f"K4 {what}")
             f_stats.update(ms=median_ms(fwd, 11, 5), plain_ms=median_ms(fwd_plain, 11, 5))
             got = bwd()
             torch.cuda.synchronize()
-            if (getattr(flash_attention_fwd, route) == before[0] or
-                    getattr(flash_attention_bwd, route) == before[1]):
+            if counted(f"k4.{route}") == before[0] or counted(f"k5.{route}") == before[1]:
                 raise AssertionError(f"K4/K5 {what}: no launch counted on {route}")
             per = {n: compare_scaled(a, w, GRAD_TOL[dtype], f"K5 {what} {n}")
                    for n, a, w in zip(("dq", "dk", "dv"), got, bwd_plain())}
@@ -1786,11 +1788,11 @@ def phase_k7(results: dict) -> None:
             def plain():
                 return fused_attention_block_int8_plain(x, *args, n_heads=h)
 
-            tc_before = fused_attention_block_int8.tc_launches
+            tc_before = counted("k7.tc")
             got = kernel()
             torch.cuda.synchronize()
             what = f"K7 {[b, t, d]} h={h} {dtype}"
-            on_tc = fused_attention_block_int8.tc_launches != tc_before
+            on_tc = counted("k7.tc") != tc_before
             if on_tc != (dtype == torch.bfloat16):
                 raise AssertionError(f"{what}: the tensor-core route's counter "
                                      f"{'moved' if on_tc else 'did not move'}")
@@ -2102,11 +2104,11 @@ def phase_k9(results: dict) -> None:
         def composed():
             return blocks._mlp_residual(x, {"mlp": mlp_p, "ln_2": ln_p}, quick_gelu, 1e-5)
 
-        tc_before = fused_mlp_residual.tc_launches
+        tc_before = counted("k9.tc")
         got = kernel()
         torch.cuda.synchronize()
         what = f"K9 {[b, t, d]}->{hidden} {dtype}"
-        on_tc = fused_mlp_residual.tc_launches != tc_before
+        on_tc = counted("k9.tc") != tc_before
         if on_tc != (dtype == torch.bfloat16):
             raise AssertionError(f"{what}: the tensor-core route's counter "
                                  f"{'moved' if on_tc else 'did not move'}")
@@ -2316,8 +2318,7 @@ def phase_zeroshot_l14(ctx: dict, *, batch: int = 8) -> None:
         t0 = time.perf_counter()
         records, probs = process(anns, staged)
         walls.append((time.perf_counter() - t0) * 1e3)
-        k4 = {"launches": flash_attention_fwd.launches, "simt": flash_attention_fwd.simt_launches,
-              "tc": flash_attention_fwd.tc_launches}
+        k4 = {"launches": counted("k4"), "simt": counted("k4.simt"), "tc": counted("k4.tc")}
         if k4 != {"launches": cfg.vision.layers, "simt": cfg.vision.layers, "tc": 0}:
             raise AssertionError(f"predict_zeroshot ViT-L/14 fp32: K4 launches {k4}, want "
                                  f"{cfg.vision.layers}, all on the SIMT route")
@@ -4704,8 +4705,8 @@ def _tp_parity(mesh, cfg, batch, directory) -> dict:
     loss, acc, grads = contrastive.loss_and_grads(params, cfg, images, tokens, dp=mesh.axis("data"),
                                                   tp=model)
     out = {"loss": float(loss), "accuracy": float(acc), "launches": launches(),
-           "simt": {n: WRAPPERS[n].simt_launches for n in ("flash_attention_fwd",
-                                                           "flash_attention_bwd")}}
+           "simt": {n: counted(WRAPPERS[n] + ".simt") for n in ("flash_attention_fwd",
+                                                                "flash_attention_bwd")}}
     full = gather_clip_params(mesh, grads)
     if mesh.rank == 0:
         out["grads"] = [g.cpu().numpy() for g in tree_leaves(full)]

@@ -24,6 +24,7 @@ import torch
 
 from construction_clip_tpu_torch.apps.common import (
     add_device_flag, load_clip, load_clip_tokenizer, resolve_device, stream_corpus)
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.data.labels import (
@@ -60,10 +61,11 @@ def make_process(params, cfg: CLIPConfig, feats, names, key: str, device, *,
     def process(batch_anns, staged):
         images = preprocess_batch(staged, cfg.vision.image_size, device=device)
         probs, pred = classify_batch(params, cfg, images, feats, policy=policy)
-        records = []
-        for a, pr, pd in zip(batch_anns, probs.cpu().numpy(), pred.tolist()):
-            records.append({"id": a.id, "file_name": a.file_name, "prediction": names[pd],
-                            "ground_truth": getattr(a, key), "probs": pr.round(4).tolist()})
+        with tracing.span("readback"):
+            records = []
+            for a, pr, pd in zip(batch_anns, probs.cpu().numpy(), pred.tolist()):
+                records.append({"id": a.id, "file_name": a.file_name, "prediction": names[pd],
+                                "ground_truth": getattr(a, key), "probs": pr.round(4).tolist()})
         return records, probs
 
     return process

@@ -15,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops.preprocess import normalize_u8
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -88,15 +89,16 @@ def preprocess_batch(imgs_u8, size: int = 224, *, mean=CLIP_MEAN, std=CLIP_STD,
                      device=None):
     """[B, H, W, 3] uint8 (numpy or tensor, uniform shape) -> [B, size, size, 3]
     float32 normalized, on `device` (the input's device when None)."""
-    imgs = torch.as_tensor(imgs_u8)
-    if device is not None:
-        imgs = imgs.to(device)
-    b, h, w, _ = imgs.shape
-    th, tw = resize_shorter_side_shape(h, w, size)
-    x = imgs.float() / 255.0
-    x = resize_bicubic_pil(x, th, tw)
-    x = center_crop(x, size)
-    return normalize(torch.clamp(x, 0.0, 1.0), mean, std)
+    with tracing.span("preprocess"):
+        imgs = torch.as_tensor(imgs_u8)
+        if device is not None:
+            imgs = imgs.to(device)
+        b, h, w, _ = imgs.shape
+        th, tw = resize_shorter_side_shape(h, w, size)
+        x = imgs.float() / 255.0
+        x = resize_bicubic_pil(x, th, tw)
+        x = center_crop(x, size)
+        return normalize(torch.clamp(x, 0.0, 1.0), mean, std)
 
 
 def preprocess_staged(images_u8, *, mean=CLIP_MEAN, std=CLIP_STD, out_dtype=None, device=None):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models.blocks import apply_stack
@@ -46,18 +47,19 @@ def encode_image(params, cfg: CLIPConfig, images, *, policy: Policy = DEFAULT_PO
     remat: apply_stack's, for the image tower's blocks. tp: apply_stack's, the
     "model" line whose shard `params` is (parallel/sharding.py)."""
     v = cfg.vision
-    p = policy.cast_to_compute(params["vision"])
-    x = patchify(images.to(policy.compute_dtype), v.patch_size)
-    x = x @ p["patch_embed"]
-    cls = p["class_emb"].expand(x.shape[0], 1, v.width)
-    x = torch.cat([cls, x], dim=1) + p["pos_emb"]
-    x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
-    x = apply_stack(p["blocks"], x, n_heads=v.heads, act=_act(cfg), return_probs=return_probs,
-                    probs_probe=probs_probe, remat=remat, tp=tp)
-    x, probs = x if return_probs else (x, None)
-    x = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
-    feats = policy.cast_to_output(x @ p["proj"])
-    feats = _l2_normalize(feats) if normalize else feats
+    with tracing.span("tower.image"):
+        p = policy.cast_to_compute(params["vision"])
+        x = patchify(images.to(policy.compute_dtype), v.patch_size)
+        x = x @ p["patch_embed"]
+        cls = p["class_emb"].expand(x.shape[0], 1, v.width)
+        x = torch.cat([cls, x], dim=1) + p["pos_emb"]
+        x = layer_norm(x, p["ln_pre"]["scale"], p["ln_pre"]["bias"])
+        x = apply_stack(p["blocks"], x, n_heads=v.heads, act=_act(cfg),
+                        return_probs=return_probs, probs_probe=probs_probe, remat=remat, tp=tp)
+        x, probs = x if return_probs else (x, None)
+        x = layer_norm(x[:, 0, :], p["ln_post"]["scale"], p["ln_post"]["bias"])
+        feats = policy.cast_to_output(x @ p["proj"])
+        feats = _l2_normalize(feats) if normalize else feats
     return (feats, probs) if return_probs else feats
 
 

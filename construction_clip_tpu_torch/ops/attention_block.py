@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.attention import NEG_INF, merge_heads, split_heads
 from construction_clip_tpu_torch.ops.norms import layer_norm
@@ -158,8 +159,9 @@ def fused_attention_block_fwd(x, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, *, n_he
             int(causal), float(eps), float((d // n_heads) ** -0.5),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_attention_block")
-    fused_attention_block.launches += 1
-    fused_attention_block.tc_launches += tc
+    tracing.count("k1")
+    if tc:
+        tracing.count("k1.tc")
     return out
 
 
@@ -200,8 +202,9 @@ def fused_attention_block_bwd(x, g, ln_s, ln_b, w_qkv, b_qkv, w_out, *, n_heads:
             dln_b.data_ptr(), b, t, d, n_heads, int(causal), float(eps),
             float((d // n_heads) ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_attention_block_bwd")
-    fused_attention_block_bwd.launches += 1
-    fused_attention_block_bwd.tc_launches += tc
+    tracing.count("k3")
+    if tc:
+        tracing.count("k3.tc")
     grads = (dx, dqkv, merged, dln_s, dln_b)
     if not with_h:
         return grads
@@ -248,9 +251,3 @@ def fused_attention_block(x, ln_params, attn_params, *, n_heads: int,
     args = (ln_params["scale"], ln_params["bias"], attn_params["w_qkv"],
             attn_params["b_qkv"], attn_params["w_out"], attn_params["b_out"])
     return _FusedBlock.apply(x, *args, n_heads, bool(causal), float(eps))
-
-
-fused_attention_block.launches = 0      # K1, and those of its tensor-core route
-fused_attention_block.tc_launches = 0
-fused_attention_block_bwd.launches = 0  # K3, and those of its tensor-core route
-fused_attention_block_bwd.tc_launches = 0

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.attention import NEG_INF, merge_heads, split_heads
 from construction_clip_tpu_torch.ops.attention_block import (
@@ -130,10 +131,7 @@ def fused_attention_block_int8(x, ln_params, qattn, *, n_heads: int, causal: boo
             b, t, d, n_heads, int(causal), float(eps), float((d // n_heads) ** -0.5),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_attention_block_int8")
-    fused_attention_block_int8.launches += 1
-    fused_attention_block_int8.tc_launches += on_tc
+    tracing.count("k7")
+    if on_tc:
+        tracing.count("k7.tc")
     return out
-
-
-fused_attention_block_int8.launches = 0      # K7
-fused_attention_block_int8.tc_launches = 0   # of them on the tensor-core route

@@ -42,6 +42,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 
 _SLOT_ALIGN = 256
@@ -224,9 +225,6 @@ def all_gather(x, dp, peers: PeerBuffers | None = None):
             peers.bases.data_ptr(), peers.host_bases, slot, peers.pad_offset, x.data_ptr(),
             out.data_ptr(), chunk_bytes, dp.world, dp.rank, g, stream.cuda_stream),
             "all_gather")
-        all_gather.launches += 1
+        tracing.count("k10")
         peers.watchdog.watch(put_done, stream.record_event())
     return out
-
-
-all_gather.launches = 0   # K10

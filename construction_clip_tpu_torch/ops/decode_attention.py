@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.attention import NEG_INF
 
@@ -105,8 +106,5 @@ def decode_step_attention(q, ck_all, cv_all, layer: int, cache_len: int,
             int(layer), int(cache_len), chunks, float(dh ** -0.5),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_step_attention")
-    decode_step_attention.launches += 1
+    tracing.count("k2")
     return out
-
-
-decode_step_attention.launches = 0

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 
 MAX_T = 1024   # the JAX gate
@@ -100,7 +101,7 @@ def flash_attention_fwd(q, k, v, *, is_causal: bool, scale: float):
                     out.data_ptr(), b, h, t, dh, int(is_causal), float(scale),
                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    _count(flash_attention_fwd, tc)
+    _count("k4", tc)
     return out
 
 
@@ -121,16 +122,13 @@ def flash_attention_bwd(q, k, v, g, *, is_causal: bool, scale: float):
                     b, h, t, dh, int(is_causal), float(scale),
                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    _count(flash_attention_bwd, tc)
+    _count("k5", tc)
     return dq, dk, dv
 
 
-def _count(wrapper, tc: bool) -> None:
-    wrapper.launches += 1
-    if tc:
-        wrapper.tc_launches += 1
-    else:
-        wrapper.simt_launches += 1
+def _count(kernel: str, tc: bool) -> None:
+    tracing.count(kernel)
+    tracing.count(f"{kernel}.tc" if tc else f"{kernel}.simt")
 
 
 class _Flash(torch.autograd.Function):
@@ -156,9 +154,3 @@ def flash_attention(q, k, v, *, is_causal: bool = False, scale: float | None = N
         scale = q.shape[-1] ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _Flash.apply(q, k, v, bool(is_causal), float(scale))
-
-
-# launches of K4 and K5, and of each on its route
-flash_attention_fwd.launches = flash_attention_fwd.tc_launches = 0
-flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
-flash_attention_fwd.simt_launches = flash_attention_bwd.simt_launches = 0

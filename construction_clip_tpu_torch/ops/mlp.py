@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops.activations import quick_gelu
 from construction_clip_tpu_torch.ops.norms import layer_norm
@@ -99,8 +100,9 @@ def fused_mlp_residual_fwd(x, ln_s, ln_b, w_fc, b_fc, w_proj, b_proj, *, eps: fl
             h.data_ptr(), out.data_ptr(), b * t, d, hidden, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_mlp_residual")
-    fused_mlp_residual.launches += 1
-    fused_mlp_residual.tc_launches += tc
+    tracing.count("k9")
+    if tc:
+        tracing.count("k9.tc")
     return out
 
 
@@ -131,7 +133,3 @@ def fused_mlp_residual(x, mlp_params, ln_params, *, eps: float = 1e-5):
     return _FusedMLP.apply(x, ln_params["scale"], ln_params["bias"], mlp_params["w_fc"],
                            mlp_params["b_fc"], mlp_params["w_proj"], mlp_params["b_proj"],
                            float(eps))
-
-
-fused_mlp_residual.launches = 0   # K9, and those of its tensor-core route
-fused_mlp_residual.tc_launches = 0

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 
 INV_255 = float(np.float32(1.0 / 255.0))   # the Pallas kernel's fp32 constant
@@ -72,8 +73,5 @@ def normalize_u8(images_u8, *, mean, std, out_dtype=torch.float32):
             _build.dtype_code(out_dtype), x.data_ptr(), out.data_ptr(), x.numel(), INV_255,
             *constants, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "normalize_u8")
-    normalize_u8.launches += 1
+    tracing.count("k6")
     return out
-
-
-normalize_u8.launches = 0   # K6

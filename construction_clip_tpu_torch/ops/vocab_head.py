@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 
 MAX_ROWS = 8          # the small-B regime of the JAX gate; K8's largest row count
@@ -68,8 +69,5 @@ def vocab_head_logits(x, table, scale=None):
             scale32.data_ptr() if scale32 is not None else None, out.data_ptr(), rows, d, v,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "vocab_head_logits")
-    vocab_head_logits.launches += 1
+    tracing.count("k8")
     return out
-
-
-vocab_head_logits.launches = 0

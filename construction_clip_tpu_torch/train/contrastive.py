@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from construction_clip_tpu_torch.core.params import as_tree, tree_leaves
@@ -67,8 +68,10 @@ def loss_and_grads(params, cfg: CLIPConfig, images, tokens, *,
     (models/blocks.apply_stack). tp: the "model" line whose shard `params`
     is; the gradients are then this rank's shard of the tree's."""
     params = as_tree(params)
-    loss, acc = _loss_and_accuracy(params, cfg, images, tokens, policy, dp, remat, tp)
-    loss, grads = mean_grads(loss, params, dp)
+    with tracing.span("forward"):
+        loss, acc = _loss_and_accuracy(params, cfg, images, tokens, policy, dp, remat, tp)
+    with tracing.span("backward"):
+        loss, grads = mean_grads(loss, params, dp)
     return loss, acc, grads
 
 

@@ -21,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.params import as_tree, tree_leaves, tree_map
 
 
@@ -53,12 +54,13 @@ class FusedOptimizer(GradientTransformation):
 
 def apply_gradients(state: TrainState, grads, tx) -> TrainState:
     params = as_tree(state.params)
-    if hasattr(tx, "update_and_apply"):
-        _, opt_state = tx.update_and_apply(grads, state.opt_state, params)
-    else:
-        updates, opt_state = tx.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            torch._foreach_add_(tree_leaves(params), tree_leaves(updates))
+    with tracing.span("optimizer"):
+        if hasattr(tx, "update_and_apply"):
+            _, opt_state = tx.update_and_apply(grads, state.opt_state, params)
+        else:
+            updates, opt_state = tx.update(grads, state.opt_state, params)
+            with torch.no_grad():
+                torch._foreach_add_(tree_leaves(params), tree_leaves(updates))
     return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state)
 
 

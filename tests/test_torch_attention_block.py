@@ -14,6 +14,7 @@ import torch
 
 from construction_clip_tpu.models.blocks import init_block
 from construction_clip_tpu.ops import pallas_attention_block as jfab
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import attention_block as fab
 
 # fp32 on both sides; the only difference is the order of the fp32 sums
@@ -82,10 +83,10 @@ def test_wrapper_rejects_other_devices():
     ln = {"scale": torch.ones(8), "bias": torch.zeros(8)}
     attn = {"w_qkv": torch.zeros(8, 24), "b_qkv": torch.zeros(24),
             "w_out": torch.zeros(8, 8), "b_out": torch.zeros(8)}
-    before = fab.fused_attention_block.launches
+    before = tracing.counters()
     with pytest.raises(ValueError):
         fab.fused_attention_block(x, ln, attn, n_heads=2)
-    assert fab.fused_attention_block.launches == before
+    assert tracing.counters() == before
 
 
 

@@ -21,6 +21,7 @@ import torch
 
 from construction_clip_tpu.ops import pallas_attention_block as jfab
 from construction_clip_tpu.ops import pallas_mlp as jmlp
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import CLIPConfig, GPT2Config, T5Config
 from construction_clip_tpu_torch.models.clipcap.model import MAPPER_HEADS
 from construction_clip_tpu_torch.models.clipcap.t5_model import mapper_shape
@@ -110,8 +111,7 @@ def test_tensor_core_entries_are_bound_alike():
         text = (_build.CSRC_DIR / source).read_text()
         for name in (entry, entry + "_tc"):
             assert f'extern "C" int {name}(' in text
-    assert isinstance(fab.fused_attention_block.tc_launches, int)
-    assert isinstance(mlp.fused_mlp_residual.tc_launches, int)
+    assert all(isinstance(n, int) for n in tracing.counters().values())
 
 
 def _block_args(gen, b, t, d, dtype):
@@ -134,20 +134,23 @@ def _mlp_args(gen, b, t, d, hidden, dtype):
                           arr(hidden, d, scale=hidden ** -0.5), arr(d, scale=0.1))
 
 
+def _counted(before: dict) -> dict:
+    """The counters that moved since the snapshot `before`, by how much."""
+    return {k: v - before.get(k, 0) for k, v in tracing.counters().items()
+            if v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_tensors_count_no_launch_on_either_route(dtype):
     gen = np.random.default_rng(4)
     x, args = _block_args(gen, 2, 9, 128, dtype)
-    wrapper = fab.fused_attention_block
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = fab.fused_attention_block_fwd(x, *args, n_heads=2, causal=True)
     assert torch.equal(got, fab.fused_attention_block_plain(x, *args, n_heads=2, causal=True))
-    assert (wrapper.launches, wrapper.tc_launches) == before
+    assert tracing.counters() == before
     x, args = _mlp_args(gen, 2, 9, 64, 256, dtype)
-    wrapper = mlp.fused_mlp_residual
-    before = (wrapper.launches, wrapper.tc_launches)
     assert torch.equal(mlp.fused_mlp_residual_fwd(x, *args), mlp.fused_mlp_residual_plain(x, *args))
-    assert (wrapper.launches, wrapper.tc_launches) == before
+    assert tracing.counters() == before
 
 
 @pytest.fixture
@@ -179,13 +182,12 @@ def fake_card(monkeypatch):
                                                    (torch.float32, 192, 2, "")])
 def test_block_wrapper_takes_its_route_entry(dtype, d, heads, want, fake_card):
     x, args = _block_args(np.random.default_rng(5), 2, 9, d, dtype)
-    wrapper = fab.fused_attention_block
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     fab.fused_attention_block_fwd(x, *args, n_heads=heads, causal=True)
     ((name, call),) = fake_card
     assert name == "cct_attention_block_fwd" + want
     assert call[0] == _build.dtype_code(dtype) and call[-8:-3] == (2, 9, d, heads, 1)
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + bool(want))
+    assert _counted(before) == ({"k1": 1, "k1.tc": 1} if want else {"k1": 1})
 
 
 @pytest.mark.parametrize("dtype, d, heads, want", [(torch.bfloat16, 128, 2, "_tc"),
@@ -200,13 +202,13 @@ def test_block_backward_wrapper_takes_its_route_entry(dtype, d, heads, want, fak
     x, args = _block_args(np.random.default_rng(7), 2, 9, d, dtype)
     g = x.flip(1).contiguous()
     wrapper = fab.fused_attention_block_bwd
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = wrapper(x, g, *args[:5], n_heads=heads, causal=True, with_h=True)
     ((name, call),) = [c for c in fake_card if not c[0].endswith("_work_floats")]
     assert name == "cct_attention_block_bwd" + want
     assert call[0] == _build.dtype_code(dtype) and call[-8:-3] == (2, 9, d, heads, 1)
     assert call[-2] == pytest.approx((d // heads) ** -0.5)
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + bool(want))
+    assert _counted(before) == ({"k3": 1, "k3.tc": 1} if want else {"k3": 1})
     assert (got[5] is not None) == (bool(want) or dtype == torch.float32)
 
 
@@ -215,13 +217,12 @@ def test_block_backward_wrapper_takes_its_route_entry(dtype, d, heads, want, fak
                                                     (torch.float32, 64, 256, "")])
 def test_mlp_wrapper_takes_its_route_entry(dtype, d, hidden, want, fake_card):
     x, args = _mlp_args(np.random.default_rng(6), 2, 9, d, hidden, dtype)
-    wrapper = mlp.fused_mlp_residual
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     mlp.fused_mlp_residual_fwd(x, *args)
     ((name, call),) = fake_card
     assert name == "cct_mlp_residual" + want
     assert call[0] == _build.dtype_code(dtype) and call[-5:-2] == (18, d, hidden)
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + bool(want))
+    assert _counted(before) == ({"k9": 1, "k9.tc": 1} if want else {"k9": 1})
 
 
 # ---- the plain versions against the Pallas kernels at T = 77, causal ---------

@@ -12,6 +12,7 @@ import torch
 
 from construction_clip_tpu.models import gpt2 as jgpt2
 from construction_clip_tpu.ops import pallas_decode_attention as jpda
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import decode_attention as dec
 
 # fp32 on both sides; sums over positions and Dh in another order.
@@ -70,8 +71,8 @@ def test_plain_bias_matches_attn_over_cache(rng):
 def test_wrapper_rejects_other_devices():
     q = torch.zeros(R, H, DH, device="meta")
     ck = torch.zeros(L, R, H, T, DH, device="meta")
-    before = dec.decode_step_attention.launches
+    before = tracing.counters()
     with pytest.raises(ValueError):
         dec.decode_step_attention(q, ck, ck, 0, 3)
-    assert dec.decode_step_attention.launches == before
+    assert tracing.counters() == before
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from construction_clip_tpu.models import gpt2 as jgpt2
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import decode_attention as dec
@@ -63,11 +64,11 @@ def test_cpu_block_backward_counts_no_launch(dtype, d, heads):
     args = (arr(d, scale=0.1) + 1, arr(d, scale=0.1), arr(d, 3 * d, scale=d ** -0.5),
             arr(3 * d, scale=0.1), arr(d, d, scale=d ** -0.5))
     wrapper = fab.fused_attention_block_bwd
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = wrapper(x, g, *args, n_heads=heads, causal=True)
     want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=heads, causal=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (wrapper.launches, wrapper.tc_launches) == before
+    assert tracing.counters() == before
 
 
 # ---- K2: chunk count --------------------------------------------------------

@@ -10,10 +10,14 @@ D_u = sum_j exp(s_j - m_run) dp_j over 64-key tiles with l's rescale, so that
 D = D_u / l = rowsum(dp p). The forward rounds p relative to the running max of
 the keys seen so far."""
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import flash_attention as fa
 
@@ -138,18 +142,35 @@ def test_route(dtype, dh, want):
     assert fa.route(dtype, dh) == want
 
 
-def test_each_route_has_its_c_entries_and_counters():
+def test_each_route_has_its_c_entries_and_counters(monkeypatch):
+    """Both routes have C entries alike; on the kernel branch (a stand-in
+    library on CPU tensors) each launch counts under its kernel and route."""
     for entry in ("cct_flash_attention_fwd", "cct_flash_attention_bwd"):
         assert _build.SIGNATURES[entry + "_tc"] == _build.SIGNATURES[entry]
-    for wrapper in (fa.flash_attention_fwd, fa.flash_attention_bwd):
-        assert isinstance(wrapper.tc_launches, int) and isinstance(wrapper.simt_launches, int)
+    called = []
+    lib = types.SimpleNamespace(**{name: (lambda name: lambda *a: called.append(name) or 0)(name)
+                                   for name in _build.SIGNATURES})
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "on_cpu", lambda x, what: False)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        q, k, v, g = _inputs((1, 2, 70, 64), 3, dtype)
+        before = tracing.counters()
+        fa.flash_attention_fwd(q, k, v, is_causal=True, scale=0.125)
+        fa.flash_attention_bwd(q, k, v, g, is_causal=True, scale=0.125)
+        moved = {n: c - before.get(n, 0) for n, c in tracing.counters().items()
+                 if c != before.get(n, 0)}
+        assert moved == {"k4": 1, f"k4.{route}": 1, "k5": 1, f"k5.{route}": 1}
+        suffix = "_tc" if route == "tc" else ""
+        assert called[-2:] == ["cct_flash_attention_fwd" + suffix,
+                               "cct_flash_attention_bwd" + suffix]
 
 
 def test_cpu_tensors_count_no_launch_on_either_route():
     q, k, v, g = _inputs((1, 2, 70, 64), 3)
-    counters = [(w.launches, w.tc_launches, w.simt_launches)
-                for w in (fa.flash_attention_fwd, fa.flash_attention_bwd)]
+    before = tracing.counters()
     fa.flash_attention_fwd(q, k, v, is_causal=True, scale=0.125)
     fa.flash_attention_bwd(q, k, v, g, is_causal=True, scale=0.125)
-    assert counters == [(w.launches, w.tc_launches, w.simt_launches)
-                        for w in (fa.flash_attention_fwd, fa.flash_attention_bwd)]
+    assert tracing.counters() == before

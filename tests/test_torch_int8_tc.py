@@ -22,6 +22,7 @@ import torch
 from construction_clip_tpu.ops import pallas_attention_block_int8 as jfab8
 from construction_clip_tpu.ops import quant as jquant
 from construction_clip_tpu_torch import convert
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.models.clip import quant as quant_clip
 from construction_clip_tpu_torch.ops import _build
@@ -98,7 +99,7 @@ def test_both_entries_are_bound_alike():
     text = (_build.CSRC_DIR / "attention_block_int8.cu").read_text()
     for name in (entry, entry + "_tc"):
         assert f'extern "C" int {name}(' in text
-    assert isinstance(fab8.fused_attention_block_int8.tc_launches, int)
+    assert all(isinstance(n, int) for n in tracing.counters().values())
 
 
 def _int8_case(gen, b, t, d, dtype):
@@ -119,14 +120,19 @@ def _plain(x, ln, qattn, h, causal):
         qattn["w_out"]["q"], qattn["w_out"]["s"], qattn["b_out"], n_heads=h, causal=causal)
 
 
+def _counted(before: dict) -> dict:
+    """The counters that moved since the snapshot `before`, by how much."""
+    return {k: v - before.get(k, 0) for k, v in tracing.counters().items()
+            if v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_tensors_count_no_launch_on_either_route(dtype):
     x, ln, qattn = _int8_case(np.random.default_rng(4), 2, 9, 128, dtype)
-    wrapper = fab8.fused_attention_block_int8
-    before = (wrapper.launches, wrapper.tc_launches)
-    got = wrapper(x, ln, qattn, n_heads=2, causal=True)
+    before = tracing.counters()
+    got = fab8.fused_attention_block_int8(x, ln, qattn, n_heads=2, causal=True)
     assert torch.equal(got, _plain(x, ln, qattn, 2, True))
-    assert (wrapper.launches, wrapper.tc_launches) == before
+    assert tracing.counters() == before
 
 
 @pytest.fixture
@@ -156,14 +162,13 @@ def fake_card(monkeypatch):
                                                    (torch.float32, 128, 2, "")])
 def test_wrapper_takes_its_route_entry(dtype, d, heads, want, fake_card):
     x, ln, qattn = _int8_case(np.random.default_rng(5), 2, 9, d, dtype)
-    wrapper = fab8.fused_attention_block_int8
-    before = (wrapper.launches, wrapper.tc_launches)
-    wrapper(x, ln, qattn, n_heads=heads, causal=True)
+    before = tracing.counters()
+    fab8.fused_attention_block_int8(x, ln, qattn, n_heads=heads, causal=True)
     ((name, call),) = fake_card
     assert name == "cct_attention_block_int8" + want
     assert call[0] == _build.dtype_code(dtype) and call[-8:-3] == (2, 9, d, heads, 1)
     assert call[-2] == pytest.approx((d // heads) ** -0.5)
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + bool(want))
+    assert _counted(before) == ({"k7": 1, "k7.tc": 1} if want else {"k7": 1})
 
 
 # ---- the plain version against the Pallas int8 block, dh = 64 ------------------

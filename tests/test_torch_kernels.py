@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.ops import _build
 from construction_clip_tpu_torch.ops import attention_block as fab
 from construction_clip_tpu_torch.ops import attention_block_int8 as fab8
@@ -28,6 +29,17 @@ from construction_clip_tpu_torch.ops import flash_attention as fa
 from construction_clip_tpu_torch.ops import mlp
 from construction_clip_tpu_torch.ops import preprocess as norm
 from construction_clip_tpu_torch.ops import vocab_head as vh
+
+
+def _launched(name: str) -> int:
+    """The launches counted so far under `name`."""
+    return tracing.counters().get(name, 0)
+
+
+def _counted(before: dict) -> dict:
+    """The counters that moved since the snapshot `before`, by how much."""
+    return {k: v - before.get(k, 0) for k, v in tracing.counters().items()
+            if v != before.get(k, 0)}
 
 
 @pytest.fixture
@@ -81,18 +93,18 @@ def test_cpu_tensors_take_the_plain_version(gen):
             "b_qkv": torch.zeros(48),
             "w_out": torch.from_numpy(gen.standard_normal((16, 16)).astype(np.float32)),
             "b_out": torch.zeros(16)}
-    before = fab.fused_attention_block.launches
+    before = _launched("k1")
     got = fab.fused_attention_block(x, ln, attn, n_heads=2, causal=True)
     want = fab.fused_attention_block_plain(x, ln["scale"], ln["bias"], *attn.values(),
                                            n_heads=2, causal=True)
-    assert torch.equal(got, want) and fab.fused_attention_block.launches == before
+    assert torch.equal(got, want) and _launched("k1") == before
 
     ck = torch.from_numpy(gen.standard_normal((2, 3, 2, 6, 8)).astype(np.float32))
     q = torch.from_numpy(gen.standard_normal((3, 2, 8)).astype(np.float32))
-    before = dec.decode_step_attention.launches
+    before = _launched("k2")
     got = dec.decode_step_attention(q, ck, ck, 1, 4)
     assert torch.equal(got, dec.decode_step_attention_plain(q, ck, ck, 1, 4))
-    assert dec.decode_step_attention.launches == before
+    assert _launched("k2") == before
 
 
 @pytest.fixture
@@ -124,12 +136,12 @@ def test_attention_block_kernel_on_card(shape, dtype, gen, cuda_device):
     ln = {"scale": arr(d, scale=0.1, offset=1.0), "bias": arr(d, scale=0.1)}
     attn = {"w_qkv": arr(d, 3 * d, scale=d ** -0.5), "b_qkv": arr(3 * d, scale=0.1),
             "w_out": arr(d, d, scale=d ** -0.5), "b_out": arr(d, scale=0.1)}
-    before = fab.fused_attention_block.launches
+    before = _launched("k1")
     got = fab.fused_attention_block(x, ln, attn, n_heads=h, causal=causal)
     want = fab.fused_attention_block_plain(x, ln["scale"], ln["bias"], *attn.values(),
                                            n_heads=h, causal=causal)
     torch.cuda.synchronize()
-    assert fab.fused_attention_block.launches == before + 1
+    assert _launched("k1") == before + 1
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **CARD_TOL[dtype])
 
@@ -145,11 +157,11 @@ def test_decode_attention_kernel_on_card(with_ancestry, dtype, gen, cuda_device)
         cuda_device, dtype)
     anc = torch.from_numpy(gen.integers(0, rows, (rows, t_max), dtype=np.int32)).to(cuda_device)
     ancestry = anc if with_ancestry else None
-    before = dec.decode_step_attention.launches
+    before = _launched("k2")
     got = dec.decode_step_attention(q, ck, cv, 5, 90, ancestry)
     want = dec.decode_step_attention_plain(q, ck, cv, 5, 90, ancestry)
     torch.cuda.synchronize()
-    assert dec.decode_step_attention.launches == before + 1
+    assert _launched("k2") == before + 1
     # one rounding to the output dtype in both versions
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
@@ -184,20 +196,20 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 def test_cpu_backward_wrappers_take_the_plain_versions(gen):
     x, g, args = _block_case(gen, "cpu", torch.float32, 2, 5, 16)
-    before = fab.fused_attention_block_bwd.launches
+    before = _launched("k3")
     got = fab.fused_attention_block_bwd(x, g, *args, n_heads=2, causal=True)
     want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=2, causal=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert fab.fused_attention_block_bwd.launches == before
+    assert _launched("k3") == before
     q, k, v, g = (torch.from_numpy(gen.standard_normal((2, 2, 9, 8)).astype(np.float32))
                   for _ in range(4))
-    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    before = (_launched("k4"), _launched("k5"))
     assert torch.equal(fa.flash_attention(q, k, v, is_causal=True),
                        fa.flash_attention_fwd_plain(q, k, v, is_causal=True, scale=8 ** -0.5))
     got = fa.flash_attention_bwd(q, k, v, g, is_causal=False, scale=0.3)
     want = fa.flash_attention_bwd_plain(q, k, v, g, is_causal=False, scale=0.3)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == before
+    assert (_launched("k4"), _launched("k5")) == before
 
 
 @pytest.mark.cuda
@@ -207,12 +219,12 @@ def test_attention_block_output_has_grad_fn_on_card(gen, cuda_device):
     ln = {"scale": args[0].requires_grad_(), "bias": args[1]}
     attn = {"w_qkv": args[2], "b_qkv": args[3], "w_out": args[4],
             "b_out": torch.zeros(64, device=cuda_device)}
-    before = fab.fused_attention_block_bwd.launches
+    before = _launched("k3")
     out = fab.fused_attention_block(x, ln, attn, n_heads=4)
     assert out.grad_fn is not None
     out.sum().backward()
     torch.cuda.synchronize()
-    assert ln["scale"].grad is not None and fab.fused_attention_block_bwd.launches == before + 1
+    assert ln["scale"].grad is not None and _launched("k3") == before + 1
 
 
 @pytest.mark.cuda
@@ -222,11 +234,11 @@ def test_attention_block_output_has_grad_fn_on_card(gen, cuda_device):
 def test_attention_block_backward_kernel_on_card(shape, dtype, gen, cuda_device):
     b, t, d, h, causal = shape
     x, g, args = _block_case(gen, cuda_device, dtype, b, t, d)
-    before = fab.fused_attention_block_bwd.launches
+    before = _launched("k3")
     got = fab.fused_attention_block_bwd(x, g, *args, n_heads=h, causal=causal)
     want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
     torch.cuda.synchronize()
-    assert fab.fused_attention_block_bwd.launches == before + 1
+    assert _launched("k3") == before + 1
     for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), got, want):
         assert _scaled_err(a, w) <= GRAD_TOL[dtype], name
 
@@ -252,13 +264,12 @@ def test_attention_block_fp32_route_on_card(shape, gen, cuda_device):
     f32 = torch.float32
     x, g, args = _block_case(gen, cuda_device, f32, b, t, d)
     args_f = (*args, _b_out(gen, cuda_device, f32, d))
-    k1, k3 = fab.fused_attention_block, fab.fused_attention_block_bwd
-    before = (k1.launches, k1.tc_launches, k3.launches, k3.tc_launches)
+    k3 = fab.fused_attention_block_bwd
+    before = tracing.counters()
     out = fab.fused_attention_block_fwd(x, *args_f, n_heads=h, causal=causal)
     grads = k3(x, g, *args, n_heads=h, causal=causal, with_h=True)
     torch.cuda.synchronize()
-    assert (k1.launches, k1.tc_launches, k3.launches, k3.tc_launches) == (
-        before[0] + 1, before[1], before[2] + 1, before[3])
+    assert _counted(before) == {"k1": 1, "k3": 1}
     want = fab.fused_attention_block_plain(x, *args_f, n_heads=h, causal=causal)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), **CARD_TOL[f32])
     want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
@@ -287,11 +298,11 @@ def test_attention_block_backward_tensor_cores_on_card(shape, gen, cuda_device):
     b, t, d, h, causal = shape
     x, g, args = _block_case(gen, cuda_device, torch.bfloat16, b, t, d)
     wrapper = fab.fused_attention_block_bwd
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = wrapper(x, g, *args, n_heads=h, causal=causal)
     want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert _counted(before) == {"k3": 1, "k3.tc": 1}
     for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), got, want):
         assert _within(a, w, GRAD_TOL[torch.bfloat16]), name
     # fixed-order sums, no atomics: a second call gives the same bits
@@ -342,12 +353,11 @@ def test_attention_block_tensor_cores_on_card(shape, gen, cuda_device):
     b, t, d, h, causal = shape
     x, _, args = _block_case(gen, cuda_device, torch.bfloat16, b, t, d)
     args = (*args, _b_out(gen, cuda_device, torch.bfloat16, d))
-    wrapper = fab.fused_attention_block
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = fab.fused_attention_block_fwd(x, *args, n_heads=h, causal=causal)
     want = fab.fused_attention_block_plain(x, *args, n_heads=h, causal=causal)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert _counted(before) == {"k1": 1, "k1.tc": 1}
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **CARD_TOL[torch.bfloat16])
     # no atomics: a second call gives the same bits
@@ -373,10 +383,10 @@ def test_attention_block_tensor_core_entry_refuses_what_it_does_not_take(gen, cu
             (d // h) ** -0.5, torch.cuda.current_stream().cuda_stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(err, "fused_attention_block")
-    before = (fab.fused_attention_block.launches, fab.fused_attention_block.tc_launches)
+    before = (_launched("k1"), _launched("k1.tc"))
     with pytest.raises(ValueError, match="does not take"):
         fab.fused_attention_block_fwd(x, *args, n_heads=2)
-    assert (fab.fused_attention_block.launches, fab.fused_attention_block.tc_launches) == before
+    assert (_launched("k1"), _launched("k1.tc")) == before
 
 
 @pytest.mark.cuda
@@ -397,11 +407,10 @@ def test_attention_block_autograd_on_tensor_cores_on_card(shape, gen, cuda_devic
             causal=causal)
         return out, torch.autograd.grad(out, leaves, grad)
 
-    counters = (fab.fused_attention_block, fab.fused_attention_block_bwd)
-    before = [w.tc_launches for w in counters]
+    before = tracing.counters()
     out, got = run(inputs, g)
     torch.cuda.synchronize()
-    assert [w.tc_launches for w in counters] == [n + 1 for n in before]
+    assert _counted(before) == {"k1": 1, "k1.tc": 1, "k3": 1, "k3.tc": 1}
     want_out, want = run([a.cpu() for a in inputs], g.cpu())
     np.testing.assert_allclose(out.detach().float().cpu().numpy(),
                                want_out.detach().float().numpy(), **CARD_TOL[torch.bfloat16])
@@ -471,14 +480,12 @@ def test_flash_attention_kernels_on_card(shape, dtype, gen, cuda_device):
     q, k, v, g = (torch.from_numpy(gen.standard_normal((b, h, t, dh)).astype(np.float32))
                   .to(cuda_device, dtype) for _ in range(4))
     scale = dh ** -0.5
-    route = f"{fa.route(dtype, dh)}_launches"
-    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
-    before = [(w.launches, getattr(w, route)) for w in wrappers]
+    route = fa.route(dtype, dh)
+    before = tracing.counters()
     out = fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale)
     grads = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert [(w.launches, getattr(w, route)) for w in wrappers] == \
-        [(n + 1, r + 1) for n, r in before]
+    assert _counted(before) == {"k4": 1, f"k4.{route}": 1, "k5": 1, f"k5.{route}": 1}
     want = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal, scale=scale)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                **CARD_TOL[dtype])
@@ -523,13 +530,11 @@ def test_flash_attention_simt_route_on_card(shape, dtype, gen, cuda_device):
     q, k, v, g = (torch.from_numpy(gen.standard_normal((b, h, t, dh)).astype(np.float32))
                   .to(cuda_device, dtype) for _ in range(4))
     scale = dh ** -0.5
-    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
-    before = [(w.launches, w.simt_launches, w.tc_launches) for w in wrappers]
+    before = tracing.counters()
     out = fa.flash_attention_fwd(q, k, v, is_causal=causal, scale=scale)
     grads = fa.flash_attention_bwd(q, k, v, g, is_causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert [(w.launches, w.simt_launches, w.tc_launches) for w in wrappers] == \
-        [(n + 1, s + 1, c) for n, s, c in before]
+    assert _counted(before) == {"k4": 1, "k4.simt": 1, "k5": 1, "k5.simt": 1}
     want = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal, scale=scale)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                **FLASH_TOL[dtype])
@@ -560,10 +565,10 @@ def test_attention_block_fp32_passes_straddle_a_tile_on_card(causal, gen, cuda_d
     b, t, d, h = 3, 100, 256, 4
     x, g, args = _block_case(gen, cuda_device, torch.float32, b, t, d)
     k3 = fab.fused_attention_block_bwd
-    before = (k3.launches, k3.tc_launches)
+    before = tracing.counters()
     got = k3(x, g, *args, n_heads=h, causal=causal)
     torch.cuda.synchronize()
-    assert (k3.launches, k3.tc_launches) == (before[0] + 1, before[1])
+    assert _counted(before) == {"k3": 1}
     want = fab.fused_attention_block_bwd_plain(x, g, *args, n_heads=h, causal=causal)
     for name, a, w in zip(("dx", "dqkv", "merged", "dln_s", "dln_b"), got, want):
         assert _within(a, w, GRAD_TOL[torch.float32]), name
@@ -601,11 +606,11 @@ def _vocab_case(gen, dev, rows, d, v, int8):
 @pytest.mark.parametrize("v", [250112, 1001])   # mT5-small's vocab, and an odd V
 def test_vocab_head_kernel_on_card(v, rows, int8, gen, cuda_device):
     x, table, scale = _vocab_case(gen, cuda_device, rows, 512, v, int8)
-    before = vh.vocab_head_logits.launches
+    before = _launched("k8")
     got = vh.vocab_head_logits(x, table, scale)
     want = vh.vocab_head_logits_plain(x, table, scale)
     torch.cuda.synchronize()
-    assert vh.vocab_head_logits.launches == before + 1
+    assert _launched("k8") == before + 1
     assert got.dtype == torch.float32 and tuple(got.shape) == (rows, v)
     # fp32 sums of exact products in another order: relative to the largest logit
     assert _scaled_err(got, want) <= 1e-5
@@ -615,7 +620,7 @@ def test_vocab_head_kernel_on_card(v, rows, int8, gen, cuda_device):
 @pytest.mark.cuda
 def test_vocab_head_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     x, table, _ = _vocab_case(gen, cuda_device, 2, 64, 300, False)
-    before = vh.vocab_head_logits.launches
+    before = _launched("k8")
     with pytest.raises(ValueError, match="bf16 or int8"):
         vh.vocab_head_logits(x, table.half())
     with pytest.raises(ValueError, match="rows"):
@@ -626,7 +631,7 @@ def test_vocab_head_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
         vh.vocab_head_logits(x, table.to(torch.int8))
     with pytest.raises(ValueError, match="one device"):
         vh.vocab_head_logits(x, table.cpu())
-    assert vh.vocab_head_logits.launches == before
+    assert _launched("k8") == before
 
 
 def _int8_block_case(gen, dev, dtype, b, t, d):
@@ -667,11 +672,11 @@ INT8_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 def test_attention_block_int8_kernel_on_card(shape, dtype, gen, cuda_device):
     b, t, d, h, causal = shape
     x, ln, qattn = _int8_block_case(gen, cuda_device, dtype, b, t, d)
-    before = fab8.fused_attention_block_int8.launches
+    before = _launched("k7")
     got = fab8.fused_attention_block_int8(x, ln, qattn, n_heads=h, causal=causal)
     want = _int8_plain(x, ln, qattn, h, causal)
     torch.cuda.synchronize()
-    assert fab8.fused_attention_block_int8.launches == before + 1
+    assert _launched("k7") == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert _scaled_err(got, want) <= INT8_TOL[dtype]
 
@@ -679,7 +684,7 @@ def test_attention_block_int8_kernel_on_card(shape, dtype, gen, cuda_device):
 @pytest.mark.cuda
 def test_attention_block_int8_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     x, ln, qattn = _int8_block_case(gen, cuda_device, torch.bfloat16, 2, 50, 64)
-    before = fab8.fused_attention_block_int8.launches
+    before = _launched("k7")
     with pytest.raises(ValueError, match="does not take"):
         fab8.fused_attention_block_int8(x.half(), ln, qattn, n_heads=4)
     with pytest.raises(ValueError, match="does not take"):
@@ -694,7 +699,7 @@ def test_attention_block_int8_kernel_raises_on_what_it_does_not_take(gen, cuda_d
     with pytest.raises(ValueError, match="b_qkv"):
         fab8.fused_attention_block_int8(x, ln, dict(qattn, b_qkv=qattn["b_qkv"].float()),
                                         n_heads=4)
-    assert fab8.fused_attention_block_int8.launches == before
+    assert _launched("k7") == before
 
 
 # K7's tensor-core route (fab8.route: bf16 at dh=64): every shape of
@@ -712,11 +717,11 @@ def test_attention_block_int8_tensor_cores_on_card(shape, gen, cuda_device):
     b, t, d, h, causal = shape
     x, ln, qattn = _int8_block_case(gen, cuda_device, torch.bfloat16, b, t, d)
     wrapper = fab8.fused_attention_block_int8
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = wrapper(x, ln, qattn, n_heads=h, causal=causal)
     want = _int8_plain(x, ln, qattn, h, causal)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert _counted(before) == {"k7": 1, "k7.tc": 1}
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert _scaled_err(got, want) <= INT8_TOL[torch.bfloat16]
     # no atomics: a second call gives the same bits
@@ -841,7 +846,7 @@ def test_row_attention_pass_on_card(kernel, dtype, shape, gen, cuda_device):
         assert fab.route(dtype, d // h) == "simt"
         x, _, args = _block_case(gen, cuda_device, dtype, b, t, d)
         args = (*args, _b_out(gen, cuda_device, dtype, d))
-        wrapper = fab.fused_attention_block
+        counter = "k1"
 
         def call():
             return fab.fused_attention_block_fwd(x, *args, n_heads=h, causal=causal)
@@ -850,16 +855,16 @@ def test_row_attention_pass_on_card(kernel, dtype, shape, gen, cuda_device):
     else:
         assert fab8.route(dtype, d // h) == "simt"
         x, ln, qattn = _int8_block_case(gen, cuda_device, dtype, b, t, d)
-        wrapper = fab8.fused_attention_block_int8
+        counter = "k7"
 
         def call():
-            return wrapper(x, ln, qattn, n_heads=h, causal=causal)
+            return fab8.fused_attention_block_int8(x, ln, qattn, n_heads=h, causal=causal)
 
         want = _int8_plain(x, ln, qattn, h, causal)
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = call()
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1])
+    assert _counted(before) == {counter: 1}
     assert got.dtype == dtype and got.shape == x.shape
     if kernel == "K1":
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
@@ -881,10 +886,10 @@ def test_failed_build_raises_instead_of_falling_back(gen, cuda_device, tmp_path,
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     x, ln, qattn = _int8_block_case(gen, cuda_device, torch.bfloat16, 2, 50, 64)
-    before = fab8.fused_attention_block_int8.launches
+    before = _launched("k7")
     with pytest.raises(RuntimeError, match="nvcc"):
         fab8.fused_attention_block_int8(x, ln, qattn, n_heads=4)
-    assert fab8.fused_attention_block_int8.launches == before
+    assert _launched("k7") == before
 
 
 def _mlp_case(gen, dev, dtype, b, t, d, hidden):
@@ -904,15 +909,15 @@ def _mlp_call(fn, args):
 
 def test_cpu_mlp_and_normalize_take_the_plain_versions(gen):
     args = _mlp_case(gen, "cpu", torch.float32, 2, 5, 16, 64)
-    before = mlp.fused_mlp_residual.launches
+    before = _launched("k9")
     assert torch.equal(_mlp_call(mlp.fused_mlp_residual, args),
                        mlp.fused_mlp_residual_plain(*args))
-    assert mlp.fused_mlp_residual.launches == before
+    assert _launched("k9") == before
     u8 = torch.from_numpy((gen.random((2, 5, 7, 3)) * 256).astype(np.uint8))
-    before = norm.normalize_u8.launches
+    before = _launched("k6")
     kw = dict(mean=(0.5, 0.4, 0.3), std=(0.2, 0.25, 0.3))
     assert torch.equal(norm.normalize_u8(u8, **kw), norm.normalize_u8_plain(u8, **kw))
-    assert norm.normalize_u8.launches == before
+    assert _launched("k6") == before
 
 
 # K9 against its plain version on the card, relative to the plain output's
@@ -928,11 +933,11 @@ MLP_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
                                    (36, 50, 768, 3072), (3, 7, 40, 100)])
 def test_mlp_residual_kernel_on_card(shape, dtype, gen, cuda_device):
     args = _mlp_case(gen, cuda_device, dtype, *shape)
-    before = mlp.fused_mlp_residual.launches
+    before = _launched("k9")
     got = _mlp_call(mlp.fused_mlp_residual, args)
     want = mlp.fused_mlp_residual_plain(*args)
     torch.cuda.synchronize()
-    assert mlp.fused_mlp_residual.launches == before + 1
+    assert _launched("k9") == before + 1
     assert got.dtype == dtype and got.shape == args[0].shape
     assert _scaled_err(got, want) <= MLP_TOL[dtype]
 
@@ -947,11 +952,11 @@ K9_TC_CASES = [(8, 50, 768, 3072), (36, 50, 768, 3072), (9, 77, 512, 2048), (3, 
 def test_mlp_residual_tensor_cores_on_card(shape, gen, cuda_device):
     args = _mlp_case(gen, cuda_device, torch.bfloat16, *shape)
     wrapper = mlp.fused_mlp_residual
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = _mlp_call(wrapper, args)
     want = mlp.fused_mlp_residual_plain(*args)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert _counted(before) == {"k9": 1, "k9.tc": 1}
     assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
     assert _scaled_err(got, want) <= MLP_TOL[torch.bfloat16]
     assert torch.equal(_mlp_call(wrapper, args), got)   # no atomics: the same bits again
@@ -991,7 +996,7 @@ def test_mlp_residual_output_has_grad_fn_on_card(gen, cuda_device):
 @pytest.mark.cuda
 def test_mlp_residual_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     args = _mlp_case(gen, cuda_device, torch.bfloat16, 2, 5, 64, 256)
-    before = mlp.fused_mlp_residual.launches
+    before = _launched("k9")
     with pytest.raises(ValueError, match="does not take"):
         mlp.fused_mlp_residual_fwd(args[0].half(), *args[1:])
     with pytest.raises(ValueError, match="w_fc"):
@@ -1002,7 +1007,7 @@ def test_mlp_residual_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
         mlp.fused_mlp_residual_fwd(*args[:4], args[4][:100], *args[5:])
     with pytest.raises(ValueError, match="ln_scale"):
         mlp.fused_mlp_residual_fwd(args[0], args[1].cpu(), *args[2:])
-    assert mlp.fused_mlp_residual.launches == before
+    assert _launched("k9") == before
 
 
 # K9's fp32 route (mlp.gemm_route: ln_rows, then gemm_f32 for both products):
@@ -1021,11 +1026,11 @@ def test_mlp_residual_fp32_route_on_card(shape, gen, cuda_device):
     assert mlp.gemm_route(torch.float32, d, hidden) == "gemm_f32"
     args = _mlp_case(gen, cuda_device, torch.float32, *shape)
     wrapper = mlp.fused_mlp_residual
-    before = (wrapper.launches, wrapper.tc_launches)
+    before = tracing.counters()
     got = _mlp_call(wrapper, args)
     want = mlp.fused_mlp_residual_plain(*args)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1])
+    assert _counted(before) == {"k9": 1}
     assert got.dtype == torch.float32 and got.shape == args[0].shape
     assert _scaled_err(got, want) <= MLP_TOL[torch.float32]
     names = _kernel_names(lambda: _mlp_call(wrapper, args))
@@ -1047,10 +1052,10 @@ def test_normalize_u8_kernel_on_card(shape, out_dtype, gen, cuda_device):
     u8 = torch.from_numpy((gen.random(shape) * 256).astype(np.uint8)).to(cuda_device)
     kw = dict(mean=(0.48145466, 0.4578275, 0.40821073),
               std=(0.26862954, 0.26130258, 0.27577711), out_dtype=out_dtype)
-    before = norm.normalize_u8.launches
+    before = _launched("k6")
     got = norm.normalize_u8(u8, **kw)
     torch.cuda.synchronize()
-    assert norm.normalize_u8.launches == before + 1
+    assert _launched("k6") == before + 1
     assert got.dtype == out_dtype and got.shape == u8.shape
     assert torch.equal(got, norm.normalize_u8_plain(u8, **kw))
     # an input one byte into its storage takes the scalar path
@@ -1063,14 +1068,14 @@ def test_normalize_u8_kernel_on_card(shape, out_dtype, gen, cuda_device):
 def test_normalize_u8_kernel_raises_on_what_it_does_not_take(gen, cuda_device):
     u8 = torch.zeros((2, 4, 4, 3), dtype=torch.uint8, device=cuda_device)
     kw = dict(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
-    before = norm.normalize_u8.launches
+    before = _launched("k6")
     with pytest.raises(ValueError, match="uint8"):
         norm.normalize_u8(u8.float(), **kw)
     with pytest.raises(ValueError, match="uint8"):
         norm.normalize_u8(u8[..., :1], **kw)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         norm.normalize_u8(u8, out_dtype=torch.float16, **kw)
-    assert norm.normalize_u8.launches == before
+    assert _launched("k6") == before
 
 
 # K10: [9, 512] is the ViT-B/32 path's feature chunk (9 rows a rank); 13 and 515
@@ -1096,11 +1101,11 @@ def _k10_rank(dp, cases):
     equal = []
     for shape, dtype in cases:
         x = _k10_rows(shape, dp.rank, dtype, dp.device)
-        before = coll.all_gather.launches
+        before = _launched("k10")
         got = coll.all_gather(x, dp)
         torch.cuda.synchronize()
         equal.append(bool(torch.equal(got, coll.all_gather_plain(x, dp)))
-                     and coll.all_gather.launches == before + 1)
+                     and _launched("k10") == before + 1)
     too_big = torch.zeros((dp.peers.capacity // 4 + 1, 1), device=dp.device)
     try:
         coll.all_gather(too_big, dp)
@@ -1315,11 +1320,11 @@ def test_all_gather_on_card_neither_synchronises_nor_meets_a_barrier(monkeypatch
         bases=types.SimpleNamespace(data_ptr=lambda: 1024),
         watchdog=types.SimpleNamespace(watch=lambda *events: watched.append(events)))
     dp.peers = peers
-    before = coll.all_gather.launches
+    before = _launched("k10")
     for _ in range(2):
         out = coll.all_gather(_FakeCudaRows(), dp)
         assert out.shape == (18, 512)
-    assert coll.all_gather.launches == before + 2 and peers.calls == 2
+    assert _launched("k10") == before + 2 and peers.calls == 2
     assert watched == [("event 2", "event 4"), ("event 6", "event 8")]
     chunk = 9 * 512 * 4
     expected = []
@@ -1436,15 +1441,14 @@ def test_predict_batch_on_card_equals_the_cpu(use_beam, tmp_path, gen, cuda_devi
     anns = [Annotation(id=i, file_name=f"{i}.jpg", caption=f"c{i}") for i in range(4)]
     records = {}
     for device in (torch.device("cpu"), cuda_device):
-        for fn in (fab.fused_attention_block, dec.decode_step_attention):
-            fn.launches = 0
+        before = tracing.counters()
         process = make_process(convert.to_params(clip_np, device=device), cfg,
                                convert.to_params(cap_np, device=device), ccfg, gcfg, clip_tok,
                                lm_tok, use_beam=use_beam, policy=DEFAULT_POLICY, device=device)
         with contextlib.redirect_stdout(None):
             records[device.type] = process(anns, staged)
-        launched = (fab.fused_attention_block.launches, dec.decode_step_attention.launches)
-        assert all(launched) == (device.type == "cuda"), launched
+        launched = _counted(before)
+        assert all(launched.get(k) for k in ("k1", "k2")) == (device.type == "cuda"), launched
     assert records["cuda"] == records["cpu"]
 
 

@@ -23,6 +23,7 @@ from construction_clip_tpu.ops.activations import quick_gelu as j_quick_gelu
 from construction_clip_tpu.train import contrastive as jcontrastive
 from construction_clip_tpu.train import state as jstate
 from construction_clip_tpu_torch import convert
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.core.params import as_tree
 from construction_clip_tpu_torch.models import blocks
@@ -110,12 +111,12 @@ def test_plain_matches_pallas_op_by_op_bf16(shape, interpret_mode):
 def test_wrapper_runs_the_plain_version_on_cpu():
     vals, _ = _inputs(0, 2, 5, 16, 64)
     args = _torch_args(vals, torch.float32)
-    before = mlp.fused_mlp_residual.launches
+    before = tracing.counters()
     got = mlp.fused_mlp_residual(args[0], dict(zip(("w_fc", "b_fc", "w_proj", "b_proj"),
                                                    args[3:])),
                                  {"scale": args[1], "bias": args[2]})
     assert torch.equal(got, mlp.fused_mlp_residual_plain(*args))
-    assert mlp.fused_mlp_residual.launches == before
+    assert tracing.counters() == before
 
 
 def test_ref_math_is_the_jax_ref_math():
@@ -170,10 +171,10 @@ def test_supported_gates():
 def test_wrapper_rejects_other_devices():
     vals, _ = _inputs(5, 2, 4, 8, 32)
     args = _torch_args(vals, torch.float32)
-    before = mlp.fused_mlp_residual.launches
+    before = tracing.counters()
     with pytest.raises(ValueError):
         mlp.fused_mlp_residual_fwd(args[0].to("meta"), *args[1:])
-    assert mlp.fused_mlp_residual.launches == before
+    assert tracing.counters() == before
 
 
 @pytest.mark.parametrize("case", ["on", "off", "plain_impl", "gelu"])

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import torch
 
 from construction_clip_tpu.data import preprocess as jpre
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.data import preprocess as pre
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens", "preprocess.npz")
@@ -165,11 +166,11 @@ def test_normalize_u8_wrapper_on_cpu_and_its_checks(rng):
     from construction_clip_tpu_torch.ops import preprocess as ops_pre
 
     u8 = torch.from_numpy(_u8(rng, (2, 6, 4, 3)))
-    before = ops_pre.normalize_u8.launches
+    before = tracing.counters()
     got = ops_pre.normalize_u8(u8, mean=pre.CLIP_MEAN, std=pre.CLIP_STD)
     assert torch.equal(got, ops_pre.normalize_u8_plain(u8, mean=pre.CLIP_MEAN,
                                                        std=pre.CLIP_STD))
-    assert ops_pre.normalize_u8.launches == before
+    assert tracing.counters() == before
     for bad in (u8.float(), u8[..., :2], u8[0]):
         with pytest.raises(ValueError, match="uint8"):
             ops_pre.normalize_u8(bad, mean=pre.CLIP_MEAN, std=pre.CLIP_STD)

@@ -15,6 +15,7 @@ from construction_clip_tpu.models import t5 as jt5
 from construction_clip_tpu.ops import pallas_vocab_head as jvh
 from construction_clip_tpu.ops import quant as jquant
 from construction_clip_tpu_torch import convert
+from construction_clip_tpu_torch.core import tracing
 from construction_clip_tpu_torch.core.configs import T5Config
 from construction_clip_tpu_torch.core.params import as_tree
 from construction_clip_tpu_torch.core.precision import BF16_POLICY
@@ -73,9 +74,9 @@ def test_supported_keeps_the_small_batch_and_dtype_rules():
 def test_cpu_wrapper_takes_the_plain_version_and_checks_its_arguments(rng):
     table = torch.from_numpy(rng.standard_normal((D, 100)).astype(np.float32)).bfloat16()
     x = torch.from_numpy(rng.standard_normal((2, D)).astype(np.float32))
-    before = vh.vocab_head_logits.launches
+    before = tracing.counters()
     assert torch.equal(vh.vocab_head_logits(x, table), vh.vocab_head_logits_plain(x, table))
-    assert vh.vocab_head_logits.launches == before
+    assert tracing.counters() == before
     with pytest.raises(ValueError, match="scale"):
         vh.vocab_head_logits(x, table.to(torch.int8))
     with pytest.raises(ValueError, match="scale"):
