@@ -51,14 +51,17 @@ Phases, each printing one line (the last line is the JSON verdict):
      SIMT numbers at [9,16,257,64] beside the tensor-core ones.
   9. ViT-B/32 contrastive training at full width and depth, bf16, B=36 (4
      class-balanced groups of 9): 10 make_train_step steps on one batch; the
-     loss must fall; launch counts of K1 and K3, every K1 and K3 launch on
-     the tensor-core route; the median step, and a step's device time (its
+     loss must fall; launch counts of K1, K3 and E1 (phase 52's kernel), every
+     K1 and K3 launch on the tensor-core route; the median step, and a step's
+     device time (its
      kernels under torch.profiler; so in every training phase in one process).
  10. ViT-L/14 contrastive training at full width and depth, bf16, B=9, 3 steps;
      K4 and K5 launch from the image tower, K1 and K3 from the text tower,
      every K1/K3/K4/K5 launch on the tensor-core route; the median step time.
  11. the kernel path against the plain path in fp32: loss and every gradient
-     leaf over 2 ViT-B/32 steps from the same params.
+     leaf over 2 ViT-B/32 steps from the same params; the kernel path launches
+     K1, K3 and E1, the plain path no hand kernel (so the token table's
+     gradient is held to autograd's own backward of the gather).
  12. K8, the vocab-head GEMV, against its plain version at mT5-small's head
      (D=512, V=250112) at B=1 and B=8, bf16 and int8 + scale, and at a V that
      is not a multiple of its column tile; times, device times and the table
@@ -218,8 +221,8 @@ Phases, each printing one line (the last line is the JSON verdict):
      (image, violation_list) pairs, the images through TorchImageTextLoader's
      load_image hook (no PIL), then its eval and checkpoints: K1 and K3
      launch 24 times a step (K1 also 24 an eval batch), all on the tensor
-     cores; the first batch's loss falls; the median step and its device
-     time.
+     cores, and E1 once a step; the first batch's loss falls; the median step
+     and its device time.
  38. mT5 caption training with the transformer mapper (width 512, 8 heads of
      64), full fine-tune, bf16, 3 steps of B=40: K1 and K3 launch 8 times a
      step, all on the tensor cores; then one predict_t5 batch of 8 on the
@@ -336,10 +339,24 @@ Phases, each printing one line (the last line is the JSON verdict):
      24 launches a batch, none on the tensor cores); the probabilities
      against the same batch under use_impl("plain") (FUSED_FEATURE_TOL's
      fp32 bound, the same top-1); host ms, device ms, the largest kernels.
-Each of phases 42-45, 47 and 51 prints its wall seconds; phases 48-50 run in one
-spawn of ranks and print theirs together. `--only NAME[,NAME]` (the names of
-SUBSETS) runs the device line and those phases alone, without the verdict,
-for a quicker look; the gate is the run without arguments.
+ 52. E1, the token-embedding backward (ops/embedding.embedding_backward,
+     csrc/embedding_bwd.cu; the JAX package's is XLA's, no Pallas kernel)
+     against its plain version (fp64 sums rounded once) in bf16 at the
+     training cells' text batches, ids [504, 77] into ViT-B/32's [49408, 512]
+     table and [108, 77] into ViT-L/14's [49408, 768], the ids padded as the
+     app's tokenizer pads them (SOT, ids, EOT at 8-40, zeros after), and at
+     one id for all rows and all-distinct ids: within one bf16 step, rows no
+     id names exactly 0, two calls bit-identical, one `embed_bwd` count a
+     call; device ms (every launch of a call, the sort's included, under
+     torch.profiler) beside the bytes bound and index_put_(accumulate=True),
+     the backward PyTorch gives table[ids].
+Each of phases 42-45, 47, 51 and 52 prints its wall seconds; phases 48-50 run in
+one spawn of ranks and print theirs together. `--only NAME[,NAME]` (the names
+of SUBSETS) runs the device line and those phases alone, without the verdict,
+for a quicker look; the gate is the run without arguments. `--only clip_train`
+runs phases 9-11, 22, 24-26 and 37, every CLIP training phase (each runs E1
+in the text tower's backward), in that order; the run without arguments runs
+them among the others.
 Any failed check raises, so the script exits nonzero and prints no verdict.
 The line before the verdict lists every kernel with its launches on the main
 paths, its error and time against its plain version, its bound (the least
@@ -403,6 +420,8 @@ from construction_clip_tpu_torch.ops.attention_block_int8 import (  # noqa: E402
     fused_attention_block_int8, fused_attention_block_int8_plain, gemm_route)
 from construction_clip_tpu_torch.ops.decode_attention import (  # noqa: E402
     chunk_count, decode_step_attention, decode_step_attention_plain)
+from construction_clip_tpu_torch.ops.embedding import (  # noqa: E402
+    embedding_backward, embedding_backward_plain)
 from construction_clip_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
@@ -493,13 +512,18 @@ KERNELS = {
     "all_gather": dict(
         route="cuda", source="construction_clip_tpu_torch/csrc/all_gather.cu",
         replaces="construction_clip_tpu/ops/pallas_collectives.py:58"),
+    "embedding_backward": dict(
+        route="cuda", source="construction_clip_tpu_torch/csrc/embedding_bwd.cu",
+        replaces="none: XLA's backward of the gather at construction_clip_tpu/models/clip/"
+                 "model.py:129"),
 }
 # the wrappers of K1-K10, each with the counter of its launches (core/tracing)
 WRAPPERS = {"fused_attention_block": "k1", "decode_step_attention": "k2",
             "fused_attention_block_bwd": "k3", "flash_attention_fwd": "k4",
             "flash_attention_bwd": "k5", "normalize_u8": "k6",
             "fused_attention_block_int8": "k7", "vocab_head_logits": "k8",
-            "fused_mlp_residual": "k9", "all_gather": "k10"}
+            "fused_mlp_residual": "k9", "all_gather": "k10",
+            "embedding_backward": "embed_bwd"}
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s and operations/s by operand type.
@@ -1487,6 +1511,103 @@ def phase_train(name: str, cfg, params_np, batch, steps: int, device) -> dict:
     return out
 
 
+def train_vit_b_32(cfg, clip_np, clip_tok) -> dict:
+    """Phase 9."""
+    batch = class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
+    out = phase_train("vit_b_32", cfg, clip_np, batch, 10, "cuda")
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"ViT-B/32 loss did not fall: {out['losses']}")
+    for name in ("fused_attention_block", "fused_attention_block_bwd", "embedding_backward"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in ViT-B/32 training")
+    check_tc_route("ViT-B/32 bf16", out["launches"], out["tc_launches"],
+                   ("fused_attention_block", "fused_attention_block_bwd"))
+    say("train_vit_b_32_tensor_cores", median_step_ms=out["median_step_ms"],
+        tc_launches=out["tc_launches"], batch=out["batch"])
+    return out
+
+
+def train_vit_l_14(cfg_l, clip_l_np, clip_tok) -> dict:
+    """Phase 10."""
+    batch = class_balanced_batch(cfg_l, clip_tok, 1, 10, "cuda")
+    out = phase_train("vit_l_14", cfg_l, clip_l_np, batch, 3, "cuda")
+    train_kernels = ("fused_attention_block", "fused_attention_block_bwd",
+                     "flash_attention_fwd", "flash_attention_bwd", "embedding_backward")
+    if min(out["launches"][n] for n in train_kernels) <= 0:
+        raise AssertionError(f"a kernel of ViT-L/14 training never launched: "
+                             f"{out['launches']}")
+    check_tc_route("ViT-L/14 bf16", out["launches"], out["tc_launches"])
+    say("train_vit_l_14_tensor_cores", tc_launches=out["tc_launches"],
+        median_step_ms=out["median_step_ms"], batch=out["batch"])
+    return out
+
+
+def train_fused_mlp(cfg, clip_np, clip_tok, default: dict) -> None:
+    """Phase 22 beside phase 9's run (`default`), then its fp32 parity."""
+    batch = class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")
+    with fused_mlp():
+        out = phase_train("vit_b_32_fused_mlp", cfg, clip_np, batch, 5, "cuda")
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"ViT-B/32 fused-MLP loss did not fall: {out['losses']}")
+    for name in ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in fused-MLP ViT-B/32 training")
+    check_tc_route("fused-MLP ViT-B/32 bf16", out["launches"], out["tc_launches"],
+                   ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"))
+    say("train_fused_mlp_vs_default", fused_median_step_ms=out["median_step_ms"],
+        default_median_step_ms=default["median_step_ms"],
+        fused_step_device_ms=out["step_device_ms"],
+        default_step_device_ms=default["step_device_ms"], batch=out["batch"])
+    batch = class_balanced_batch(cfg, clip_tok, 2, 11, "cuda")
+    with fused_mlp():
+        phase_train_parity(cfg, clip_np, batch, "cuda",
+                           need=("fused_attention_block", "fused_attention_block_bwd",
+                                 "fused_mlp_residual", "embedding_backward"),
+                           name="train_parity_fused_mlp")
+
+
+def train_data_parallel(cfg, cfg_l, clip_l_np, clip_tok, one_process_losses: list):
+    """Phases 24-26, phase 24's ranks held to phase 9's `one_process_losses`;
+    returns phase 24's counts and the context phase 48 reads."""
+    batch = class_balanced_batch(cfg, clip_tok, 4, 9, "cuda")   # phase 9's
+    dp_counts = phase_dp_train("dp_train_vit_b_32", cfg, 0, batch, K10_WORLD, 5,
+                               need=("fused_attention_block", "fused_attention_block_bwd",
+                                     "embedding_backward"),
+                               one_process_losses=one_process_losses)
+    batch = class_balanced_batch(cfg, clip_tok, 4, 11, "cuda")
+    phase_dp_parity(cfg, 0, batch, K10_WORLD)
+    batch = class_balanced_batch(cfg_l, clip_tok, 2, 10, "cuda")
+    # the same 2 steps in one process: ViT-L/14's loss may rise at this lr, so the
+    # ranks are held to this run and not to a falling loss
+    one_process = phase_train("vit_l_14_b18", cfg_l, clip_l_np, batch, 2, "cuda")
+    torch.cuda.empty_cache()
+    dp26 = phase_dp_train("dp_train_vit_l_14", cfg_l, 2, batch, 2, 2,
+                          need=("flash_attention_fwd", "flash_attention_bwd",
+                                "fused_attention_block", "fused_attention_block_bwd",
+                                "embedding_backward"),
+                          one_process_losses=one_process["losses"], must_fall=False)
+    # phase 48 holds its tensor-parallel ranks to this run and beside these ranks
+    return dp_counts, {"vit_l_14_b18": one_process,
+                       "dp_peaks": dp26["peak_memory_gib_by_rank"], "clip_l_np": clip_l_np}
+
+
+def phase_clip_training(ctx: dict) -> None:
+    """Phases 9-11, 22, 24-26 and 37 in that order (`--only clip_train`); the
+    context phase 48 reads goes into `ctx`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_tok, _ = tokenizers(tmp)
+    cfg, cfg_l = CLIPConfig.vit_b_32(), CLIPConfig.vit_l_14()
+    clip_np, clip_l_np = convert.init_clip(0, cfg), convert.init_clip(2, cfg_l)
+    default = train_vit_b_32(cfg, clip_np, clip_tok)
+    train_vit_l_14(cfg_l, clip_l_np, clip_tok)
+    phase_train_parity(cfg, clip_np, class_balanced_batch(cfg, clip_tok, 2, 11, "cuda"), "cuda")
+    train_fused_mlp(cfg, clip_np, clip_tok, default)
+    del clip_np
+    ctx.update(train_data_parallel(cfg, cfg_l, clip_l_np, clip_tok, default["losses"][:5])[1])
+    torch.cuda.empty_cache()
+    phase_clip_caption(cfg, clip_tok)
+
+
 def _paths(tree, prefix=""):
     """The leaves' paths of nested dicts and lists, in tree_leaves' order."""
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
@@ -1498,7 +1619,8 @@ def _paths(tree, prefix=""):
 
 
 def phase_train_parity(cfg, params_np, batch, device,
-                       need=("fused_attention_block", "fused_attention_block_bwd"),
+                       need=("fused_attention_block", "fused_attention_block_bwd",
+                             "embedding_backward"),
                        name="train_parity") -> None:
     """2 fp32 steps from the same params on the kernel path and on the plain
     path; the loss and every gradient leaf of both steps compared. A leaf's
@@ -2068,6 +2190,87 @@ def phase_k6(results: dict) -> None:
                 results["normalize_u8"] = stats
             del got, want
         del u8
+    torch.cuda.empty_cache()
+
+
+# E1 cases (ids [B, 77], table width, ids): the training cells' text batches
+# into the 49,408-row table, then one id for all rows and all-distinct ids at
+# the first: the time must not follow the longest run of equal ids
+E1_V = 49408
+E1_CASES = (((504, 77), 512, "padded"), ((108, 77), 768, "padded"),
+            ((504, 77), 512, "one_id"), ((504, 77), 512, "distinct"))
+
+
+def e1_ids(rng, shape, kind: str):
+    """Token ids [B, T]: padded as the app's tokenizer pads them (SOT, ids
+    below it, EOT at a position in 8-40, zeros after), one id, or distinct."""
+    b, t = shape
+    if kind == "one_id":
+        return np.zeros(shape, np.int64)
+    if kind == "distinct":
+        return rng.permutation(E1_V)[: b * t].reshape(shape)
+    ends = rng.integers(8, 41, (b, 1))
+    pos = np.arange(t)[None, :]
+    ids = np.where(pos < ends, rng.integers(1, E1_V - 2, shape), 0)
+    ids = np.where(pos == ends, E1_V - 1, ids)
+    ids[:, 0] = E1_V - 2
+    return ids
+
+
+def phase_e1(results: dict) -> None:
+    """E1 against its plain version at E1_CASES (phase 52)."""
+    rng = np.random.default_rng(52)
+    for shape, d, kind in E1_CASES:
+        ids = torch.from_numpy(e1_ids(rng, shape, kind)).cuda()
+        grad = torch.from_numpy(rng.standard_normal((*shape, d)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        flat, rows = ids.reshape(-1), grad.reshape(-1, d)
+
+        def kernel():
+            return embedding_backward(ids, grad, E1_V)
+
+        def plain():
+            return embedding_backward_plain(ids, grad, E1_V)
+
+        def library():
+            return torch.zeros((E1_V, d), dtype=grad.dtype, device="cuda").index_put_(
+                (flat,), rows, accumulate=True)
+
+        what = f"E1 {list(shape)} -> [{E1_V}, {d}] {kind}"
+        before = counted("embed_bwd")
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if counted("embed_bwd") != before + 2:
+            raise AssertionError(f"{what}: {counted('embed_bwd') - before} embed_bwd counts "
+                                 f"in 2 calls")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls differ")
+        want = plain()
+        err = (got.float() - want.float()).abs()
+        # one bf16 step (7 stored mantissa bits) at the larger of the two values
+        larger = torch.maximum(got.float().abs(), want.float().abs())
+        step = torch.exp2(torch.floor(torch.log2(larger.clamp_min(
+            torch.finfo(torch.bfloat16).tiny))) - 7)
+        steps = float((err / step).max())
+        absent = torch.ones(E1_V, dtype=torch.bool, device="cuda")
+        absent[flat] = False
+        if steps > 1.0 or not bool((got[absent] == 0).all()):
+            raise AssertionError(f"{what}: {steps} bf16 steps from its plain version, or a "
+                                 f"row no id names is not 0")
+        per = kernel_device_ms(kernel)
+        stats = {"max_abs_err": float(err.max()), "max_bf16_steps": steps,
+                 "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                 "device_ms": sum(per.values()), "launch_device_ms": per,
+                 # index_put_ follows the longest run: 26-39 ms a call at 504 x 77
+                 "library_ms": median_ms(library, 5, 2),
+                 "library_device_ms": sum(kernel_device_ms(library, reps=4).values())}
+        # one fp32 add an element of grad; ids and grad read, dW written
+        stats.update(bound(nbytes(ids, grad, got), {torch.float32: flat.numel() * d}))
+        say("e1", shape=list(shape), width=d, ids=kind, rows_on_id_0=int((flat == 0).sum()),
+            share_of_bound=stats["bound_ms"] / stats["device_ms"], **stats)
+        if kind == "padded" and d == 512:
+            results["embedding_backward"] = stats
+        del got, again, want, ids, grad
     torch.cuda.empty_cache()
 
 
@@ -3504,7 +3707,8 @@ def phase_clip_caption(cfg, clip_tok, device="cuda") -> dict:
     pairs of CaptionPairDataset, the images through TorchImageTextLoader's
     load_image hook (synthetic arrays, no PIL), then the epoch's eval and
     checkpoints. K1 and K3 launch once a tower block a step (K1 also in
-    each eval batch), all on the tensor cores; the first batch's loss after
+    each eval batch), all on the tensor cores, and E1 once a step; the first
+    batch's loss after
     the epoch is below its loss at the first step; the median step and its
     device time are read from the app's steps."""
     from unittest import mock
@@ -3568,7 +3772,8 @@ def phase_clip_caption(cfg, clip_tok, device="cuda") -> dict:
     eval_batches = (n - n_train) // CLIP_CAPTION_BATCH   # the loader drops a last part
     want = {name: 0 for name in WRAPPERS}
     want.update(fused_attention_block=blocks_a_pass * (CLIP_CAPTION_STEPS + eval_batches),
-                fused_attention_block_bwd=blocks_a_pass * CLIP_CAPTION_STEPS)
+                fused_attention_block_bwd=blocks_a_pass * CLIP_CAPTION_STEPS,
+                embedding_backward=CLIP_CAPTION_STEPS)
     need = ("fused_attention_block", "fused_attention_block_bwd")
     out = {"batch": CLIP_CAPTION_BATCH, "steps": len(seen["losses"]),
            "losses": seen["losses"], "first_batch_loss_after": first_after,
@@ -5198,8 +5403,13 @@ SUBSETS = {"detection_train": ("42", lambda ctx: phase_detection_train()),
                *tensor_parallel_inputs(ctx))),
            "pipeline_parallel": ("49", lambda ctx: pipeline_parallel_job()),
            "expert_parallel": ("50", lambda ctx: expert_parallel_job()),
-           "zeroshot_l14": ("51", phase_zeroshot_l14)}
+           "zeroshot_l14": ("51", phase_zeroshot_l14),
+           "embedding_backward": ("52", lambda ctx: phase_e1(ctx.setdefault("results", {}))),
+           "clip_train": ("9-11,22,24-26,37", phase_clip_training)}
 PARALLEL = ("tensor_parallel", "pipeline_parallel", "expert_parallel")
+# subsets the run without arguments does not run as such: it runs their phases
+# in its own order
+ALONE = ("clip_train",)
 
 
 def run_phases(names: list, ctx: dict | None = None) -> None:
@@ -5251,33 +5461,13 @@ def main() -> None:
     serve5 = {k: serve5[k] for k in ("req_per_s", "warm_single_request_s")}
     phase_parity(clip_np, cap_np, cfgs, clip_tok, lm_tok, "cuda")
 
-    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
-    out = vit_b_32_default = phase_train("vit_b_32", cfgs[0], clip_np, batch, 10, "cuda")
-    if not out["losses"][-1] < out["losses"][0]:
-        raise AssertionError(f"ViT-B/32 loss did not fall: {out['losses']}")
-    for name in ("fused_attention_block", "fused_attention_block_bwd"):
-        if out["launches"][name] <= 0:
-            raise AssertionError(f"{name} never launched in ViT-B/32 training")
-    check_tc_route("ViT-B/32 bf16", out["launches"], out["tc_launches"],
-                   ("fused_attention_block", "fused_attention_block_bwd"))
-    say("train_vit_b_32_tensor_cores", median_step_ms=out["median_step_ms"],
-        tc_launches=out["tc_launches"], batch=out["batch"])
-    counts["fused_attention_block_bwd"] = out["launches"]["fused_attention_block_bwd"]
-
+    out = vit_b_32_default = train_vit_b_32(cfgs[0], clip_np, clip_tok)
+    counts.update({n: out["launches"][n]
+                   for n in ("fused_attention_block_bwd", "embedding_backward")})
     cfg_l = CLIPConfig.vit_l_14()
-    batch = class_balanced_batch(cfg_l, clip_tok, 1, 10, "cuda")
     clip_l_np = convert.init_clip(2, cfg_l)   # phases 10, 26 and 51
-    out = phase_train("vit_l_14", cfg_l, clip_l_np, batch, 3, "cuda")
-    train_kernels = ("fused_attention_block", "fused_attention_block_bwd",
-                     "flash_attention_fwd", "flash_attention_bwd")
-    if min(out["launches"][n] for n in train_kernels) <= 0:
-        raise AssertionError(f"a kernel of ViT-L/14 training never launched: "
-                             f"{out['launches']}")
-    check_tc_route("ViT-L/14 bf16", out["launches"], out["tc_launches"])
-    say("train_vit_l_14_tensor_cores", tc_launches=out["tc_launches"],
-        median_step_ms=out["median_step_ms"], batch=out["batch"])
+    out = train_vit_l_14(cfg_l, clip_l_np, clip_tok)
     counts.update({n: out["launches"][n] for n in ("flash_attention_fwd", "flash_attention_bwd")})
-
     batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
     phase_train_parity(cfgs[0], clip_np, batch, "cuda")
 
@@ -5301,49 +5491,14 @@ def main() -> None:
     counts.update({n: zs_counts[n] for n in ("normalize_u8", "fused_mlp_residual")})
     phase_zeroshot_fp32(clip_np, cfgs[0], clip_tok, "cuda")
     phase_precompute(clip_np, cfgs[0], clip_tok, "cuda")
-    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")
-    with fused_mlp():
-        out = phase_train("vit_b_32_fused_mlp", cfgs[0], clip_np, batch, 5, "cuda")
-    if not out["losses"][-1] < out["losses"][0]:
-        raise AssertionError(f"ViT-B/32 fused-MLP loss did not fall: {out['losses']}")
-    for name in ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"):
-        if out["launches"][name] <= 0:
-            raise AssertionError(f"{name} never launched in fused-MLP ViT-B/32 training")
-    check_tc_route("fused-MLP ViT-B/32 bf16", out["launches"], out["tc_launches"],
-                   ("fused_attention_block", "fused_attention_block_bwd", "fused_mlp_residual"))
-    say("train_fused_mlp_vs_default", fused_median_step_ms=out["median_step_ms"],
-        default_median_step_ms=vit_b_32_default["median_step_ms"],
-        fused_step_device_ms=out["step_device_ms"],
-        default_step_device_ms=vit_b_32_default["step_device_ms"], batch=out["batch"])
-    batch = class_balanced_batch(cfgs[0], clip_tok, 2, 11, "cuda")
-    with fused_mlp():
-        phase_train_parity(cfgs[0], clip_np, batch, "cuda",
-                           need=("fused_attention_block", "fused_attention_block_bwd",
-                                 "fused_mlp_residual"), name="train_parity_fused_mlp")
+    train_fused_mlp(cfgs[0], clip_np, clip_tok, vit_b_32_default)
 
     phase_k10(results)
-    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 9, "cuda")   # phase 9's
-    dp_counts = phase_dp_train("dp_train_vit_b_32", cfgs[0], 0, batch, K10_WORLD, 5,
-                               need=("fused_attention_block", "fused_attention_block_bwd"),
-                               one_process_losses=vit_b_32_default["losses"][:5])
-    counts["all_gather"] = dp_counts["launches"]["all_gather"]
-    batch = class_balanced_batch(cfgs[0], clip_tok, 4, 11, "cuda")
-    phase_dp_parity(cfgs[0], 0, batch, K10_WORLD)
-    batch = class_balanced_batch(cfg_l, clip_tok, 2, 10, "cuda")
     del clip_np, cap_np
-    # the same 2 steps in one process: ViT-L/14's loss may rise at this lr, so the
-    # ranks are held to this run and not to a falling loss
-    one_process = phase_train("vit_l_14_b18", cfg_l, clip_l_np, batch, 2, "cuda")
-    torch.cuda.empty_cache()
-    dp26 = phase_dp_train("dp_train_vit_l_14", cfg_l, 2, batch, 2, 2,
-                          need=("flash_attention_fwd", "flash_attention_bwd",
-                                "fused_attention_block", "fused_attention_block_bwd"),
-                          one_process_losses=one_process["losses"], must_fall=False)
-    # phase 48 holds its tensor-parallel ranks to this run and beside these ranks
-    parallel_ctx = {"vit_l_14_b18": one_process,
-                    "dp_peaks": dp26["peak_memory_gib_by_rank"], "clip_l_np": clip_l_np}
+    dp_counts, parallel_ctx = train_data_parallel(cfgs[0], cfg_l, clip_l_np, clip_tok,
+                                                  vit_b_32_default["losses"][:5])
+    counts["all_gather"] = dp_counts["launches"]["all_gather"]
     del clip_l_np
-    del batch
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -5381,7 +5536,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_eval_detection()
     torch.cuda.empty_cache()
-    run_phases(list(SUBSETS), parallel_ctx)
+    parallel_ctx["results"] = results   # phase 52's line in the kernels line
+    run_phases([n for n in SUBSETS if n not in ALONE], parallel_ctx)
     kernels = [{"name": name, **KERNELS[name], "launches": counts[name],
                 **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by", "library_ms")},

@@ -13,8 +13,9 @@
 
 namespace cct {
 
-// kInt8 is a storage type only (K8's quantized table), never a compute type.
-enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
+// kInt8 is a storage type only (K8's quantized table), never a compute type;
+// kFloat16 is taken by the embedding backward alone.
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2, kFloat16 = 3 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

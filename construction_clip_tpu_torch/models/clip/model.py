@@ -17,6 +17,7 @@ from construction_clip_tpu_torch.core.configs import CLIPConfig
 from construction_clip_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from construction_clip_tpu_torch.models.blocks import apply_stack
 from construction_clip_tpu_torch.ops.activations import quick_gelu
+from construction_clip_tpu_torch.ops.embedding import embedding
 from construction_clip_tpu_torch.ops.norms import layer_norm
 
 
@@ -72,7 +73,7 @@ def encode_text(params, cfg: CLIPConfig, tokens, *, policy: Policy = DEFAULT_POL
     t = cfg.text
     p = policy.cast_to_compute(params["text"])
     tokens = tokens.long()
-    x = p["tok_emb"][tokens] + p["pos_emb"][: tokens.shape[1]]
+    x = embedding(p["tok_emb"], tokens) + p["pos_emb"][: tokens.shape[1]]
     x = apply_stack(p["blocks"], x, n_heads=t.heads, act=_act(cfg), is_causal=True,
                     return_probs=return_probs, probs_probe=probs_probe, tp=tp)
     x, probs = x if return_probs else (x, None)

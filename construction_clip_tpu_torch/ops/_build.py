@@ -64,6 +64,11 @@ SIGNATURES = {
     "cct_mlp_residual_tc": ([_I] + [_P] * 9 + [_I] * 3 + [_F, _P], _I),
     # out_dtype, in, out, n, scale, mean[3], inv_std[3], stream
     "cct_normalize_u8": ([_I, _P, _P, _L] + [_F] * 7 + [_P], _I),
+    # id_type, ids, keys, n, v, stream
+    "cct_embedding_keys": ([_I, _P, _P, _L, _I, _P], _I),
+    # dtype, sorted keys, rows, grad, dw, work, n, d, v, stream
+    "cct_embedding_bwd": ([_I] + [_P] * 5 + [_L, _I, _I, _P], _I),
+    "cct_embedding_bwd_work_bytes": ([_L, _I, _I], _L),
     # K10's staging buffers: bytes, &ptr / ptr / ptr, handle[64] / handle[64], &ptr /
     # ptr
     "cct_peer_alloc": ([_L, ctypes.POINTER(_P)], _I),

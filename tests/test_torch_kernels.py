@@ -57,7 +57,7 @@ def test_nvcc_command_targets_hopper():
         assert _build.library_path(src).name.startswith(f"libcct_{src.stem}_")
     assert sources == {"all_gather.cu", "attention_block.cu", "attention_block_bwd.cu",
                        "attention_block_int8.cu", "decode_attention.cu", "flash_attention.cu",
-                       "mlp_residual.cu", "normalize_u8.cu", "vocab_head.cu"}
+                       "embedding_bwd.cu", "mlp_residual.cu", "normalize_u8.cu", "vocab_head.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
 
